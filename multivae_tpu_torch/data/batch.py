@@ -1,0 +1,103 @@
+"""The batch consumed by every model's compute path.
+
+Counterpart of ``multivae_tpu/data/batch.py``, as a plain dataclass of
+tensors:
+
+- ``masks`` is always present (all-ones for complete datasets), so complete
+  and incomplete data run the same code; models simply multiply;
+- ``weights`` is 0 on the padding rows the loader adds to keep every batch
+  the same size, 1 elsewhere;
+- ``incomplete`` says whether the source dataset declared masks.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+
+def _tensor(x, dtype=None) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x if dtype is None else x.to(dtype)
+    arr = np.asarray(x)
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    return t if dtype is None else t.to(dtype)
+
+
+@dataclasses.dataclass
+class MultimodalBatch:
+    """A batch of multimodal data.
+
+    Attributes:
+        data: modality name -> tensor of shape (B, *modality_dims).
+        masks: modality name -> float (B,) availability (1 = available).
+        weights: float (B,) sample weights; 0 marks padding samples.
+        labels: optional (B,) labels.
+        incomplete: did the source dataset declare masks?
+    """
+
+    data: Dict[str, torch.Tensor]
+    masks: Dict[str, torch.Tensor]
+    weights: torch.Tensor
+    labels: Optional[torch.Tensor] = None
+    incomplete: bool = False
+
+    @property
+    def n_samples(self) -> int:
+        return next(iter(self.data.values())).shape[0]
+
+    def to(self, device, non_blocking: bool = False) -> "MultimodalBatch":
+        def mv(t):
+            return None if t is None else t.to(device, non_blocking=non_blocking)
+
+        return MultimodalBatch(
+            data={k: mv(v) for k, v in self.data.items()},
+            masks={k: mv(v) for k, v in self.masks.items()},
+            weights=mv(self.weights),
+            labels=mv(self.labels),
+            incomplete=self.incomplete,
+        )
+
+
+def batch_from_arrays(data: dict, masks: Optional[dict] = None, labels=None,
+                      weights=None, dtype=torch.float32,
+                      incomplete: Optional[bool] = None) -> MultimodalBatch:
+    """Build a MultimodalBatch from numpy arrays or tensors, filling
+    defaults (all-ones masks and weights)."""
+    if incomplete is None:
+        incomplete = masks is not None
+    data = {k: _tensor(v) for k, v in data.items()}
+    n = next(iter(data.values())).shape[0]
+    if masks is None:
+        masks = {k: torch.ones(n, dtype=dtype) for k in data}
+    else:
+        masks = {k: _tensor(masks[k], dtype).reshape(n) for k in data}
+    weights = (torch.ones(n, dtype=dtype) if weights is None
+               else _tensor(weights, dtype))
+    if labels is not None:
+        labels = _tensor(labels)
+    return MultimodalBatch(data=data, masks=masks, weights=weights,
+                           labels=labels, incomplete=bool(incomplete))
+
+
+def as_batch(inputs) -> MultimodalBatch:
+    """Coerce user inputs to a MultimodalBatch.
+
+    Accepts a MultimodalBatch (pass-through), a dataset / DatasetOutput /
+    dict exposing ``data`` (and optional ``masks`` / ``labels``), or a bare
+    dict of modality arrays.
+    """
+    if isinstance(inputs, MultimodalBatch):
+        return inputs
+    if isinstance(inputs, dict) and "data" not in inputs:
+        return batch_from_arrays(data=inputs)
+    if isinstance(inputs, dict):
+        return batch_from_arrays(data=inputs["data"],
+                                 masks=inputs.get("masks"),
+                                 labels=inputs.get("labels"))
+    return batch_from_arrays(data=inputs.data,
+                             masks=getattr(inputs, "masks", None),
+                             labels=getattr(inputs, "labels", None))

@@ -1,0 +1,85 @@
+"""BaseModel: config plumbing, save/load, model registry.
+
+Counterpart of ``multivae_tpu/models/base/base_model.py``. A model is an
+``nn.Module``; its weights are its ``state_dict``, saved as ``model.pt``
+beside ``model_config.json`` and ``environment.json`` (the JAX package
+writes ``model.msgpack`` in the same layout). Custom architectures are
+pickled per entry of ``model_config.custom_architectures``, as the JAX
+package does with cloudpickle; loading them runs code from the pickle, so
+load only folders you wrote.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ...utils.config import EnvironmentConfig, get_config_class
+
+
+class BaseModel(nn.Module):
+    """Root class of all models: holds the config and the modules."""
+
+    model_name = "BaseModel"
+
+    def __init__(self, model_config):
+        super().__init__()
+        self.model_config = model_config
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+    # ------------------------------------------------------------ save/load
+    def save(self, dir_path: str, state_dict: Optional[dict] = None):
+        """Save the config, the weights (``state_dict``, default the live
+        one) and any custom architectures."""
+        os.makedirs(dir_path, exist_ok=True)
+        env = EnvironmentConfig(
+            python_version=f"{sys.version_info[0]}.{sys.version_info[1]}")
+        env.save_json(dir_path, "environment")
+        self.model_config.save_json(dir_path, "model_config")
+        torch.save(self.state_dict() if state_dict is None else state_dict,
+                   os.path.join(dir_path, "model.pt"))
+        for arch_name in set(self.model_config.custom_architectures):
+            torch.save(dict(getattr(self, arch_name)),
+                       os.path.join(dir_path, f"{arch_name}.pkl"))
+
+    @classmethod
+    def _load_custom_architectures(cls, dir_path: str, config) -> dict:
+        kwargs = {}
+        for arch_name in set(config.custom_architectures):
+            path = os.path.join(dir_path, f"{arch_name}.pkl")
+            if not os.path.exists(path):
+                raise FileNotFoundError(
+                    f"Missing custom architecture file {path} referenced by the "
+                    "model config.")
+            kwargs[arch_name] = torch.load(path, map_location="cpu",
+                                           weights_only=False)
+        return kwargs
+
+    @classmethod
+    def config_class(cls):
+        return get_config_class(cls.__name__ + "Config")
+
+    @classmethod
+    def load_from_folder(cls, dir_path: str, device="cuda") -> "BaseModel":
+        """Reload a model saved with ``save`` onto ``device``."""
+        config_path = os.path.join(dir_path, "model_config.json")
+        if not os.path.exists(config_path):
+            raise FileNotFoundError(f"Missing model config at {config_path}")
+        weights_path = os.path.join(dir_path, "model.pt")
+        if not os.path.exists(weights_path):
+            raise FileNotFoundError(f"Missing model weights file {weights_path}")
+        config = cls.config_class().from_json_file(config_path)
+        custom = cls._load_custom_architectures(dir_path, config)
+        # the constructor re-appends the custom architecture names
+        config.custom_architectures = []
+        model = cls(config, **custom, device=device)
+        model.load_state_dict(torch.load(weights_path, map_location=model.device,
+                                         weights_only=True))
+        return model

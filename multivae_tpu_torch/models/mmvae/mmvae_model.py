@@ -1,0 +1,162 @@
+"""MMVAE: Mixture-of-Experts multimodal VAE with K-sample objectives.
+
+Counterpart of ``multivae_tpu/models/mmvae/mmvae_model.py`` (training
+objectives only; encode / predict / NLL are not ported yet).
+
+- The K importance-sample axis is a leading axis (K, B, D); all M x M
+  cross reconstructions go through one decoder call per recon modality on
+  the stacked latents (M, K, B, D).
+- The mixture density log q(z|X) is ``ops.kdist.mixture_logsumexp``: the
+  CUDA mixture kernel on the card, its plain version on the CPU.
+- DReG: pass 1 computes the importance weights under ``torch.no_grad``;
+  pass 2 re-evaluates the log-weights on latents wrapped in
+  ``ops.dreg.scale_grad`` so the z-path gradient picks up the w_k factor.
+  The posterior parameters are detached inside the mixture density in both
+  passes.
+- Missing modalities: masked experts are filled with -1e30 inside the
+  mixture logsumexp and masked terms carry exactly zero gradient.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ...data.batch import MultimodalBatch
+from ...ops.dreg import scale_grad
+from ...ops.kdist import (
+    dist_log_prob,
+    dist_rsample_k,
+    log_var_to_std,
+    mixture_logsumexp,
+    sample_noise,
+)
+from ...utils.model_output import ModelOutput
+from ..base.base_ae_model import BaseMultiVAE
+from ..base.step import StepInfo
+from .mmvae_config import MMVAEConfig
+
+
+class MMVAE(BaseMultiVAE):
+    """Variational Mixture-of-Experts Autoencoder."""
+
+    model_name = "MMVAE"
+
+    def __init__(self, model_config: MMVAEConfig, encoders: dict = None,
+                 decoders: dict = None, seed: int = 0, device="cuda"):
+        super().__init__(model_config, encoders, decoders, seed=seed,
+                         device=device)
+        self.dist_name = model_config.prior_and_posterior_dist
+        self.K = model_config.K
+        self.learn_prior = model_config.learn_prior
+        self.objective = model_config.loss
+        self.init_params()
+
+    def _init_extra_params(self):
+        # the prior mean is a fixed zero; its log-variance is learnable
+        # iff learn_prior
+        if self.learn_prior:
+            return {"prior_log_var": nn.Parameter(torch.zeros(1, self.latent_dim))}
+        return {}
+
+    def pz_params(self):
+        """(mean, std) of the prior."""
+        mean = torch.zeros(1, self.latent_dim, device=self.device)
+        log_var = self.prior_log_var if self.learn_prior else mean
+        return mean, log_var_to_std(log_var, self.dist_name)
+
+    # ------------------------------------------------------------ internals
+    def _posterior_params(self, batch: MultimodalBatch, mods=None):
+        mods = list(self.encoders.keys()) if mods is None else list(mods)
+        out = {}
+        for m in mods:
+            o = self.encode_mod(m, batch.data[m])
+            out[m] = (o["embedding"],
+                      log_var_to_std(o["log_covariance"], self.dist_name))
+        return out
+
+    def draw_noise(self, shape, generator: Optional[torch.Generator] = None):
+        """The sampling noise of one modality's K latents (see
+        ``ops.kdist.sample_noise``); drawn in modality order."""
+        return sample_noise(self.dist_name, shape, generator=generator,
+                            device=self.device)
+
+    def _sample_embeddings(self, post_params, K: int,
+                           generator: Optional[torch.Generator] = None):
+        zs = {}
+        for m, (mu, sigma) in post_params.items():
+            u = self.draw_noise((K, *mu.shape), generator)
+            zs[m] = dist_rsample_k(self.dist_name, mu, sigma, K, u=u)
+        return zs
+
+    def _compute_k_lws(self, batch: MultimodalBatch, post_params, zs,
+                       detach_posteriors: bool):
+        """Per-modality (K, B) log importance weights and the per-sample
+        number of available modalities."""
+        mods = list(post_params.keys())
+        mask = torch.stack([batch.masks[m] for m in mods])   # (M, B)
+        n_mods_sample = mask.sum(0).clamp_min(1.0)          # (B,)
+        prior_mu, prior_std = self.pz_params()
+
+        Z = torch.stack([zs[m] for m in mods])               # (M, K, B, D)
+        lpz = dist_log_prob(self.dist_name, Z, prior_mu, prior_std).sum(-1)
+
+        mus = torch.stack([post_params[m][0] for m in mods])  # (Mq, B, D)
+        sigmas = torch.stack([post_params[m][1] for m in mods])
+        if detach_posteriors:
+            mus, sigmas = mus.detach(), sigmas.detach()
+        lqz_x = (mixture_logsumexp(Z, mus, sigmas, mask, self.dist_name)
+                 - torch.log(n_mods_sample))
+
+        # sum_m log p(x_m | z): ONE decode per recon modality on (M*K*B)
+        lpx_z = 0.0
+        for recon_mod in mods:
+            recon = self.decode_mod(recon_mod, Z)             # (M, K, B, *)
+            lp = self.recon_log_probs[recon_mod](
+                recon, batch.data[recon_mod][None, None])
+            lp = (lp.reshape(*lp.shape[:3], -1).sum(-1)
+                  * self.rescale_factors[recon_mod])
+            lpx_z = lpx_z + lp * batch.masks[recon_mod][None, None, :]
+
+        lw = (lpx_z + lpz - lqz_x) * mask[:, None, :]
+        return {m: lw[i] for i, m in enumerate(mods)}, n_mods_sample
+
+    # ----------------------------------------------------------------- loss
+    def loss_function(self, batch: MultimodalBatch, step: Optional[StepInfo] = None,
+                      generator: Optional[torch.Generator] = None) -> ModelOutput:
+        post_params = self._posterior_params(batch)
+        zs = self._sample_embeddings(post_params, self.K, generator)
+        if self.objective == "dreg_looser":
+            return self._dreg_looser(batch, post_params, zs)
+        if self.objective == "iwae_looser":
+            return self._iwae_looser(batch, post_params, zs)
+        raise NotImplementedError(self.objective)
+
+    def _dreg_looser(self, batch, post_params, zs):
+        """DReG objective (reference ``dreg_looser``)."""
+        with torch.no_grad():  # pass 1: importance weights only
+            lws_val, _ = self._compute_k_lws(batch, post_params, zs,
+                                             detach_posteriors=True)
+            wk = {m: torch.exp(lw - torch.logsumexp(lw, 0, keepdim=True))
+                  for m, lw in lws_val.items()}
+        # pass 2: gradient path with the z-cotangent scaled by wk
+        zs_hooked = {m: scale_grad(zs[m], wk[m][..., None]) for m in zs}
+        lws, n_mods_sample = self._compute_k_lws(batch, post_params, zs_hooked,
+                                                 detach_posteriors=True)
+        total = torch.stack([lws[m] * wk[m] for m in lws]).sum(1)  # (M, B)
+        total = total.sum(0) / n_mods_sample                       # (B,)
+        loss = -(total * batch.weights).sum()
+        return ModelOutput(loss=loss, loss_sum=loss, metrics={})
+
+    def _iwae_looser(self, batch, post_params, zs):
+        """IWAE objective (reference ``iwae_looser``)."""
+        lws, n_mods_sample = self._compute_k_lws(batch, post_params, zs,
+                                                 detach_posteriors=False)
+        stacked = torch.stack(list(lws.values()))  # (M, K, B)
+        k_est = torch.logsumexp(stacked, dim=1) - math.log(stacked.shape[1])
+        per_sample = k_est.sum(0) / n_mods_sample
+        loss = -(per_sample * batch.weights).sum()
+        return ModelOutput(loss=loss, loss_sum=loss, metrics={})

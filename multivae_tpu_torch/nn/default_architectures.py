@@ -1,0 +1,121 @@
+"""Default MLP architectures (counterpart of
+``multivae_tpu/nn/default_architectures.py``).
+
+- ``Encoder_VAE_MLP``: flatten -> [hidden ReLU] x (1 + n_hidden) ->
+  (embedding, log_covariance) heads.
+- ``Decoder_AE_MLP``: z -> hidden ReLU -> prod(input_dim) sigmoid ->
+  reshape; accepts any leading shape (*, latent_dim).
+
+Each net keeps its ``nn.Linear`` layers in the ModuleList ``dense`` in the
+order the Flax modules create ``Dense_0, Dense_1, ...``, which is what
+``utils/convert.params_from_jax`` relies on. ``reset_parameters`` draws
+PyTorch's default Linear init, U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for
+weight and bias, from an explicit generator.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..utils.config import BaseConfig
+from ..utils.model_output import ModelOutput
+from .base_architectures import BaseDecoder, BaseEncoder
+
+
+@dataclasses.dataclass
+class BaseAEConfig(BaseConfig):
+    """Config for encoder/decoder nets.
+
+    Args:
+        input_dim: the input data dimension (channels, x, y) or (D,).
+        latent_dim: latent space dimension.
+    """
+
+    input_dim: Optional[Tuple[int, ...]] = None
+    latent_dim: int = 10
+
+    def __post_init__(self):
+        if self.input_dim is not None:
+            self.input_dim = tuple(int(d) for d in self.input_dim)
+
+
+def reset_linear_(layers, generator: Optional[torch.Generator] = None):
+    """PyTorch's default Linear init, drawn from ``generator``."""
+    for lin in layers:
+        bound = 1.0 / math.sqrt(lin.in_features)
+        with torch.no_grad():
+            nn.init.uniform_(lin.weight, -bound, bound, generator=generator)
+            nn.init.uniform_(lin.bias, -bound, bound, generator=generator)
+
+
+class Encoder_VAE_MLP(BaseEncoder):
+    """MLP encoder with Gaussian posterior heads."""
+
+    def __init__(self, args: BaseAEConfig, n_hidden: int = 1,
+                 hidden_dim: int = 512):
+        super().__init__()
+        self.input_dim = args.input_dim
+        self.latent_dim = args.latent_dim
+        in_features = int(np.prod(args.input_dim))
+        widths = [in_features] + [hidden_dim] * (1 + n_hidden)
+        self.dense = nn.ModuleList(
+            [nn.Linear(a, b) for a, b in zip(widths[:-1], widths[1:])]
+            + [nn.Linear(hidden_dim, args.latent_dim),
+               nn.Linear(hidden_dim, args.latent_dim)]
+        )
+        self.in_features = in_features
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        reset_linear_(self.dense, generator)
+
+    def forward(self, x):
+        h = x.reshape(-1, self.in_features)
+        for lin in self.dense[:-2]:
+            h = torch.relu(lin(h))
+        return ModelOutput(embedding=self.dense[-2](h),
+                           log_covariance=self.dense[-1](h))
+
+
+class Decoder_AE_MLP(BaseDecoder):
+    """MLP decoder; accepts any leading shape (*, latent_dim)."""
+
+    def __init__(self, args: BaseAEConfig, hidden_dim: int = 512):
+        super().__init__()
+        self.input_dim = args.input_dim
+        self.latent_dim = args.latent_dim
+        out_features = int(np.prod(args.input_dim))
+        self.dense = nn.ModuleList([nn.Linear(args.latent_dim, hidden_dim),
+                                    nn.Linear(hidden_dim, out_features)])
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        reset_linear_(self.dense, generator)
+
+    def forward(self, z):
+        h = torch.relu(self.dense[0](z))
+        out = torch.sigmoid(self.dense[1](h))
+        return ModelOutput(
+            reconstruction=out.reshape(*z.shape[:-1], *self.input_dim))
+
+
+def BaseDictEncoders(input_dims: dict, latent_dim: int) -> Dict[str, BaseEncoder]:
+    """Default MLP encoder per modality."""
+    return {
+        mod: Encoder_VAE_MLP(BaseAEConfig(input_dim=tuple(input_dims[mod]),
+                                          latent_dim=latent_dim))
+        for mod in input_dims
+    }
+
+
+def BaseDictDecoders(input_dims: dict, latent_dim: int) -> Dict[str, BaseDecoder]:
+    """Default MLP decoder per modality."""
+    return {
+        mod: Decoder_AE_MLP(BaseAEConfig(input_dim=tuple(input_dims[mod]),
+                                         latent_dim=latent_dim))
+        for mod in input_dims
+    }
