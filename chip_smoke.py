@@ -11,18 +11,30 @@ Phases (any failure exits non-zero and prints no result line):
    with nvcc (into ``build/kernels/``), printing the build time and the
    compiler's register/shared-memory report;
 3. kernels: the mixture log-density forward and its three gradients
-   against the plain PyTorch version on the card, at the MMVAE slice
-   shapes and at a ragged shape, for Laplace and Normal, with a masked
-   expert on some columns and one fully masked column; then each kernel's
-   time (CUDA events, median of 20 runs, L2 flushed before each), the plain
-   version's time and the memory bound;
+   (full backward kernel), and dz alone with ``mus``/``sigmas`` detached
+   (dz-only backward kernel), against the plain PyTorch version on the
+   card, at the MMVAE slice shapes, at ragged shapes (B=37 with D=100, and
+   with D=101, which takes the scalar path), with every expert count from
+   1 to 8 (each register instance and its padding) and with MQ=11 (more
+   than the largest register instance), and with rows longer than one
+   register tile (D=2600 and, scalar, D=2301), for Laplace and Normal, with
+   a masked expert on some columns and one fully masked column, which must
+   get exactly zero dz, dmu and dsig; torch.profiler must see exactly one
+   device kernel in one forward call; then the time of the forward, the
+   full backward and the dz-only backward, each through the public op
+   (``tools/mixture_sweep.time_ms``: CUDA events, median of 20 calls, the
+   L2 flushed before each by writing 256 MB, host time kept out of the
+   window), beside the plain version's time, the bound and the share of it;
 4. slice: the full-width MMVAE (5 modalities of 3x28x28, latent 512,
    K=10, default MLP nets, Laplace decoders, DReG) trained by
    ``BaseTrainer.train()`` for 2 epochs of 2048 random samples (16 steps of
    batch 256, Adam 1e-3, float32); every epoch loss must be finite, the
-   mixture kernels must launch exactly twice (forward) and once (backward)
-   per step, and the trained model's loss on 8 rows must agree between the
-   card (kernel path) and the CPU (plain path) on the same noise;
+   mixture kernels must launch exactly twice (forward) and once (dz-only
+   backward) per step, and the trained model's loss on 8 rows must agree
+   between the card (kernel path) and the CPU (plain path) on the same
+   noise (a float64 CPU value is printed beside both); then the same model
+   with the IWAE objective for 2 steps, the path of the full backward
+   kernel (once forward, once backward a step);
 5. a ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -32,7 +44,7 @@ It imports nothing of JAX and nothing of the JAX package.
 import copy
 import json
 import os
-import statistics
+import re
 import subprocess
 import sys
 import time
@@ -47,9 +59,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 # Operations per (row, expert, batch column, coordinate) term: forward
-# sub, mul, abs (or square), add; backward recomputes that and adds ~12
-# for the three gradient accumulations.
+# sub, mul, abs (or square), add; the dz-only backward recomputes that and
+# adds ~6 for dz; the full backward adds ~12 for the three gradients.
 FWD_OPS_PER_TERM = 4
+DZ_OPS_PER_TERM = 10
 BWD_OPS_PER_TERM = 16
 
 # Kernel vs plain tolerances. The output is compared elementwise: both sum D
@@ -67,6 +80,15 @@ LOSS_RTOL = 1e-4
 
 SLICE_SHAPE = dict(mz=5, k=10, b=256, d=512, mq=5)
 RAGGED_SHAPE = dict(mz=3, k=4, b=37, d=100, mq=3)
+ODD_D_SHAPE = dict(mz=3, k=4, b=37, d=101, mq=3)   # D % 4 != 0: scalar path
+MANY_EXPERTS_SHAPE = dict(mz=2, k=3, b=40, d=64, mq=11)  # above the MQ=8 kernels
+# the register instances (MQ rounded up to 2, 5 or 8) and their padding
+EXPERT_SHAPES = tuple(dict(mz=2, k=3, b=40, d=64, mq=q) for q in range(1, 9))
+# rows longer than one register tile (256 threads of 8 coordinates)
+LONG_ROW_SHAPES = (dict(mz=2, k=2, b=9, d=2600, mq=2),
+                   dict(mz=1, k=3, b=5, d=2301, mq=3))   # scalar path
+CHECK_SHAPES = (SLICE_SHAPE, RAGGED_SHAPE, ODD_D_SHAPE, MANY_EXPERTS_SHAPE,
+                *EXPERT_SHAPES, *LONG_ROW_SHAPES)
 
 
 class SmokeFailure(Exception):
@@ -85,28 +107,15 @@ def card_line():
     return out.strip().splitlines()[0]
 
 
-def time_ms(fn, flush, reps=20, warmup=3):
-    """Median device time of ``fn`` (CUDA events), L2 flushed before each."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+def masked_expert(mq):
+    return min(1, mq - 1)
 
 
 def mixture_inputs(mz, k, b, d, mq, seed=0):
     rng = np.random.default_rng(seed)
     mask = np.ones((mq, b), np.float32)
-    mask[1, : max(b // 3, 2)] = 0.0   # a masked expert on some columns
-    mask[:, 0] = 0.0                  # a fully masked column
+    mask[masked_expert(mq), : max(b // 3, 2)] = 0.0   # on some columns
+    mask[:, 0] = 0.0                                   # a fully masked column
     arrays = (rng.normal(size=(mz, k, b, d)), rng.normal(size=(mq, b, d)),
               rng.uniform(0.5, 1.5, size=(mq, b, d)), mask,
               rng.normal(size=(mz, k, b)))
@@ -114,7 +123,8 @@ def mixture_inputs(mz, k, b, d, mq, seed=0):
 
 
 def mixture_case(mx, shape, dist):
-    """Kernel vs plain on one shape; returns (fwd max err, grad max err)."""
+    """Kernels vs plain on one shape; returns the max abs error of each
+    kernel ('fwd', 'bwd', 'bwd_dz') against the plain float32 version."""
     z, mus, sig, mask, g = mixture_inputs(**shape)
     results = {}
     before = dict(mx.launches)
@@ -125,10 +135,15 @@ def mixture_case(mx, shape, dist):
         out = fn(*leaves, mask.to(dtype), dist)
         grads = torch.autograd.grad(out, leaves, g.to(dtype))
         results[name] = (out.detach(), grads)
+    # dz alone (mus and sigmas detached): the dz-only backward kernel
+    z_leaf = z.clone().requires_grad_()
+    (dz_only,) = torch.autograd.grad(
+        mx.mixture_log_density(z_leaf, mus, sig, mask, dist), [z_leaf], g)
     torch.cuda.synchronize()
-    check(mx.launches["fwd"] == before["fwd"] + 1
-          and mx.launches["bwd"] == before["bwd"] + 1,
-          f"launch counters did not move for {shape} {dist}")
+    check(mx.launches == {"fwd": before["fwd"] + 2, "bwd": before["bwd"] + 1,
+                          "bwd_dz": before["bwd_dz"] + 1},
+          f"launch counters did not move as expected for {shape} {dist}: "
+          f"{before} -> {mx.launches}")
     out_k, grads_k = results["kernel"]
     out_p, grads_p = results["plain"]
     _, grads_64 = results["plain64"]
@@ -137,56 +152,65 @@ def mixture_case(mx, shape, dist):
     names = ("dz", "dmu", "dsig")
     errs = {n: (gk - gp).abs().max().item()
             for n, gk, gp in zip(names, grads_k, grads_p)}
+    errs["dz_only"] = (dz_only - grads_p[0]).abs().max().item()
     scale = {n: gp.abs().max().item() for n, gp in zip(names, grads_p)}
+    scale["dz_only"] = scale["dz"]
     err64 = {n: ((gk.double() - g64).abs().max().item(),
                  (gp.double() - g64).abs().max().item())
              for n, gk, gp, g64 in zip(names, grads_k, grads_p, grads_64)}
     print(f"  mixture {dist:7s} {shape}: fwd max abs err {fwd_err:.3e} "
           "(fully masked column excluded); grads max abs err / max|plain|: "
-          + ", ".join(f"{n} {errs[n]:.3e}/{scale[n]:.3e}" for n in names)
+          + ", ".join(f"{n} {errs[n]:.3e}/{scale[n]:.3e}" for n in errs)
           + "; vs float64, kernel (plain f32): "
           + ", ".join(f"{n} {a:.2e} ({b:.2e})" for n, (a, b) in err64.items()))
     check(torch.allclose(out_k, out_p, rtol=OUT_RTOL, atol=OUT_ATOL),
           f"forward differs for {shape} {dist}")
-    for n, gk in zip(names, grads_k):
+    for n, gk in zip(names + ("dz_only",), grads_k + (dz_only,)):
         check(bool(torch.isfinite(gk).all()), f"{n} not finite ({shape} {dist})")
         check(errs[n] <= GRAD_ATOL + GRAD_RTOL * scale[n],
               f"{n} differs for {shape} {dist}")
-    check(bool((grads_k[0][..., 0, :] == 0).all()),
+    dz, dmu, dsig = grads_k
+    n_masked = max(shape["b"] // 3, 2)   # columns where one expert is masked
+    qm = masked_expert(shape["mq"])
+    check(bool((dz[..., 0, :] == 0).all() and (dz_only[..., 0, :] == 0).all()),
           "a fully masked column must get zero dz")
-    return fwd_err, max(errs.values())
+    check(bool((dmu[:, 0] == 0).all() and (dsig[:, 0] == 0).all()),
+          "a fully masked column must get zero dmu and dsig")
+    check(bool((dmu[qm, :n_masked] == 0).all() and (dsig[qm, :n_masked] == 0).all()),
+          "a masked expert must get zero dmu and dsig")
+    return {"fwd": fwd_err, "bwd": max(errs[n] for n in names),
+            "bwd_dz": errs["dz_only"]}
 
 
-def mixture_timing(mx, flush):
+def forward_kernel_names(mx):
+    """The device kernels torch.profiler sees in one CUDA forward call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    z, mus, sig, mask, _ = mixture_inputs(**SLICE_SHAPE)
+    mx.mixture_log_density(z, mus, sig, mask, "laplace")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        mx.mixture_log_density(z, mus, sig, mask, "laplace")
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def mixture_timing(mx):
     """Kernel, plain and bound times at the slice shapes (Laplace)."""
+    from multivae_tpu_torch.tools.mixture_sweep import flush_buffer, op_times
+
     s = SLICE_SHAPE
     z, mus, sig, mask, g = mixture_inputs(**s)
     r, b, d, mq = s["mz"] * s["k"], s["b"], s["d"], s["mq"]
-    dist = "laplace"
-    with torch.no_grad():
-        # The kernels alone; the wrapper's torch prep (1/sigma and the
-        # per-expert constant, four more launches) is timed apart, since its
-        # host launch gaps vary from run to run.
-        z3 = z.view(r, b, d)
-        inv_sig, logc = mx._prep(sig, d, dist)
-        fwd_ms = time_ms(lambda: mx._launch_fwd(z3, mus, inv_sig, logc, mask, True),
-                         flush)
-        wrapper_ms = time_ms(
-            lambda: mx.mixture_log_density(z, mus, sig, mask, dist), flush)
-        plain_fwd_ms = time_ms(
-            lambda: mx.mixture_log_density_plain(z, mus, sig, mask, dist), flush)
-        print(f"  mixture_log_density forward with its torch prep: {wrapper_ms:.4f} ms")
-        out = mx._launch_fwd(z3, mus, inv_sig, logc, mask, True)
-        g2 = g.reshape(r, b).contiguous()
-        bwd_ms = time_ms(lambda: mx._launch_bwd(z3, mus, inv_sig, logc, mask,
-                                                out, g2, True), flush)
-    leaves = [t.clone().requires_grad_() for t in (z, mus, sig)]
-    out_p = mx.mixture_log_density_plain(*leaves, mask, dist)
-    plain_bwd_ms = time_ms(lambda: torch.autograd.grad(out_p, leaves, g,
-                                                       retain_graph=True), flush)
-    big = r * b * d + 2 * mq * b * d           # z, mu, sigma
-    fwd_bytes = 4 * (big + mq * b + r * b)     # + mask, out
-    bwd_bytes = 4 * (2 * big + mq * b + 2 * r * b)  # + dz, dmu, dsig, g, out
+    flush = flush_buffer()
+    # Each op is one launch of its kernel: the forward reads sigma itself.
+    kernel = op_times(mx.mixture_log_density, z, mus, sig, mask, g, flush)
+    plain = op_times(mx.mixture_log_density_plain, z, mus, sig, mask, g, flush)
+    big, small = r * b * d, mq * b * d        # z (and dz); mu, sigma (dmu, dsig)
+    fwd_bytes = 4 * (big + 2 * small + 2 * mq * b + r * b)   # + mask, logc, out
+    dz_bytes = 4 * (2 * big + 2 * small + 2 * mq * b + 2 * r * b)  # + out, g
+    bwd_bytes = dz_bytes + 4 * 2 * small      # + dmu, dsig
     terms = r * b * mq * d
 
     def bound(nbytes, ops):
@@ -194,15 +218,42 @@ def mixture_timing(mx, flush):
         t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
-    return {
-        "fwd": (fwd_ms, plain_fwd_ms, *bound(fwd_bytes, FWD_OPS_PER_TERM * terms)),
-        "bwd": (bwd_ms, plain_bwd_ms, *bound(bwd_bytes, BWD_OPS_PER_TERM * terms)),
-    }
+    work = {"fwd": (fwd_bytes, FWD_OPS_PER_TERM * terms),
+            "bwd": (bwd_bytes, BWD_OPS_PER_TERM * terms),
+            "bwd_dz": (dz_bytes, DZ_OPS_PER_TERM * terms)}
+    return {k: (kernel[k], plain[k], *bound(*work[k])) for k in work}
+
+
+def ptxas_summary(report):
+    """(kernel instance, registers, spill store bytes, spill load bytes) from
+    the compiler's -Xptxas -v report."""
+    pat = re.compile(r"mixture_kernelILb(\d)ELi(\d+)ELi(\d+)ELi(\d)ELb(\d)E")
+    modes = ("fwd", "bwd_dz", "bwd")
+    rows, name, spill = [], None, (0, 0)
+    for line in report.splitlines():
+        m = pat.search(line)
+        if "Function properties for" in line and m:
+            lap, q, w, mode, chunked = m.groups()
+            name = (f"{'laplace' if lap == '1' else 'normal'} {modes[int(mode)]} "
+                    f"MQ={'chunks of ' if chunked == '1' else ''}{q} "
+                    f"{'float4' if w == '4' else 'scalar'}")
+        elif name and "spill stores" in line:
+            nums = re.findall(r"(\d+) bytes spill", line)
+            spill = (int(nums[0]), int(nums[1]))
+        elif name and "Used" in line and "registers" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            rows.append((name, regs, *spill))
+            name, spill = None, (0, 0)
+    return rows
 
 
 def slice_run(mx, n_mods=5, shape=(3, 28, 28), n=2048, latent_dim=512, K=10,
-              batch_size=256, epochs=2, device="cuda"):
-    """Train the MMVAE slice with BaseTrainer (defaults: full width)."""
+              batch_size=256, epochs=2, device="cuda", loss="dreg_looser"):
+    """Train the MMVAE slice with BaseTrainer (defaults: full width, DReG).
+
+    DReG evaluates the mixture twice a step with the posteriors detached:
+    two forward launches and one dz-only backward. IWAE evaluates it once
+    with gradients to the posteriors: one forward and one full backward."""
     from multivae_tpu_torch.data import MultimodalBaseDataset, batch_from_arrays
     from multivae_tpu_torch.models import MMVAE, MMVAEConfig
     from multivae_tpu_torch.ops.kdist import dist_rsample_k, sample_noise
@@ -215,7 +266,7 @@ def slice_run(mx, n_mods=5, shape=(3, 28, 28), n=2048, latent_dim=512, K=10,
         n_modalities=n_mods, latent_dim=latent_dim, K=K,
         input_dims={m: shape for m in data},
         decoders_dist={m: "laplace" for m in data},
-        prior_and_posterior_dist="laplace_with_softmax", loss="dreg_looser")
+        prior_and_posterior_dist="laplace_with_softmax", loss=loss)
     model = MMVAE(config, seed=0, device=device)
     trainer = BaseTrainer(model, MultimodalBaseDataset(data), device=device,
                           training_config=BaseTrainerConfig(
@@ -245,8 +296,11 @@ def slice_run(mx, n_mods=5, shape=(3, 28, 28), n=2048, latent_dim=512, K=10,
     expected_steps = epochs * -(-n // batch_size)
     check(steps == expected_steps, f"expected {expected_steps} steps, ran {steps}")
     check(all(np.isfinite(losses)), f"non-finite epoch loss: {losses}")
-    check(launches == {"fwd": 2 * steps, "bwd": steps},
-          f"expected fwd={2 * steps}, bwd={steps} launches, got {launches}")
+    expected = ({"fwd": 2 * steps, "bwd": 0, "bwd_dz": steps}
+                if loss == "dreg_looser" else
+                {"fwd": steps, "bwd": steps, "bwd_dz": 0})
+    check(launches == expected,
+          f"{loss}: expected {expected} launches, got {launches}")
     steps_per_s = (steps - 1) / (step_ends[0].elapsed_time(step_ends[-1]) / 1e3)
     peak_bytes = torch.cuda.max_memory_allocated()
 
@@ -256,23 +310,29 @@ def slice_run(mx, n_mods=5, shape=(3, 28, 28), n=2048, latent_dim=512, K=10,
     u = {m: sample_noise(model.dist_name, (K, 8, latent_dim), generator=noise_gen)
          for m in data}
 
-    def small_loss(net, device):
-        batch = batch_from_arrays(rows).to(device)
+    def small_loss(net, device, dtype=torch.float32):
+        batch = batch_from_arrays(
+            {m: v.astype(np.float64 if dtype == torch.float64 else np.float32)
+             for m, v in rows.items()}).to(device)
         with torch.no_grad():
             post = net._posterior_params(batch)
             zs = {m: dist_rsample_k(net.dist_name, mu, sig, K,
-                                    u=u[m].to(device))
+                                    u=u[m].to(device, dtype))
                   for m, (mu, sig) in post.items()}
-            return net._dreg_looser(batch, post, zs)["loss"].item()
+            return getattr(net, f"_{loss}")(batch, post, zs)["loss"].item()
 
     loss_card = small_loss(model, device)
     loss_cpu = small_loss(copy.deepcopy(model).to("cpu"), "cpu")
+    # float64 on the CPU: the yardstick for both float32 evaluations
+    loss_cpu64 = small_loss(copy.deepcopy(model).to("cpu").double(), "cpu",
+                            torch.float64)
     check(np.isfinite(loss_card), "small-input loss is not finite")
     check(abs(loss_card - loss_cpu) <= LOSS_RTOL * abs(loss_cpu),
           f"small-input loss card {loss_card} vs cpu {loss_cpu}")
     return {"steps": steps, "epoch_losses": losses, "steps_per_s": steps_per_s,
             "peak_mem_bytes": peak_bytes, "wall_s": wall_s,
-            "small_loss_card": loss_card, "small_loss_cpu": loss_cpu}, launches
+            "small_loss_card": loss_card, "small_loss_cpu": loss_cpu,
+            "small_loss_cpu_float64": loss_cpu64}, launches
 
 
 def main():
@@ -301,44 +361,58 @@ def main():
         print(f"build: {time.perf_counter() - t0:.1f} s "
               f"({', '.join(cuda_build.SOURCES)})")
         for name, report in reports.items():
-            for line in report.splitlines():
-                if "registers" in line or "spill" in line or "error" in line:
-                    print(f"  {name}: {line.strip()}")
+            rows = ptxas_summary(report)
+            spilling = [r for r in rows if r[2] or r[3]]
+            print(f"  {name}: {len(rows)} kernel instances, {len(spilling)} "
+                  "with spills (registers, spill store/load bytes):")
+            for inst, regs, st, ld in rows:
+                if "MQ=5 " in inst or st or ld:
+                    print(f"    {inst}: {regs} registers, spill {st}/{ld} bytes")
+        sh = SLICE_SHAPE
+        for mode in ("fwd", "bwd_dz", "bwd"):
+            print(f"  launch at the slice, {mode}: " + json.dumps(mx.launch_shape(
+                sh["mz"] * sh["k"], sh["b"], sh["d"], sh["mq"], mode)))
 
         print("kernels vs plain (rtol/atol out "
               f"{OUT_RTOL}/{OUT_ATOL}, grads {GRAD_RTOL}/{GRAD_ATOL}):")
-        fwd_err = grad_err = 0.0
+        errs = {"fwd": 0.0, "bwd": 0.0, "bwd_dz": 0.0}
         failures = []
-        for shape in (SLICE_SHAPE, RAGGED_SHAPE):
+        for shape in CHECK_SHAPES:
             for dist in ("laplace", "normal"):
                 try:
-                    f, gerr = mixture_case(mx, shape, dist)
+                    case = mixture_case(mx, shape, dist)
                 except SmokeFailure as e:
                     failures.append(str(e))
                     continue
-                fwd_err, grad_err = max(fwd_err, f), max(grad_err, gerr)
+                errs = {k: max(errs[k], v) for k, v in case.items()}
         check(not failures, "; ".join(failures))
-        flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
-        timing = mixture_timing(mx, flush)
-        del flush
+        names = forward_kernel_names(mx)
+        print(f"  device kernels in one forward call (torch.profiler): {names}")
+        check(len(names) == 1 and "mixture_kernel" in names[0],
+              f"a CUDA forward must be exactly one mixture kernel, saw {names}")
+        timing = mixture_timing(mx)
         for kname, (ms, plain_ms, bound_ms, bound_by) in timing.items():
             print(f"  mixture_{kname}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-                  f"bound {bound_ms:.4f} ms by {bound_by})")
+                  f"bound {bound_ms:.4f} ms by {bound_by}, "
+                  f"{100 * bound_ms / ms:.1f}% of bound)")
 
         result, launches = slice_run(mx)
         print("slice: " + json.dumps(result))
+        iwae, iwae_launches = slice_run(mx, n=512, epochs=1, loss="iwae_looser")
+        print("iwae path: " + json.dumps(iwae))
+        launches["bwd"] = iwae_launches["bwd"]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
     src = "multivae_tpu_torch/csrc/mixture.cu"
     kernels = []
-    for kname, line, err in (("fwd", 81, fwd_err), ("bwd", 97, grad_err)):
+    for kname, line in (("fwd", 81), ("bwd", 97), ("bwd_dz", 97)):
         ms, plain_ms, bound_ms, bound_by = timing[kname]
         kernels.append({
             "name": f"mixture_{kname}", "route": "cuda", "source": src,
             "replaces": f"multivae_tpu/ops/pallas_mixture.py:{line}",
-            "launches": launches[kname], "max_abs_err": err, "ms": ms,
+            "launches": launches[kname], "max_abs_err": errs[kname], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None,
         })

@@ -11,46 +11,208 @@
 //   out[r,b] = logsumexp_q( ok[q,b] ? logc[q,b] - sum_d t(z[r,b,d]; mu, sig)
 //                                   : -1e30 )
 //   t = |z-mu|/sig (Laplace) or ((z-mu)/sig)^2/2 (Normal),
-//   logc[q,b] = -sum_d log sig[q,b,d] - D*c  (computed by the wrapper).
+//   logc[q,b] = -sum_d log sig[q,b,d] - D*c.
 //
-// The backward recomputes the per-expert densities, forms
+// The forward reads sigma itself: it forms 1/sig and logc in the kernel
+// and writes logc (MQ, B) as a side output, so a forward is one launch.
+// The backward reuses logc, recomputes the per-expert densities, forms
 // w[r,q] = exp(lq[r,q] - out[r]) * g[r] (0 for a masked expert, so masked
 // experts and fully masked columns get exactly zero gradient, as the plain
-// version's torch.where gives), and accumulates
+// version's torch.where gives), and computes
 //   dz[r]  = sum_q w df/dz,   dmu[q] = -sum_r w df/dz,   dsig[q] = sum_r w df/dsig.
-// The Laplace sign is 0 at z == mu, as the derivative of torch.abs (and
-// jnp.abs) is; the TPU kernel used +1 there.
+// A dz-only instantiation skips dmu and dsig (the DReG path detaches mu and
+// sigma). The Laplace sign is 0 at z == mu, as the derivative of torch.abs
+// (and jnp.abs) is; the TPU kernel used +1 there.
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32 without tensor cores) at
 // the MMVAE slice shapes (R=50, B=256, D=512, MQ=5, float32): the forward
-// reads z (26.2 MB) and the expert parameters (5.2 MB) and writes 51 KB,
-// about 31.5 MB or 9.4 us, against ~131 M flops (~2 us); the backward also
-// writes dz (26.2 MB) and dmu, dsig (5.2 MB), about 63 MB or 18.8 us,
-// against ~0.4 G flops (~6 us). Both are bound by device memory.
+// reads z (26.2 MB), mu and sigma (5.2 MB) and writes out and logc, about
+// 31.5 MB or 9.4 us, against ~131 M operations (~2 us); the dz-only
+// backward also reads out and g and writes dz (26.2 MB), about 57.8 MB or
+// 17.3 us; the full backward writes dmu and dsig too, about 63.0 MB or
+// 18.8 us, against ~0.4 G operations (~6 us). All three are bound by device
+// memory, and z is the stream that matters.
 //
-// What the design does about it: one block per batch column b. The MQ
-// experts' mu and 1/sig for that column (MQ*D floats each, 20 KB at the
-// slice) are staged once in shared memory, so the only large stream from
-// device memory is z, read with consecutive lanes on consecutive addresses.
-// The forward gives one warp to each row r: lanes stride over d, a shuffle
-// reduction finishes each expert's sum, and the streaming (max, sum)
-// logsumexp over experts stays in registers; the (MQ, R, B, D) broadcast
-// that the plain version builds (131 MB at the slice) never exists. The
-// backward first computes w[r,q] the same way into shared memory, then
-// gives each thread a coordinate d and loops over the rows: dz[r,b,d] is
-// written once, and dmu/dsig for (q,b,d) accumulate in shared memory owned
-// by that thread, so there are no atomics and each output is written once.
-// The sequential grid axis and the (8,128) tiles of the TPU version are not
-// carried over; any B and D are accepted.
+// Design. One block handles one batch column b (grid.x) and a share of its
+// rows (grid.y = S splits, used only when B is too small to fill the card).
+// Inside a block, P row slices of T threads each walk rows
+// r = slot, slot + S*P, ...; thread t of a slice owns kElems = 8 coordinates
+// of every row, d = 4*(t + v*T) + e (v < 2, e < 4) when D % 4 == 0 and the
+// pointers are 16-byte aligned (float4 accesses), else d = t + v*T (v < 8,
+// scalar accesses; this covers D % 4 != 0).
+//  - Expert parameters are read once per block. The block copies the
+//    column's mu and sigma (MQ*D floats each) into shared memory with
+//    cp.async, ahead of z's first rows; the forward sums log sigma per expert
+//    there (one warp sum per expert, then one pass over the warps) and writes
+//    logc; then 1/sigma replaces sigma in place. Each thread then keeps mu and
+//    1/sig of its coordinates in registers (2*kQ*8 of them) for every row, so
+//    each z element is read from device memory once and meets all MQ experts
+//    there. The register count kQ is a template parameter with instances 2,
+//    5 and 8: MQ is rounded up to the next one, and the padded experts have
+//    mu = 1/sig = 0 and a zero mask, so their lq is -1e30, their w is 0 and
+//    nothing is written for them. 5 is the MMVAE slice's count; padded to 8
+//    it would run one block per SM instead of two, and its full backward
+//    would spill (PERF.md).
+//  - The chunked path takes what the register instances cannot: MQ > 8
+//    (experts in chunks of 8), rows of more than 256*8 coordinates (NT tiles
+//    of 8 coordinates a thread) and the scalar accesses. It reloads the
+//    parameter registers from shared memory for each (chunk, tile) and is
+//    slower; the slice never takes it.
+//  - z streams through a ring of kStages = 2 shared-memory stages of
+//    kG = 4 rows, filled with cp.async (16-byte cg, or 4-byte ca on the
+//    scalar path; zero-filled past the row's end or R). Each thread copies
+//    and later reads only its own slots, so the ring needs no barrier: the
+//    copy of group i+1 is in flight while group i is computed, and no
+//    register holds it. Rows past R are neither read nor computed.
+//  - The kG*kQ partial sums of a group are reduced together: a
+//    reduce-scatter over the warp (lanes exchange halves: 21 shuffles for 20
+//    sums instead of 100), then one shared-memory pass over the slice's
+//    warps behind one barrier (two alternating buffers, so that barrier is
+//    the forward's only one per group). The slice's first warp then holds
+//    lq[r, q] in lane g*kQ + q and finishes the logsumexp with shuffles.
+//  - Per term the forward does 2 operations for Laplace (fma(|z-mu|, 1/sig,
+//    acc)) and 3 for Normal; 1/2 is applied to the sum.
+//  - The backward forms w for the group in that warp, then computes dz from
+//    the z still staged in shared memory (z is not read twice) and writes it
+//    once, coalesced. For dmu and dsig it accumulates sums that leave 1/sig
+//    out (sum_r w sgn(z-mu) and sum_r w |z-mu| for Laplace, sum_r w (z-mu)
+//    and sum_r w (z-mu)^2 for Normal, plus sum_r w per expert) in registers
+//    over all rows of the slice, and applies 1/sig once at the end: 3 to 4
+//    operations per term instead of ~12. The P slices add their sums in a
+//    fixed order through shared memory and each (q, b, d) is written once.
+//    No atomics: results are deterministic. In the chunked path the block
+//    has one slice and each thread adds into dmu/dsig in device memory,
+//    where it owns its coordinates.
+//  - Parameters: T = 32*ceil(D/8/32) threads a slice, at most 256; a longer
+//    row takes NT = ceil(D/8/256) tiles. Forward and dz-only: P = 256/T
+//    slices (at least 1), S = clamp(2*SMs/B, 1, ceil(R/(P*kG))), launch
+//    bounds of 2 blocks per SM for kQ <= 6 (128 registers); full backward:
+//    P = 128/T, S = 1, launch bounds of one 256-thread block (255
+//    registers). Shared memory holds the ring (2*4*8 floats per thread and
+//    tile) and mu and 1/sig (2*MQ*D floats): that alone limits D, to 3072
+//    at MQ=5 and 4608 at MQ=2 on the H100 (larger inputs raise). At the slice
+//    (D=512, MQ=5): T=64, S=1; forward and dz-only: P=4, 256 blocks of 256
+//    threads, 87,896 bytes of shared memory per block (64 KB ring, 20 KB mu
+//    and 1/sig), 2 blocks per SM, so all 256 blocks run in one wave with
+//    64 KB of z in flight per SM; full backward: P=2, 256 blocks of 128
+//    threads, 62,400 bytes, 2 blocks per SM. Registers and spills per
+//    instance are in the -Xptxas -v report that chip_smoke.py prints.
+//  - Measured (tools/mixture_sweep.py and chip_smoke.py on the H100; see
+//    PERF.md): in steady state a row costs about 70% of peak bandwidth, but
+//    each call has a fixed cost of several microseconds (the parameters and
+//    the first groups of z arrive before the ring runs, and the single wave
+//    of blocks waits for them together), which keeps the kernels under half
+//    of their bound at R=50.
+//
+// Tensor cores do not apply. The Laplace term |z - mu| has no product form.
+// For Normal, sum_d (z-mu)^2/sig^2 = sum z^2/sig^2 - 2 sum z mu/sig^2 + ...
+// would make the sum a GEMM with N = MQ = 5, but at |out| ~ 10^3 its terms
+// cancel catastrophically in float32, and TF32 inputs are not float32
+// parity. The kernels are bound by device memory either way.
 
 #include <cuda_runtime.h>
+
+#include <mutex>
+#include <set>
+#include <utility>
 
 namespace {
 
 constexpr float kNeg = -1e30f;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr size_t kDefaultSmemBytes = 48 * 1024;
+constexpr int kMaxThreads = 256;  // per block
+constexpr int kElems = 8;         // coordinates of a row per thread and tile
+constexpr int kG = 4;             // rows per group
+constexpr int kStages = 2;        // depth of the cp.async ring
+constexpr int kMaxQ = 8;          // largest expert count held in registers
+
+// The expert counts with a register instantiation; MQ is rounded up to the
+// next one, and the padded experts add nothing (mu = 1/sig = 0, masked).
+// 5 is the MMVAE slice's count: at 8 its forward would lose half its
+// occupancy (one block per SM, see the launch bounds).
+int padded_q(int MQ) {
+  return MQ <= 2 ? 2 : MQ <= 5 ? 5 : kMaxQ;
+}
+
+enum Mode { kFwd = 0, kBwdDz = 1, kBwdFull = 2 };
+
+struct Args {
+  const float* z;       // (R, B, D)
+  const float* mu;      // (MQ, B, D)
+  const float* sig;     // (MQ, B, D)
+  const float* mask;    // (MQ, B)
+  const float* out_in;  // (R, B), backward
+  const float* g;       // (R, B), backward
+  float* out;           // (R, B), forward
+  float* logc;          // (MQ, B): written by the forward, read by the backward
+  float* dz;            // (R, B, D)
+  float* dmu;           // (MQ, B, D), full backward
+  float* dsig;          // (MQ, B, D), full backward
+  int R, B, D, MQ;
+  int T, P, S, NT;      // threads per slice, slices per block, row splits,
+                        // tiles of a row (chunked path)
+  float dc;             // D * c
+};
+
+template <int kW>
+__device__ __forceinline__ void ld_vec(const float* p, float (&v)[kW]) {
+  if constexpr (kW == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int kW>
+__device__ __forceinline__ void st_vec(float* p, const float (&v)[kW]) {
+  if constexpr (kW == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    *p = v[0];
+  }
+}
+
+// Asynchronous copy of kW floats to shared memory; zero-filled when !ok.
+template <int kW>
+__device__ __forceinline__ void cp_async(float* dst, const float* src, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = ok ? 4 * kW : 0;
+  if constexpr (kW == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(s), "l"(src), "r"(n) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(s), "l"(src), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Warp reduce-scatter of the N values v[0..N) (N <= 32): at each level lane
+// pairs swap halves and add, so after five levels v[0] holds the warp's
+// total of value `base`, valid when base < lim.
+template <int M, int N, int kOff>
+__device__ __forceinline__ void reduce_scatter(float (&v)[M], int lane,
+                                               int& base, int& lim) {
+  if constexpr (kOff > 0) {
+    constexpr int H = (N + 1) / 2;
+    const bool up = (lane & kOff) != 0;
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+      const float lo = v[i];
+      const float hi = (i + H < N) ? v[i + H] : 0.f;
+      v[i] = (up ? hi : lo) + __shfl_xor_sync(0xffffffffu, up ? lo : hi, kOff);
+    }
+    if (up) base += H; else lim = min(lim, base + H);
+    reduce_scatter<M, H, kOff / 2>(v, lane, base, lim);
+  }
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -58,152 +220,591 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// The data-dependent part of -log f for one coordinate.
-template <bool kLaplace>
-__device__ __forceinline__ float neg_quad(float z, float mu, float inv_sig) {
-  const float u = (z - mu) * inv_sig;
-  return kLaplace ? fabsf(u) : 0.5f * u * u;
+// Shared memory, in floats: the ring (or, at the end of the full backward,
+// the exchange of dmu/dsig between slices, if larger), then mu and 1/sig
+// of the column, then small per-block arrays.
+struct Layout {
+  int mu, is, red, lq, wsum, ls, c, ok, total;
+};
+
+// nq = max(MQ, kq): the experts with the padding of a register instance.
+__host__ __device__ inline Layout layout(int P, int T, int NT, int kq, int MQ,
+                                         int D, int mode, bool chunked) {
+  const int nq = MQ > kq ? MQ : kq;
+  const int ring = kStages * P * T * kG * kElems * NT;
+  const int exch = (mode == kBwdFull && !chunked) ? 2 * P * T * kq * kElems : 0;
+  Layout l;
+  int o = ring > exch ? ring : exch;
+  l.mu = o;   o += MQ * D;
+  l.is = o;   o += MQ * D;
+  l.red = o;  o += 2 * P * (T / 32) * kG * kq;  // per-warp partial sums, x2
+  l.lq = o;   o += P * kG * nq;             // lq, then w, per slice and row
+  l.wsum = o; o += P * MQ;                  // sum_r w per slice, full backward
+  l.ls = o;   o += MQ * (P * T / 32);       // per-warp sum log sig, forward
+  l.c = o;    o += nq;                      // logc (0 for padding)
+  l.ok = o;   o += nq;                      // availability (0 for padding)
+  l.total = o;
+  return l;
 }
 
-// Stage column b's expert parameters in shared memory: mu and 1/sig as
-// (MQ, D), the constant and the availability flag as (MQ,).
-__device__ __forceinline__ void stage_column(
-    const float* __restrict__ mu, const float* __restrict__ inv_sig,
-    const float* __restrict__ logc, const float* __restrict__ mask,
-    float* s_mu, float* s_is, float* s_c, float* s_ok, int b, int B, int D,
-    int MQ) {
-  for (int i = threadIdx.x; i < MQ * D; i += blockDim.x) {
-    const int q = i / D;
-    const size_t src = ((size_t)q * B + b) * D + (i - q * D);
-    s_mu[i] = mu[src];
-    s_is[i] = inv_sig[src];
-  }
-  for (int q = threadIdx.x; q < MQ; q += blockDim.x) {
-    s_c[q] = logc[(size_t)q * B + b];
-    s_ok[q] = mask[(size_t)q * B + b] > 0.f ? 1.f : 0.f;
-  }
-}
+template <bool kLaplace, int kQ, int kW, int kMode, bool kChunked>
+__global__ void __launch_bounds__(kMaxThreads,
+                                  (kMode != kBwdFull && kQ <= 6) ? 2 : 1)
+mixture_kernel(const Args a) {
+  constexpr int kV = kElems / kW;
+  constexpr int kN = kG * kQ;
+  constexpr bool kGrads = kMode == kBwdFull;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
 
-// sum_d t(z[r,b,d]) for expert q, reduced over the warp (all lanes get it).
-template <bool kLaplace>
-__device__ __forceinline__ float expert_sum(const float* __restrict__ zr,
-                                            const float* s_mu, const float* s_is,
-                                            int q, int D, int lane) {
-  const float* mq = s_mu + (size_t)q * D;
-  const float* iq = s_is + (size_t)q * D;
-  float acc = 0.f;
-  for (int d = lane; d < D; d += 32) acc += neg_quad<kLaplace>(zr[d], mq[d], iq[d]);
-  return warp_sum(acc);
-}
+  const int T = a.T, P = a.P, PT = P * T;
+  const int tid = threadIdx.x, slice = tid / T, t = tid - slice * T;
+  const int lane = tid & 31, warp = t >> 5, nwarp = T >> 5;
+  const int b = blockIdx.x, B = a.B, D = a.D, R = a.R, MQ = a.MQ;
+  const int Dv = D / kW;
+  const int nq = MQ > kQ ? MQ : kQ;
+  // The chunked path walks experts in chunks of kQ and a row in NT tiles of
+  // kElems coordinates a thread, reloading the parameter registers for each
+  // (chunk, tile); the register path has one of each.
+  const int nchunk = kChunked ? (MQ + kQ - 1) / kQ : 1;
+  const int NT = kChunked ? a.NT : 1;
+  const int nv = NT * kV;  // ring slots of a row per thread
+  const bool reload = nchunk * NT > 1;
+  const int slot = blockIdx.y * P + slice, SP = a.S * P;
+  const int ngroups = ((R + SP - 1) / SP + kG - 1) / kG;
 
-template <bool kLaplace>
-__global__ void __launch_bounds__(kThreads) mixture_fwd_kernel(
-    const float* __restrict__ z, const float* __restrict__ mu,
-    const float* __restrict__ inv_sig, const float* __restrict__ logc,
-    const float* __restrict__ mask, float* __restrict__ out, int R, int B,
-    int D, int MQ) {
-  extern __shared__ float smem[];
-  float* s_mu = smem;
-  float* s_is = s_mu + (size_t)MQ * D;
-  float* s_c = s_is + (size_t)MQ * D;
-  float* s_ok = s_c + MQ;
-  const int b = blockIdx.x;
-  stage_column(mu, inv_sig, logc, mask, s_mu, s_is, s_c, s_ok, b, B, D, MQ);
-  __syncthreads();
+  const Layout L = layout(P, T, NT, kQ, MQ, D, kMode, kChunked);
+  float* ring = smem;
+  float* s_mu = smem + L.mu;
+  float* s_is = smem + L.is;
+  float* s_red = smem + L.red;
+  float* s_lq = smem + L.lq;
+  float* s_wsum = smem + L.wsum;
+  float* s_ls = smem + L.ls;
+  float* s_c = smem + L.c;
+  float* s_ok = smem + L.ok;
 
-  const int lane = threadIdx.x & 31;
-  for (int r = threadIdx.x >> 5; r < R; r += kWarps) {
-    const float* zr = z + ((size_t)r * B + b) * D;
-    float m = kNeg, s = 0.f;
-    for (int q = 0; q < MQ; ++q) {
-      const float acc = expert_sum<kLaplace>(zr, s_mu, s_is, q, D, lane);
-      const float lq = s_ok[q] > 0.f ? s_c[q] - acc : kNeg;
-      const float m_new = fmaxf(m, lq);
-      s = s * expf(m - m_new) + expf(lq - m_new);
-      m = m_new;
-    }
-    if (lane == 0) out[(size_t)r * B + b] = logf(s) + m;
-  }
-}
-
-template <bool kLaplace>
-__global__ void __launch_bounds__(kThreads) mixture_bwd_kernel(
-    const float* __restrict__ z, const float* __restrict__ mu,
-    const float* __restrict__ inv_sig, const float* __restrict__ logc,
-    const float* __restrict__ mask, const float* __restrict__ out,
-    const float* __restrict__ g, float* __restrict__ dz,
-    float* __restrict__ dmu, float* __restrict__ dsig, int R, int B, int D,
-    int MQ) {
-  extern __shared__ float smem[];
-  float* s_mu = smem;
-  float* s_is = s_mu + (size_t)MQ * D;
-  float* s_dmu = s_is + (size_t)MQ * D;
-  float* s_dsig = s_dmu + (size_t)MQ * D;
-  float* s_w = s_dsig + (size_t)MQ * D;
-  float* s_c = s_w + (size_t)R * MQ;
-  float* s_ok = s_c + MQ;
-  const int b = blockIdx.x;
-  stage_column(mu, inv_sig, logc, mask, s_mu, s_is, s_c, s_ok, b, B, D, MQ);
-  for (int i = threadIdx.x; i < MQ * D; i += blockDim.x) {
-    s_dmu[i] = 0.f;
-    s_dsig[i] = 0.f;
-  }
-  __syncthreads();
-
-  // Phase 1: w[r,q] = softmax weight of expert q for row r, times g[r].
-  const int lane = threadIdx.x & 31;
-  for (int r = threadIdx.x >> 5; r < R; r += kWarps) {
-    const float* zr = z + ((size_t)r * B + b) * D;
-    const float o = out[(size_t)r * B + b];
-    const float gr = g[(size_t)r * B + b];
-    for (int q = 0; q < MQ; ++q) {
-      const float acc = expert_sum<kLaplace>(zr, s_mu, s_is, q, D, lane);
-      if (lane == 0)
-        s_w[r * MQ + q] = s_ok[q] > 0.f ? expf(s_c[q] - acc - o) * gr : 0.f;
-    }
-  }
-  __syncthreads();
-
-  // Phase 2: each thread owns coordinates d; rows are a loop.
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    for (int r = 0; r < R; ++r) {
-      const size_t zi = ((size_t)r * B + b) * D + d;
-      const float zv = z[zi];
-      float dzv = 0.f;
-      for (int q = 0; q < MQ; ++q) {
-        const float w = s_w[r * MQ + q];
-        const float diff = zv - s_mu[q * D + d];
-        const float is = s_is[q * D + d];
-        float df_dz, df_dsig;
-        if (kLaplace) {
-          // d|x|/dx = sign(x) with sign(0) = 0, as torch.abs and jnp.abs
-          // define it (the TPU kernel took +1 at 0)
-          const float sgn = diff > 0.f ? 1.f : (diff < 0.f ? -1.f : 0.f);
-          df_dz = -sgn * is;
-          df_dsig = (fabsf(diff) * is - 1.f) * is;
-        } else {
-          df_dz = -diff * is * is;
-          df_dsig = (diff * diff * is * is - 1.f) * is;
+  auto row_of = [&](int gi, int g) { return slot + (gi * kG + g) * SP; };
+  // Slot jv = j*kV + v of a row holds this thread's coordinates
+  // d = kW*(t + jv*T) + e of tile j.
+  auto ring_at = [&](int gi, int g, int jv) {
+    return ring + ((((gi % kStages) * kG + g) * nv + jv) * PT + tid) * kW;
+  };
+  auto issue = [&](int gi) {
+#pragma unroll
+    for (int g = 0; g < kG; ++g) {
+      const int r = row_of(gi, g);
+      const bool rok = r < R;
+      const float* zr = a.z + ((size_t)(rok ? r : 0) * B + b) * D;
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int v = 0; v < kV; ++v) {
+          const int jv = j * kV + v, dv = t + jv * T;
+          const bool ok = rok && dv < Dv;
+          cp_async<kW>(ring_at(gi, g, jv), ok ? zr + (size_t)dv * kW : a.z, ok);
         }
-        const float wz = w * df_dz;
-        dzv += wz;
-        s_dmu[q * D + d] -= wz;
-        s_dsig[q * D + d] += w * df_dsig;
-      }
-      dz[zi] = dzv;
     }
-    for (int q = 0; q < MQ; ++q) {
+    cp_commit();
+  };
+
+  // Stage the column's mu and sigma once per block (asynchronously, ahead
+  // of z's first rows), then form logc (forward) and 1/sig in place.
+  for (int i = tid; i < MQ * Dv; i += PT) {
+    const int q = i / Dv, dv = i - q * Dv;
+    const size_t off = ((size_t)q * B + b) * D + (size_t)dv * kW;
+    cp_async<kW>(s_mu + q * D + dv * kW, a.mu + off, true);
+    cp_async<kW>(s_is + q * D + dv * kW, a.sig + off, true);
+  }
+  cp_commit();
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < ngroups) issue(i); else cp_commit();
+  }
+  for (int q = tid; q < nq; q += PT) {
+    const bool real = q < MQ;
+    s_ok[q] = real && a.mask[(size_t)q * B + b] > 0.f ? 1.f : 0.f;
+    s_c[q] = real && kMode != kFwd ? a.logc[(size_t)q * B + b] : 0.f;
+  }
+  if (kGrads)
+    for (int i = tid; i < P * MQ; i += PT) s_wsum[i] = 0.f;
+  cp_wait<kStages - 1>();  // the parameters; z's first rows may still be in flight
+  __syncthreads();
+  // 1/sig in place; the forward also sums log sig per expert into logc.
+  const int nwb = PT >> 5;
+  for (int q = 0; q < MQ; ++q) {
+    float ls = 0.f;
+    for (int d = tid; d < D; d += PT) {
+      const float sg = s_is[q * D + d];
+      if (kMode == kFwd) ls += logf(sg);
+      s_is[q * D + d] = __frcp_rn(sg);
+    }
+    if (kMode == kFwd) {
+      ls = warp_sum(ls);
+      if (lane == 0) s_ls[q * nwb + (tid >> 5)] = ls;
+    }
+  }
+  __syncthreads();
+  if (kMode == kFwd && tid < MQ) {
+    float tot = 0.f;
+    for (int w = 0; w < nwb; ++w) tot += s_ls[tid * nwb + w];
+    s_c[tid] = -tot - a.dc;  // read after the next barrier
+    if (blockIdx.y == 0) a.logc[(size_t)tid * B + b] = s_c[tid];
+  }
+
+  // mu and 1/sig of this thread's coordinates of tile j for experts
+  // [c*kQ, c*kQ+kQ), in registers; zero past D or MQ, so those terms add
+  // exactly 0.
+  float pm[kQ][kElems], pis[kQ][kElems];
+  auto load_params = [&](int c, int j) {
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      const int qq = c * kQ + q;
+#pragma unroll
+      for (int v = 0; v < kV; ++v) {
+        const int dv = t + (j * kV + v) * T;
+        float m[kW], s[kW];
+#pragma unroll
+        for (int e = 0; e < kW; ++e) m[e] = s[e] = 0.f;
+        if (qq < MQ && dv < Dv) {
+          ld_vec<kW>(s_mu + qq * D + dv * kW, m);
+          ld_vec<kW>(s_is + qq * D + dv * kW, s);
+        }
+#pragma unroll
+        for (int e = 0; e < kW; ++e) {
+          pm[q][v * kW + e] = m[e];
+          pis[q][v * kW + e] = s[e];
+        }
+      }
+    }
+  };
+  load_params(0, 0);
+
+  // Sum the per-thread values v[0..kN) (index g*kQ + q) over the slice;
+  // thread t < kN of the slice (all in the slice's first warp) gets total t
+  // back. s_red alternates between two buffers, so one barrier per call
+  // suffices: a warp can only write a buffer again after the next barrier,
+  // which the readers of this call reach after reading.
+  int phase = 0;
+  auto slice_sum = [&](float (&v)[kN], float& tot) {
+    float* red = s_red + (phase++ & 1) * P * nwarp * kN;
+    int base = 0, lim = kN;
+    reduce_scatter<kN, kN, 16>(v, lane, base, lim);
+    if (base < lim) red[(slice * nwarp + warp) * kN + base] = v[0];
+    __syncthreads();
+    tot = 0.f;
+    if (t < kN)
+      for (int w = 0; w < nwarp; ++w) tot += red[(slice * nwarp + w) * kN + t];
+  };
+  // Adds to part the partial sums of this thread's coordinates of tile j
+  // for the group's rows and experts [c*kQ, c*kQ+kQ): sum_d |z-mu|/sig
+  // (Laplace) or ((z-mu)/sig)^2.
+  auto partials = [&](int gi, int j, const bool (&rok)[kG], float (&part)[kN]) {
+#pragma unroll
+    for (int g = 0; g < kG; ++g) {
+      if (!rok[g]) continue;
+#pragma unroll
+      for (int v = 0; v < kV; ++v) {
+        float zv[kW];
+        ld_vec<kW>(ring_at(gi, g, j * kV + v), zv);
+#pragma unroll
+        for (int e = 0; e < kW; ++e)
+#pragma unroll
+          for (int q = 0; q < kQ; ++q) {
+            const int i = v * kW + e;
+            const float diff = zv[e] - pm[q][i];
+            float& acc = part[g * kQ + q];
+            if (kLaplace) {
+              acc = fmaf(fabsf(diff), pis[q][i], acc);
+            } else {
+              const float u = diff * pis[q][i];
+              acc = fmaf(u, u, acc);
+            }
+          }
+      }
+    }
+  };
+
+  // Raw backward sums, scaled at the end: smu = sum_r w sgn(diff) (Laplace)
+  // or sum_r w diff (Normal), so dmu = smu/sig^p; sa = sum_r w |diff|^p, so
+  // dsig = (sa/sig^p - sum_r w)/sig, with p = 1 (Laplace) or 2 (Normal).
+  float smu[kGrads ? kQ : 1][kElems], sa[kGrads ? kQ : 1][kElems];
+  if constexpr (kGrads) {
+#pragma unroll
+    for (int q = 0; q < kQ; ++q)
+#pragma unroll
+      for (int i = 0; i < kElems; ++i) smu[q][i] = sa[q][i] = 0.f;
+    if constexpr (kChunked) {
+      // one slice and one split per column: this thread owns its
+      // coordinates of dmu and dsig for every expert
+      for (int q = 0; q < MQ; ++q)
+        for (int jv = 0; jv < nv; ++jv) {
+          const int dv = t + jv * T;
+          if (dv < Dv) {
+            const float zero[kW] = {};
+            const size_t off = ((size_t)q * B + b) * D + (size_t)dv * kW;
+            st_vec<kW>(a.dmu + off, zero);
+            st_vec<kW>(a.dsig + off, zero);
+          }
+        }
+    }
+  }
+
+  for (int gi = 0; gi < ngroups; ++gi) {
+    // Group gi + kStages - 1 goes into the stage that group gi - 1 used:
+    // each thread reads only the slots it copied, so no barrier is needed.
+    if (gi + kStages - 1 < ngroups) issue(gi + kStages - 1); else cp_commit();
+    cp_wait<kStages - 1>();
+    bool rok[kG];
+#pragma unroll
+    for (int g = 0; g < kG; ++g) rok[g] = row_of(gi, g) < R;  // same in a slice
+
+    if constexpr (!kChunked) {
+      // One chunk: the slice's first warp holds lq[g, q] in lane g*kQ + q
+      // and finishes the group with shuffles.
+      float part[kN], tot;
+#pragma unroll
+      for (int i = 0; i < kN; ++i) part[i] = 0.f;
+      partials(gi, 0, rok, part);
+      slice_sum(part, tot);
+      if (warp == 0) {
+        const bool mine = t < kN;
+        const int g = mine ? t / kQ : 0, q = mine ? t % kQ : 0;
+        const int r = row_of(gi, g);
+        const bool live = mine && r < R;
+        const float lq = (live && s_ok[q] > 0.f)
+                             ? s_c[q] - (kLaplace ? tot : 0.5f * tot) : kNeg;
+        if constexpr (kMode == kFwd) {
+          float v[kQ], m = kNeg;
+#pragma unroll
+          for (int j = 0; j < kQ; ++j) {
+            v[j] = __shfl_sync(0xffffffffu, lq, g * kQ + j);
+            m = fmaxf(m, v[j]);
+          }
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < kQ; ++j) sum += expf(v[j] - m);
+          if (live && q == 0) a.out[(size_t)r * B + b] = logf(sum) + m;
+        } else if (mine) {
+          // w[r, q] = exp(lq - out) * g, 0 for a masked expert or a row past R
+          float w = 0.f;
+          if (live && s_ok[q] > 0.f)
+            w = expf(lq - a.out_in[(size_t)r * B + b]) * a.g[(size_t)r * B + b];
+          s_lq[(slice * kG + g) * nq + q] = w;
+        }
+      }
+      // The forward needs no barrier here: the next write to this s_red
+      // buffer is two barriers away.
+      if constexpr (kMode != kFwd) __syncthreads();
+    } else {
+      // lq[r, q] for the group's rows, chunk by chunk (each summed over the
+      // row's tiles), into s_lq.
+      for (int c = 0; c < nchunk; ++c) {
+        float part[kN], tot;
+#pragma unroll
+        for (int i = 0; i < kN; ++i) part[i] = 0.f;
+        for (int j = 0; j < NT; ++j) {
+          if (reload) load_params(c, j);
+          partials(gi, j, rok, part);
+        }
+        slice_sum(part, tot);
+        if (t < kN) {
+          const int g = t / kQ, qq = c * kQ + t % kQ;
+          if (qq < MQ)
+            s_lq[(slice * kG + g) * nq + qq] =
+                s_ok[qq] > 0.f ? s_c[qq] - (kLaplace ? tot : 0.5f * tot) : kNeg;
+        }
+      }
+      __syncthreads();
+      if constexpr (kMode == kFwd) {
+        // The next write to s_lq comes after the next group's first barrier.
+        const int r = row_of(gi, t);
+        if (t < kG && r < R) {
+          const float* l = s_lq + (slice * kG + t) * nq;
+          float m = kNeg;
+          for (int q = 0; q < MQ; ++q) m = fmaxf(m, l[q]);
+          float sum = 0.f;
+          for (int q = 0; q < MQ; ++q) sum += expf(l[q] - m);
+          a.out[(size_t)r * B + b] = logf(sum) + m;
+        }
+      } else {
+        // w[r, q] = exp(lq - out) * g, 0 for a masked expert or a row past R.
+        if (t < kG) {
+          const int r = row_of(gi, t);
+          float* l = s_lq + (slice * kG + t) * nq;
+          const bool ok = r < R;
+          const float o = ok ? a.out_in[(size_t)r * B + b] : 0.f;
+          const float gr = ok ? a.g[(size_t)r * B + b] : 0.f;
+          for (int q = 0; q < MQ; ++q)
+            l[q] = (ok && s_ok[q] > 0.f) ? expf(l[q] - o) * gr : 0.f;
+        }
+        __syncthreads();
+      }
+    }
+
+    if constexpr (kMode != kFwd) {
+      if (kGrads && t == 0)
+        for (int q = 0; q < MQ; ++q) {
+          float s = 0.f;
+          for (int g = 0; g < kG; ++g) s += s_lq[(slice * kG + g) * nq + q];
+          s_wsum[slice * MQ + q] += s;
+        }
+
+      for (int cj = 0; cj < nchunk * NT; ++cj) {
+        const int c = cj / NT, j = cj - c * NT;  // expert chunk, tile
+        if (kChunked && reload) load_params(c, j);
+#pragma unroll
+        for (int g = 0; g < kG; ++g) {
+          if (!rok[g]) continue;
+          const int r = row_of(gi, g);
+          const float* wl = s_lq + (slice * kG + g) * nq;
+          float w[kQ];
+#pragma unroll
+          for (int q = 0; q < kQ; ++q) w[q] = c * kQ + q < MQ ? wl[c * kQ + q] : 0.f;
+#pragma unroll
+          for (int v = 0; v < kV; ++v) {
+            const int jv = j * kV + v, dv = t + jv * T;
+            const bool ok = dv < Dv;
+            float* dzp = a.dz + ((size_t)r * B + b) * D + (size_t)dv * kW;
+            float zv[kW], s[kW];  // s = -dz
+            ld_vec<kW>(ring_at(gi, g, jv), zv);
+#pragma unroll
+            for (int e = 0; e < kW; ++e) s[e] = 0.f;
+            if (kChunked && c > 0 && ok) {
+              ld_vec<kW>(dzp, s);
+#pragma unroll
+              for (int e = 0; e < kW; ++e) s[e] = -s[e];
+            }
+#pragma unroll
+            for (int e = 0; e < kW; ++e) {
+#pragma unroll
+              for (int q = 0; q < kQ; ++q) {
+                const int i = v * kW + e;
+                const float diff = zv[e] - pm[q][i];
+                const float is = pis[q][i];
+                if (kLaplace) {
+                  // d|x|/dx = sign(x) with sign(0) = 0, as torch.abs and
+                  // jnp.abs define it (the TPU kernel took +1 at 0)
+                  const float ws = diff == 0.f ? 0.f : copysignf(1.f, diff) * w[q];
+                  s[e] = fmaf(ws, is, s[e]);
+                  if constexpr (kGrads) {
+                    smu[q][i] += ws;
+                    sa[q][i] = fmaf(w[q], fabsf(diff), sa[q][i]);
+                  }
+                } else {
+                  const float wd = w[q] * diff;
+                  s[e] = fmaf(wd * is, is, s[e]);
+                  if constexpr (kGrads) {
+                    smu[q][i] += wd;
+                    sa[q][i] = fmaf(wd, diff, sa[q][i]);
+                  }
+                }
+              }
+            }
+            if (ok) {
+#pragma unroll
+              for (int e = 0; e < kW; ++e) s[e] = -s[e];
+              st_vec<kW>(dzp, s);
+            }
+          }
+        }
+        if constexpr (kGrads && kChunked) {
+          // add this chunk's and tile's raw sums into dmu/dsig (owned by
+          // this thread)
+#pragma unroll
+          for (int q = 0; q < kQ; ++q) {
+            const int qq = c * kQ + q;
+#pragma unroll
+            for (int v = 0; v < kV; ++v) {
+              const int dv = t + (j * kV + v) * T;
+              if (qq < MQ && dv < Dv) {
+                const size_t off = ((size_t)qq * B + b) * D + (size_t)dv * kW;
+                float m[kW], s[kW];
+                ld_vec<kW>(a.dmu + off, m);
+                ld_vec<kW>(a.dsig + off, s);
+#pragma unroll
+                for (int e = 0; e < kW; ++e) {
+                  m[e] += smu[q][v * kW + e];
+                  s[e] += sa[q][v * kW + e];
+                  smu[q][v * kW + e] = sa[q][v * kW + e] = 0.f;
+                }
+                st_vec<kW>(a.dmu + off, m);
+                st_vec<kW>(a.dsig + off, s);
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+
+  if constexpr (kGrads) {
+    cp_wait<0>();
+    __syncthreads();
+    // dmu = smu/sig^p and dsig = (sa/sig^p - sum_r w)/sig from the sums of
+    // all slices (added in slice order), each (q, b, d) written once.
+    auto finish = [&](int q, int d, float sm, float sg) {
+      const float is = s_is[q * D + d];
+      const float isp = kLaplace ? is : is * is;
+      float ws = 0.f;
+      for (int p = 0; p < P; ++p) ws += s_wsum[p * MQ + q];
       const size_t o = ((size_t)q * B + b) * D + d;
-      dmu[o] = s_dmu[q * D + d];
-      dsig[o] = s_dsig[q * D + d];
+      a.dmu[o] = sm * isp;
+      a.dsig[o] = (sg * isp - ws) * is;
+    };
+    if constexpr (kChunked) {
+      for (int q = 0; q < MQ; ++q)
+        for (int jv = 0; jv < nv; ++jv) {
+          const int dv = t + jv * T;
+          if (dv < Dv)
+            for (int e = 0; e < kW; ++e) {
+              const size_t o = ((size_t)q * B + b) * D + (size_t)dv * kW + e;
+              finish(q, dv * kW + e, a.dmu[o], a.dsig[o]);
+            }
+        }
+    } else {
+      // The ring is free now: the slices' sums meet there.
+      const int n = kQ * kV * T * kW;  // floats per slice and sum
+      auto put = [&](const float (&acc)[kQ][kElems], float* dst) {
+#pragma unroll
+        for (int q = 0; q < kQ; ++q)
+#pragma unroll
+          for (int v = 0; v < kV; ++v) {
+            float x[kW];
+#pragma unroll
+            for (int e = 0; e < kW; ++e) x[e] = acc[q][v * kW + e];
+            st_vec<kW>(dst + slice * n + ((q * kV + v) * T + t) * kW, x);
+          }
+      };
+      put(smu, smem);
+      put(sa, smem + P * n);
+      __syncthreads();
+      for (int i = tid; i < n; i += PT) {
+        const int qv = i / (T * kW), rem = i - qv * (T * kW);
+        const int q = qv / kV, v = qv - q * kV;
+        const int dv = rem / kW + v * T;
+        if (dv < Dv && q < MQ) {  // not the padded experts
+          float sm = 0.f, sg = 0.f;
+          for (int p = 0; p < P; ++p) {
+            sm += smem[p * n + i];
+            sg += smem[(P + p) * n + i];
+          }
+          finish(q, dv * kW + rem % kW, sm, sg);
+        }
+      }
     }
   }
 }
 
-cudaError_t allow_smem(const void* kernel, size_t bytes) {
-  if (bytes <= kDefaultSmemBytes) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+struct Plan {
+  int T, P, S, NT, kq;
+  bool chunked;
+  size_t smem;
+};
+
+// The launch shape; false for an empty input.
+bool make_plan(int R, int B, int D, int MQ, int mode, int vec, int nsm, Plan* p) {
+  if (R < 1 || B < 1 || D < 1 || MQ < 1) return false;
+  const int kw = vec ? 4 : 1;
+  const int kv = kElems / kw;
+  // threads a row needs at kElems coordinates each; beyond kMaxThreads the
+  // row is cut into NT tiles, each thread holding kElems coordinates of each
+  const int need = (D / kw + kv - 1) / kv;
+  const int NT = (need + kMaxThreads - 1) / kMaxThreads;
+  const int T = ((need + NT - 1) / NT + 31) / 32 * 32;
+  p->T = T;
+  p->NT = NT;
+  p->chunked = !vec || MQ > kMaxQ || NT > 1;
+  p->kq = p->chunked ? kMaxQ : padded_q(MQ);
+  int P = (mode == kBwdFull ? kMaxThreads / 2 : kMaxThreads) / T;
+  if (P < 1) P = 1;
+  if (mode == kBwdFull && p->chunked) P = 1;
+  p->P = P;
+  int S = 1;
+  if (mode != kBwdFull) {
+    const int most = (R + P * kG - 1) / (P * kG);
+    S = 2 * nsm / B;
+    if (S > most) S = most;
+    if (S < 1) S = 1;
+  }
+  p->S = S;
+  const size_t floats = layout(P, T, NT, p->kq, MQ, D, mode, p->chunked).total;
+  p->smem = floats * sizeof(float);
+  return true;
+}
+
+template <int kMode, bool kLap>
+const void* pick(int vec, int kq, bool chunked) {
+  if (chunked)
+    return vec ? (const void*)&mixture_kernel<kLap, kMaxQ, 4, kMode, true>
+               : (const void*)&mixture_kernel<kLap, kMaxQ, 1, kMode, true>;
+  switch (kq) {
+    case 2: return (const void*)&mixture_kernel<kLap, 2, 4, kMode, false>;
+    case 5: return (const void*)&mixture_kernel<kLap, 5, 4, kMode, false>;
+    case kMaxQ: return (const void*)&mixture_kernel<kLap, kMaxQ, 4, kMode, false>;
+  }
+  return nullptr;
+}
+
+// The plan and the kernel for these shapes, with the kernel's shared
+// memory attributes set.
+std::mutex g_ready_mutex;
+std::set<std::pair<const void*, int>> g_ready;  // (kernel, device) set up
+
+template <int kMode>
+cudaError_t prepare(const Args& a, int laplace, int vec, Plan* p,
+                    const void** kernel) {
+  int dev = 0, nsm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if (!make_plan(a.R, a.B, a.D, a.MQ, kMode, vec, nsm, p)) return cudaErrorInvalidValue;
+  *kernel = laplace ? pick<kMode, true>(vec, p->kq, p->chunked)
+                    : pick<kMode, false>(vec, p->kq, p->chunked);
+  // Once per kernel and device: allow the largest dynamic shared memory a
+  // block may have, and prefer shared memory over L1, so that two blocks'
+  // rings fit on an SM.
+  std::lock_guard<std::mutex> lock(g_ready_mutex);
+  if (g_ready.count({*kernel, dev})) return cudaSuccess;
+  err = cudaFuncSetAttribute(*kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  int optin = 0;
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (err == cudaSuccess) g_ready.insert({*kernel, dev});
+  return err;
+}
+
+template <int kMode>
+int launch(Args a, int laplace, int vec, void* stream) {
+  Plan p;
+  const void* kernel = nullptr;
+  cudaError_t err = prepare<kMode>(a, laplace, vec, &p, &kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  a.T = p.T;
+  a.P = p.P;
+  a.S = p.S;
+  a.NT = p.NT;
+  void* params[] = {&a};
+  err = cudaLaunchKernel(kernel, dim3(a.B, p.S), dim3(p.P * p.T), params, p.smem,
+                         static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kMode>
+int occupancy(Args a, int laplace, int vec, int* out) {
+  Plan p;
+  const void* kernel = nullptr;
+  cudaError_t err = prepare<kMode>(a, laplace, vec, &p, &kernel);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel, p.P * p.T,
+                                                        p.smem);
+  out[1] = p.P * p.T;
+  out[2] = p.S;
+  out[3] = static_cast<int>(p.smem);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -214,53 +815,51 @@ const char* mixture_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Shared memory per block, in bytes; the wrapper checks it against the
-// card's limit before launching.
-size_t mixture_fwd_smem(int R, int D, int MQ) {
-  (void)R;
-  return (2 * (size_t)MQ * D + 2 * (size_t)MQ) * sizeof(float);
+// Shared memory per block in bytes for mode 0 (forward), 1 (dz-only
+// backward) or 2 (full backward); 0 for an empty input. The wrapper checks
+// it against the card's limit before launching.
+size_t mixture_smem(int R, int B, int D, int MQ, int mode, int vec) {
+  Plan p;
+  return make_plan(R, B, D, MQ, mode, vec, 132, &p) ? p.smem : 0;
 }
 
-size_t mixture_bwd_smem(int R, int D, int MQ) {
-  return (4 * (size_t)MQ * D + (size_t)R * MQ + 2 * (size_t)MQ) * sizeof(float);
+// z (R,B,D), mu and sig (MQ,B,D), mask (MQ,B) -> out (R,B), logc (MQ,B).
+// vec: D % 4 == 0 and every pointer 16-byte aligned (float4 path).
+int mixture_fwd(const float* z, const float* mu, const float* sig,
+                const float* mask, float* out, float* logc, int R, int B,
+                int D, int MQ, float dc, int laplace, int vec, void* stream) {
+  Args a = {};
+  a.z = z; a.mu = mu; a.sig = sig; a.mask = mask; a.out = out; a.logc = logc;
+  a.R = R; a.B = B; a.D = D; a.MQ = MQ; a.dc = dc;
+  return launch<kFwd>(a, laplace, vec, stream);
 }
 
-// z (R,B,D), mu and inv_sig (MQ,B,D), logc and mask (MQ,B) -> out (R,B).
-int mixture_fwd(const float* z, const float* mu, const float* inv_sig,
-                const float* logc, const float* mask, float* out, int R, int B,
-                int D, int MQ, int laplace, void* stream) {
-  const size_t smem = mixture_fwd_smem(R, D, MQ);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const void* kernel = laplace
-      ? reinterpret_cast<const void*>(&mixture_fwd_kernel<true>)
-      : reinterpret_cast<const void*>(&mixture_fwd_kernel<false>);
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (laplace)
-    mixture_fwd_kernel<true><<<B, kThreads, smem, st>>>(z, mu, inv_sig, logc, mask, out, R, B, D, MQ);
-  else
-    mixture_fwd_kernel<false><<<B, kThreads, smem, st>>>(z, mu, inv_sig, logc, mask, out, R, B, D, MQ);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The forward's inputs plus out and g (R,B) -> dz (R,B,D), dmu and dsig
-// (MQ,B,D), each written in full.
-int mixture_bwd(const float* z, const float* mu, const float* inv_sig,
+// The forward's inputs, its logc and out, and g (R,B) -> dz (R,B,D), and
+// dmu and dsig (MQ,B,D) unless both are NULL (the dz-only kernel).
+int mixture_bwd(const float* z, const float* mu, const float* sig,
                 const float* logc, const float* mask, const float* out,
                 const float* g, float* dz, float* dmu, float* dsig, int R,
-                int B, int D, int MQ, int laplace, void* stream) {
-  const size_t smem = mixture_bwd_smem(R, D, MQ);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const void* kernel = laplace
-      ? reinterpret_cast<const void*>(&mixture_bwd_kernel<true>)
-      : reinterpret_cast<const void*>(&mixture_bwd_kernel<false>);
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (laplace)
-    mixture_bwd_kernel<true><<<B, kThreads, smem, st>>>(z, mu, inv_sig, logc, mask, out, g, dz, dmu, dsig, R, B, D, MQ);
-  else
-    mixture_bwd_kernel<false><<<B, kThreads, smem, st>>>(z, mu, inv_sig, logc, mask, out, g, dz, dmu, dsig, R, B, D, MQ);
-  return static_cast<int>(cudaGetLastError());
+                int B, int D, int MQ, int laplace, int vec, void* stream) {
+  Args a = {};
+  a.z = z; a.mu = mu; a.sig = sig; a.mask = mask; a.out_in = out; a.g = g;
+  a.logc = const_cast<float*>(logc); a.dz = dz; a.dmu = dmu; a.dsig = dsig;
+  a.R = R; a.B = B; a.D = D; a.MQ = MQ;
+  if (dmu == nullptr && dsig == nullptr)
+    return launch<kBwdDz>(a, laplace, vec, stream);
+  if (dmu == nullptr || dsig == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch<kBwdFull>(a, laplace, vec, stream);
+}
+
+// The launch of mode 0, 1 or 2 at these shapes: out = {blocks per SM,
+// threads per block, row splits, shared memory bytes per block}.
+int mixture_launch_shape(int R, int B, int D, int MQ, int mode, int laplace,
+                         int vec, int* out) {
+  Args a = {};
+  a.R = R; a.B = B; a.D = D; a.MQ = MQ;
+  if (mode == kFwd) return occupancy<kFwd>(a, laplace, vec, out);
+  if (mode == kBwdDz) return occupancy<kBwdDz>(a, laplace, vec, out);
+  return occupancy<kBwdFull>(a, laplace, vec, out);
 }
 
 }  // extern "C"

@@ -12,10 +12,16 @@ with f Laplace or Normal, NOT divided by the expert count.
   ``mixture_log_density_xla``: it forms the (MQ, MZ, K, B, D) broadcast and
   takes ``torch.logsumexp``. The CPU path and the numerics anchor.
 - On CUDA tensors ``mixture_log_density`` runs ``csrc/mixture.cu``
-  through an autograd Function whose forward and backward both launch
-  kernels (see the note at the top of the source for the design and its
-  bound). There is no fallback: a CUDA input the kernel does not take
+  through an autograd Function (see the note at the top of the source for
+  the design and its bound). The forward is one kernel launch: the kernel
+  reads sigma itself and returns the per-expert constant ``logc`` for the
+  backward. The backward is one launch too, of the dz-only kernel when
+  neither ``mus`` nor ``sigmas`` needs a gradient (the DReG path), else of
+  the full one. There is no fallback: a CUDA input the kernel does not take
   (not float32, not contiguous, too large for shared memory) raises.
+- ``_fwd_reference`` and ``_bwd_reference`` compute in plain PyTorch what
+  the C entries ``mixture_fwd`` and ``mixture_bwd`` compute, with the same
+  arguments and outputs, so the CPU tests can drive the autograd glue.
 
 ``launches`` counts kernel launches, one per launch of each kernel.
 """
@@ -34,8 +40,9 @@ _LOG2 = math.log(2.0)
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 _NEG = -1e30
 DISTS = ("laplace", "normal")
+_FWD, _BWD_DZ, _BWD = 0, 1, 2
 
-launches = {"fwd": 0, "bwd": 0}
+launches = {"fwd": 0, "bwd": 0, "bwd_dz": 0}
 
 
 def reset_launches():
@@ -58,20 +65,72 @@ def mixture_log_density_plain(z, mus, sigmas, mask, dist: str = "laplace"):
     return torch.logsumexp(lq, dim=0)
 
 
+def _lq_reference(z3, mus, sigmas, logc, mask, laplace: bool):
+    """lq[q, r, b] = logc[q, b] - sum_d t(z, mu, sig), -1e30 where masked."""
+    u = (z3[None] - mus[:, None]) * (1.0 / sigmas)[:, None]
+    t = u.abs() if laplace else 0.5 * u * u
+    lq = logc[:, None] - t.sum(-1)
+    return torch.where(mask[:, None] > 0, lq, _NEG)
+
+
+def _fwd_reference(z3, mus, sigmas, mask, laplace: bool):
+    """What ``mixture_fwd`` computes: (R,B,D), (MQ,B,D) x2, (MQ,B) ->
+    out (R,B) and logc (MQ,B)."""
+    c = _LOG2 if laplace else _HALF_LOG_2PI
+    logc = -torch.log(sigmas).sum(-1) - z3.shape[-1] * c
+    lq = _lq_reference(z3, mus, sigmas, logc, mask, laplace)
+    return torch.logsumexp(lq, dim=0), logc
+
+
+def _bwd_reference(z3, mus, sigmas, logc, mask, out, g, laplace: bool,
+                   need_params: bool):
+    """What ``mixture_bwd`` computes: dz (R,B,D), and dmu, dsig (MQ,B,D)
+    when ``need_params``, else None for both."""
+    lq = _lq_reference(z3, mus, sigmas, logc, mask, laplace)
+    w = torch.where(mask[:, None] > 0, torch.exp(lq - out[None]) * g[None],
+                    0.0)[..., None]
+    inv = (1.0 / sigmas)[:, None]
+    diff = z3[None] - mus[:, None]
+    if laplace:
+        df_dz = -torch.sign(diff) * inv
+        df_dsig = (diff.abs() * inv - 1.0) * inv
+    else:
+        df_dz = -diff * inv * inv
+        df_dsig = (diff * diff * inv * inv - 1.0) * inv
+    wz = w * df_dz
+    if not need_params:
+        return wz.sum(0), None, None
+    return wz.sum(0), -wz.sum(1), (w * df_dsig).sum(1)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("mixture")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.mixture_fwd.argtypes = [P] * 6 + [I] * 5 + [P]
+    lib.mixture_fwd.argtypes = [P] * 6 + [I] * 4 + [ctypes.c_float] + [I] * 2 + [P]
     lib.mixture_fwd.restype = I
-    lib.mixture_bwd.argtypes = [P] * 10 + [I] * 5 + [P]
+    lib.mixture_bwd.argtypes = [P] * 10 + [I] * 6 + [P]
     lib.mixture_bwd.restype = I
-    for fn in (lib.mixture_fwd_smem, lib.mixture_bwd_smem):
-        fn.argtypes = [I] * 3
-        fn.restype = ctypes.c_size_t
+    lib.mixture_smem.argtypes = [I] * 6
+    lib.mixture_smem.restype = ctypes.c_size_t
+    lib.mixture_launch_shape.argtypes = [I] * 7 + [P]
+    lib.mixture_launch_shape.restype = I
     lib.mixture_error_string.argtypes = [I]
     lib.mixture_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def launch_shape(r: int, b: int, d: int, mq: int, mode: str, laplace=True,
+                 vec=True) -> dict:
+    """How the kernel of ``mode`` ('fwd', 'bwd_dz' or 'bwd') launches at
+    these shapes on the current card: blocks per SM (occupancy), threads
+    per block, row splits and shared memory per block."""
+    vals = (ctypes.c_int * 4)()
+    m = {"fwd": _FWD, "bwd_dz": _BWD_DZ, "bwd": _BWD}[mode]
+    err = _lib().mixture_launch_shape(r, b, d, mq, m, int(laplace), int(vec),
+                                      ctypes.cast(vals, ctypes.c_void_p))
+    _raise_on(err, "mixture_launch_shape")
+    return dict(zip(("blocks_per_sm", "threads", "splits", "smem_bytes"), vals))
 
 
 def _check_inputs(z, mus, sigmas, mask, dist):
@@ -102,13 +161,20 @@ def _check_inputs(z, mus, sigmas, mask, dist):
         raise ValueError("mixture_log_density: empty inputs.")
 
 
-def _check_smem(nbytes: int, device):
+def _vectorized(d: int, *tensors) -> bool:
+    """float4 path: rows of whole float4s and 16-byte aligned pointers."""
+    return d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _check_smem(lib, shape, mode: int, vec: bool, device):
+    nbytes = lib.mixture_smem(*shape, mode, int(vec))
     props = torch.cuda.get_device_properties(device)
     limit = getattr(props, "shared_memory_per_block_optin", 232448)
-    if nbytes > limit:
+    if nbytes == 0 or nbytes > limit:
         raise ValueError(
-            f"mixture kernel needs {nbytes} bytes of shared memory per block "
-            f"(experts x latent too large); the card allows {limit}.")
+            f"mixture kernel cannot take (R, B, D, MQ) = {shape}: it needs "
+            f"{nbytes} bytes of shared memory per block; "
+            f"the card allows {limit}.")
 
 
 def _raise_on(err: int, name: str):
@@ -117,44 +183,51 @@ def _raise_on(err: int, name: str):
         raise RuntimeError(f"{name} failed to launch: CUDA error {err} ({msg})")
 
 
-def _prep(sigmas, d: int, dist: str):
-    """1/sig and the per-(expert, column) constant -sum_d log sig - D*c."""
-    c = _LOG2 if dist == "laplace" else _HALF_LOG_2PI
-    return 1.0 / sigmas, -torch.log(sigmas).sum(-1) - d * c
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
-def _launch_fwd(z3, mus, inv_sig, logc, mask, laplace: bool):
+def _launch_fwd(z3, mus, sigmas, mask, laplace: bool):
+    """One launch of ``mixture_fwd``: out (R,B) and logc (MQ,B)."""
     r, b, d = z3.shape
     mq = mus.shape[0]
     lib = _lib()
-    _check_smem(lib.mixture_fwd_smem(r, d, mq), z3.device)
+    vec = _vectorized(d, z3, mus, sigmas)
+    _check_smem(lib, (r, b, d, mq), _FWD, vec, z3.device)
     out = torch.empty((r, b), dtype=torch.float32, device=z3.device)
+    logc = torch.empty((mq, b), dtype=torch.float32, device=z3.device)
+    dc = d * (_LOG2 if laplace else _HALF_LOG_2PI)
     with torch.cuda.device(z3.device):
         err = lib.mixture_fwd(
-            z3.data_ptr(), mus.data_ptr(), inv_sig.data_ptr(),
-            logc.data_ptr(), mask.data_ptr(), out.data_ptr(),
-            r, b, d, mq, int(laplace), torch.cuda.current_stream().cuda_stream)
+            z3.data_ptr(), mus.data_ptr(), sigmas.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), logc.data_ptr(), r, b, d, mq, dc, int(laplace),
+            int(vec), torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "mixture_fwd")
     launches["fwd"] += 1
-    return out
+    return out, logc
 
 
-def _launch_bwd(z3, mus, inv_sig, logc, mask, out, g, laplace: bool):
+def _launch_bwd(z3, mus, sigmas, logc, mask, out, g, laplace: bool,
+                need_params: bool):
+    """One launch of ``mixture_bwd``: dz, and dmu and dsig when
+    ``need_params`` (else the dz-only kernel, and None for both)."""
     r, b, d = z3.shape
     mq = mus.shape[0]
     lib = _lib()
-    _check_smem(lib.mixture_bwd_smem(r, d, mq), z3.device)
     dz = torch.empty_like(z3)
-    dmu = torch.empty_like(mus)
-    dsig = torch.empty_like(mus)
+    dmu = torch.empty_like(mus) if need_params else None
+    dsig = torch.empty_like(mus) if need_params else None
+    vec = _vectorized(d, z3, mus, sigmas)
+    _check_smem(lib, (r, b, d, mq), _BWD if need_params else _BWD_DZ, vec,
+                z3.device)
     with torch.cuda.device(z3.device):
         err = lib.mixture_bwd(
-            z3.data_ptr(), mus.data_ptr(), inv_sig.data_ptr(),
-            logc.data_ptr(), mask.data_ptr(), out.data_ptr(), g.data_ptr(),
-            dz.data_ptr(), dmu.data_ptr(), dsig.data_ptr(),
-            r, b, d, mq, int(laplace), torch.cuda.current_stream().cuda_stream)
+            z3.data_ptr(), mus.data_ptr(), sigmas.data_ptr(), logc.data_ptr(),
+            mask.data_ptr(), out.data_ptr(), g.data_ptr(), dz.data_ptr(),
+            _ptr(dmu), _ptr(dsig), r, b, d, mq, int(laplace), int(vec),
+            torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "mixture_bwd")
-    launches["bwd"] += 1
+    launches["bwd" if need_params else "bwd_dz"] += 1
     return dz, dmu, dsig
 
 
@@ -162,20 +235,20 @@ class _MixtureLogDensity(torch.autograd.Function):
     @staticmethod
     def forward(ctx, z, mus, sigmas, mask, dist):
         mz, k, b, d = z.shape
-        inv_sig, logc = _prep(sigmas, d, dist)
         z3 = z.view(mz * k, b, d)
-        out = _launch_fwd(z3, mus, inv_sig, logc, mask, dist == "laplace")
-        ctx.save_for_backward(z3, mus, inv_sig, logc, mask, out)
+        out, logc = _launch_fwd(z3, mus, sigmas, mask, dist == "laplace")
+        ctx.save_for_backward(z3, mus, sigmas, logc, mask, out)
         ctx.laplace = dist == "laplace"
         ctx.z_shape = z.shape
         return out.view(mz, k, b)
 
     @staticmethod
     def backward(ctx, g):
-        z3, mus, inv_sig, logc, mask, out = ctx.saved_tensors
+        z3, mus, sigmas, logc, mask, out = ctx.saved_tensors
         g = g.reshape(out.shape).to(torch.float32).contiguous()
-        dz, dmu, dsig = _launch_bwd(z3, mus, inv_sig, logc, mask, out, g,
-                                    ctx.laplace)
+        need_params = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
+        dz, dmu, dsig = _launch_bwd(z3, mus, sigmas, logc, mask, out, g,
+                                    ctx.laplace, need_params)
         return dz.view(ctx.z_shape), dmu, dsig, None, None
 
 

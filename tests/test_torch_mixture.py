@@ -12,6 +12,7 @@ CUDA kernel is held against the plain version on the card by
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import jax
 import jax.numpy as jnp
@@ -167,3 +168,156 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(cuda_build, "NVCC_FALLBACK", str(tmp_path / "nvcc"))
     with pytest.raises(RuntimeError, match="nvcc"):
         cuda_build.build(["mixture"])
+
+
+# --- the autograd glue around the CUDA kernels, on the CPU -----------------
+# ``_fwd_reference`` and ``_bwd_reference`` compute what the C entries
+# ``mixture_fwd`` and ``mixture_bwd`` compute, with the same arguments; here
+# they stand in for the launches so that ``_MixtureLogDensity`` runs on CPU
+# tensors. Tolerances as above: float32 on both sides, sums in another order.
+
+
+class _OpsOutsideLaunches(TorchDispatchMode):
+    """Records every aten op that runs outside a (stand-in) launch."""
+
+    def __init__(self, state):
+        super().__init__()
+        self.state = state
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if not self.state["inside"]:
+            self.ops.append(func)
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.fixture
+def reference_launches(monkeypatch):
+    """Replace both launches by their plain stand-ins; returns the list of
+    (kind, result) of every launch and the flag set while one runs."""
+    calls, state = [], {"inside": False}
+
+    def wrap(kind_of, fn):
+        def launch(*args):
+            state["inside"] = True
+            try:
+                result = fn(*args)
+            finally:
+                state["inside"] = False
+            calls.append((kind_of(args), result))
+            return result
+        return launch
+
+    monkeypatch.setattr(mx, "_launch_fwd", wrap(lambda a: "fwd", mx._fwd_reference))
+    monkeypatch.setattr(mx, "_launch_bwd", wrap(
+        lambda a: "bwd" if a[-1] else "bwd_dz", mx._bwd_reference))
+    return calls, state
+
+
+def _glue(z, mus, sig, mask, dist):
+    return mx._MixtureLogDensity.apply(z, mus, sig, mask, dist)
+
+
+@pytest.mark.parametrize("dist", ["laplace", "normal"])
+def test_glue_matches_jax_xla(reference_launches, dist):
+    """Value and all three gradients of the autograd Function (stand-in
+    launches) against ``mixture_log_density_xla``, with a masked expert and
+    a fully masked column; the full backward runs when mus and sigmas need
+    gradients."""
+    calls, _ = reference_launches
+    args = _inputs(seed=6, fully_masked_column=True)
+    out_t, grads_t = _torch_value_and_grads(_glue, *args, dist)
+    out_j, grads_j = _jax_value_and_grads(pm.mixture_log_density_xla, *args, dist)
+    assert [k for k, _ in calls] == ["fwd", "bwd"]
+    np.testing.assert_allclose(out_t, out_j, **OUT_TOL)
+    for gt, gj in zip(grads_t, grads_j):
+        np.testing.assert_allclose(gt, gj, **GRAD_TOL)
+    assert (grads_t[0][:, :, 0] == 0).all()
+    assert (grads_t[1][:, 0] == 0).all() and (grads_t[2][:, 0] == 0).all()
+    assert (grads_t[1][1, :5] == 0).all() and (grads_t[2][1, :5] == 0).all()
+
+
+@pytest.mark.parametrize("dist", ["laplace", "normal"])
+def test_glue_logc_side_output(reference_launches, dist):
+    """The forward launch returns logc = -sum_d log sig - D*c for the
+    backward; the backward receives it, and the forward's out, unchanged."""
+    calls, _ = reference_launches
+    z, mus, sig, mask, g = (torch.tensor(a) for a in _inputs(seed=7))
+    z = z.requires_grad_()
+    out = _glue(z, mus, sig, mask, dist)
+    out.backward(torch.tensor(_inputs(seed=7)[4]))
+    (_, (out_r, logc)), _ = calls
+    c = mx._LOG2 if dist == "laplace" else mx._HALF_LOG_2PI
+    torch.testing.assert_close(logc, -torch.log(sig).sum(-1) - D * c)
+    torch.testing.assert_close(out.detach(), out_r.view(MZ, K, B), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dist", ["laplace", "normal"])
+def test_glue_dz_only_backward(reference_launches, dist):
+    """With mus and sigmas detached (the DReG path) the backward launches
+    the dz-only kernel, gets None for dmu and dsig, and gives the same dz as
+    the full backward."""
+    calls, _ = reference_launches
+    z, mus, sig, mask, g = (torch.tensor(a) for a in _inputs(seed=8))
+    z_full = z.clone().requires_grad_()
+    leaves = [z_full, mus.clone().requires_grad_(), sig.clone().requires_grad_()]
+    dz_full = torch.autograd.grad(_glue(*leaves, mask, dist), leaves, g)[0]
+    z_only = z.clone().requires_grad_()
+    (dz_only,) = torch.autograd.grad(_glue(z_only, mus, sig, mask, dist),
+                                     [z_only], g)
+    kinds = [k for k, _ in calls]
+    assert kinds == ["fwd", "bwd", "fwd", "bwd_dz"]
+    _, dmu, dsig = calls[-1][1]
+    assert dmu is None and dsig is None
+    torch.testing.assert_close(dz_only, dz_full, rtol=0, atol=0)
+    _, grads_j = _jax_value_and_grads(pm.mixture_log_density_xla,
+                                      *_inputs(seed=8), dist)
+    np.testing.assert_allclose(dz_only.numpy(), grads_j[0], **GRAD_TOL)
+
+
+@pytest.mark.parametrize("needs", [(True, False), (False, True)])
+def test_glue_one_parameter_gradient_takes_full_backward(reference_launches, needs):
+    """If either mus or sigmas needs a gradient, the full backward runs."""
+    calls, _ = reference_launches
+    z, mus, sig, mask, g = (torch.tensor(a) for a in _inputs(seed=9))
+    mus.requires_grad_(needs[0])
+    sig.requires_grad_(needs[1])
+    _glue(z, mus, sig, mask, "laplace").backward(g)
+    assert [k for k, _ in calls] == ["fwd", "bwd"]
+    assert (mus.grad is not None) == needs[0] and (sig.grad is not None) == needs[1]
+
+
+def test_glue_forward_is_one_launch_without_torch_prep(reference_launches):
+    """A forward is exactly one launch, and outside it only views run: no
+    1/sigma, log, sum or affine prep in torch."""
+    calls, state = reference_launches
+    z, mus, sig, mask = (torch.tensor(a) for a in _inputs(seed=10)[:4])
+    mode = _OpsOutsideLaunches(state)
+    with mode:
+        _glue(z, mus, sig, mask, "laplace")
+    assert [k for k, _ in calls] == ["fwd"]
+    assert mode.ops and all(op.is_view for op in mode.ops), mode.ops
+
+
+def test_vectorized_path_needs_whole_float4_rows_and_alignment():
+    t = torch.zeros(64)
+    assert mx._vectorized(100, t)
+    assert not mx._vectorized(101, t)              # D % 4 != 0: scalar path
+    assert not mx._vectorized(100, t, t[1:])       # a view 4 bytes in
+
+
+def test_kernel_takes_d_up_to_its_register_layout():
+    """A row longer than one register tile (kMaxThreads threads of kElems
+    coordinates each) is cut into tiles, so the input checks refuse no D:
+    only shared memory, checked at launch, limits it. Here a D of three
+    tiles and one more coordinate gets as far as the device check."""
+    import re
+    from multivae_tpu_torch.ops import cuda_build
+
+    src = (cuda_build.CSRC_DIR / "mixture.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    d = 3 * int(consts["kMaxThreads"]) * int(consts["kElems"]) + 1
+    z = torch.zeros(1, 1, 1, d)
+    mus = torch.zeros(1, 1, d)
+    with pytest.raises(ValueError, match="CUDA device"):
+        mx._check_inputs(z, mus, mus, torch.ones(1, 1), "laplace")
