@@ -35,12 +35,33 @@ Phases (any failure exits non-zero and prints no result line):
    noise (a float64 CPU value is printed beside both); then the same model
    with the IWAE objective for 2 steps, the path of the full backward
    kernel (once forward, once backward a step);
-5. a ``kernels`` JSON line, then the last line
+5. ``mvtcae_mlp``: MVTCAE at ``bench.py``'s ``bench_jax`` configuration
+   (``tools/workloads.py``: two image modalities, MLP-512 nets, Bernoulli
+   decoders, latent 512) trained by ``BaseTrainer.train()`` for 2 epochs of
+   2048 random rows (16 steps of batch 256, Adam 1e-3, float32); every
+   epoch loss must be finite, no mixture kernel may launch, and the trained
+   model's loss on 8 rows with injected noise must agree between the card
+   and the CPU (a float64 CPU value is printed beside both);
+6. ``mvtcae_conv``: the same for the partial-PolyMNIST configuration (5
+   modalities of 3x28x28, the PolyMNIST conv nets, Laplace decoders of
+   scale 0.75, ReduceLROnPlateau on a 512-row eval set) on an
+   ``IncompleteDataset`` with 20% of the (row, modality) pairs missing and
+   a few rows with no modality (the PoE's dead-row fallback; the 8 rows of
+   the loss check hold one);
+7. ``mvtcae_inference`` on the two trained models: encode (N=10, flatten),
+   predict, generate_from_prior(64) + decode, the refusal to encode an
+   incomplete conditioning subset; the K=1000 joint NLL (``bench.py``'s
+   ``bench_nll_jax`` setting: 512 complete rows, ``batch_size_K=100``, on
+   the MLP model; 256 rows on the conv model), wall seconds as the median
+   of 3 after a warm-up; the joint NLL of 8 rows with K=20 and injected
+   noise, card vs CPU; no mixture kernel may launch;
+8. a ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
 
+import contextlib
 import copy
 import json
 import os
@@ -76,6 +97,7 @@ OUT_RTOL, OUT_ATOL = 1e-5, 1e-4
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-3
 # Trained-model loss on the card vs on the CPU: same weights and noise,
 # different matmul and reduction order over ~10^4-sized log-weights.
+# The same holds for the MVTCAE losses and the 8-row joint NLL.
 LOSS_RTOL = 1e-4
 
 SLICE_SHAPE = dict(mz=5, k=10, b=256, d=512, mq=5)
@@ -335,6 +357,158 @@ def slice_run(mx, n_mods=5, shape=(3, 28, 28), n=2048, latent_dim=512, K=10,
             "small_loss_cpu_float64": loss_cpu64}, launches
 
 
+@contextlib.contextmanager
+def injected_noise(model, draws, dtype=torch.float32):
+    """Make ``model.draw_noise`` return ``draws`` in order (on the model's
+    device, in ``dtype``), checking each shape."""
+    queue = list(draws)
+
+    def draw(shape, generator=None):
+        u = queue.pop(0)
+        check(tuple(u.shape) == tuple(shape), f"noise {tuple(u.shape)} != {shape}")
+        return u.to(model.device, dtype)
+
+    model.draw_noise = draw
+    try:
+        yield
+    finally:
+        del model.draw_noise
+    check(not queue, f"{len(queue)} noise draws left unused")
+
+
+def card_vs_cpu(model, fn, draws):
+    """``fn(net, dtype)`` on the card, on a float32 CPU copy and on a
+    float64 CPU copy of ``model``, each fed ``draws`` as its noise."""
+    values = {}
+    for key, device, dtype in (("card", None, torch.float32),
+                               ("cpu", "cpu", torch.float32),
+                               ("cpu_float64", "cpu", torch.float64)):
+        net = model if device is None else copy.deepcopy(model).to(device, dtype)
+        check(net.device.type == (device or "cuda"), f"{key} model on {net.device}")
+        with injected_noise(net, draws, dtype), torch.no_grad():
+            values[key] = float(fn(net, dtype))
+    check(np.isfinite(values["card"]), f"card value is not finite: {values}")
+    check(abs(values["card"] - values["cpu"]) <= LOSS_RTOL * abs(values["cpu"]),
+          f"card {values['card']} vs cpu {values['cpu']}")
+    return values
+
+
+def rows_batch(dataset, idx, dtype=torch.float32):
+    from multivae_tpu_torch.data import batch_from_arrays
+
+    raw = dataset.get_batch(idx)
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    return batch_from_arrays({m: v.astype(np_dtype) for m, v in raw["data"].items()},
+                             masks=raw.get("masks"))
+
+
+def mvtcae_run(mx, name, n=2048, epochs=2, device="cuda"):
+    """Train an MVTCAE workload of ``tools/workloads.py`` with BaseTrainer;
+    returns (the phase's JSON record, the workload)."""
+    from multivae_tpu_torch.tools import workloads
+    from multivae_tpu_torch.trainers import BaseTrainer, BaseTrainerConfig
+
+    w = workloads.build(name, n=n, device=device)
+    trainer = BaseTrainer(w.model, w.train, w.eval, device=device,
+                          training_config=BaseTrainerConfig(
+                              output_dir=os.path.join(ROOT, "build", "chip_smoke"),
+                              num_epochs=epochs, seed=0, **w.trainer_kwargs))
+    step_ends = []   # (epoch, CUDA event after the optimizer step)
+
+    def on_step(*_):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        step_ends.append((len(trainer.history), ev))
+
+    trainer.optimizer.register_step_post_hook(on_step)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mx.reset_launches()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    check(not any(mx.launches.values()), f"{name} launched {mx.launches}")
+
+    losses = [h["train_epoch_loss"] for h in trainer.history]
+    expected_steps = epochs * -(-n // w.trainer_kwargs["per_device_train_batch_size"])
+    check(len(step_ends) == expected_steps,
+          f"expected {expected_steps} steps, ran {len(step_ends)}")
+    check(all(np.isfinite(losses)), f"non-finite epoch loss: {losses}")
+    # time between consecutive steps of one epoch: the first step and the
+    # epoch ends (eval pass, loss fetch) stay out
+    gaps = [a.elapsed_time(b) for (ea, a), (eb, b) in zip(step_ends, step_ends[1:])
+            if ea == eb]
+    record = {"phase": name, "steps": len(step_ends), "epoch_losses": losses,
+              "steps_per_s": len(gaps) / (sum(gaps) / 1e3),
+              "peak_mem_bytes": torch.cuda.max_memory_allocated(), "wall_s": wall_s}
+    if w.eval is not None:
+        record["eval_losses"] = [h["eval_epoch_loss"] for h in trainer.history]
+        record["lr"] = trainer.optimizer.param_groups[0]["lr"]
+
+    # the trained model's loss on 8 rows (conv: row 5 has no modality)
+    idx = np.arange(8)
+    u = torch.randn((8, workloads.LATENT), generator=torch.Generator().manual_seed(1))
+    loss = card_vs_cpu(w.model, lambda net, dtype: net.loss_function(
+        rows_batch(w.train, idx, dtype).to(net.device))["loss"], [u])
+    record.update({f"small_loss_{k}": v for k, v in loss.items()})
+    return record, w
+
+
+def mvtcae_inference(mx, workloads_by_name, nll_rows=(512, 256), K=1000,
+                     batch_size_K=100, repeats=3):
+    """encode / predict / generate / refusal / joint NLL on trained models."""
+    from multivae_tpu_torch.data import IncompleteDataset, MultimodalBaseDataset
+
+    mx.reset_launches()
+    record = {"phase": "mvtcae_inference", "K": K, "batch_size_K": batch_size_K}
+    for (name, w), n_nll in zip(workloads_by_name.items(), nll_rows):
+        model, dims = w.model, w.model.input_dims
+        complete = w.eval if w.eval is not None else w.train
+        rows = complete.get_batch(np.arange(min(256, len(complete))))
+        n, cond = len(rows["data"]["m0"]), ["m0", "m1"]
+        with torch.no_grad():
+            z = model.encode(rows, cond_mod=cond, N=10, flatten=True).z
+            check(z.shape == (10 * n, model.latent_dim), f"{name} encode {z.shape}")
+            pred = model.predict(rows, cond_mod=cond, gen_mod="all", N=10)
+            prior = model.decode(model.generate_from_prior(64))
+            for m, d in dims.items():
+                check(pred[m].shape == (10, n, *d), f"{name} predict {m} {pred[m].shape}")
+                check(prior[m].shape == (64, *d), f"{name} prior {m} {prior[m].shape}")
+            check(all(bool(torch.isfinite(t).all()) for t in
+                      [z, *pred.values(), *prior.values()]), f"{name}: non-finite")
+        masks = {m: np.ones(n, bool) for m in dims}
+        masks["m0"][0] = False
+        try:
+            model.encode(IncompleteDataset(rows["data"], masks), cond_mod="m0")
+            check(False, f"{name}: encode accepted an incomplete subset")
+        except AttributeError:
+            pass
+
+        nll_set = MultimodalBaseDataset(complete.get_batch(np.arange(n_nll))["data"])
+        times = []
+        for i in range(repeats + 1):   # the first call is the warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nll = model.compute_joint_nll(nll_set, K=K, batch_size_K=batch_size_K)
+            nll = nll.item()
+            times.append(time.perf_counter() - t0)
+            check(np.isfinite(nll), f"{name}: joint NLL {nll}")
+        record[name] = {"nll_rows": n_nll, "joint_nll": nll,
+                        "joint_nll_s": float(np.median(times[1:])),
+                        "joint_nll_warmup_s": times[0]}
+        # 8 rows, K=20 in chunks of 8, 8 and 4, the same noise on both sides
+        gen = torch.Generator().manual_seed(2)
+        draws = [torch.randn((k, 8, model.latent_dim), generator=gen) for k in (8, 8, 4)]
+        eight = MultimodalBaseDataset(complete.get_batch(np.arange(8))["data"])
+        record[name].update({f"small_nll_{k}": v for k, v in card_vs_cpu(
+            model, lambda net, dtype: net.compute_joint_nll(
+                rows_batch(eight, np.arange(8), dtype), K=20, batch_size_K=8),
+            draws).items()})
+    check(not any(mx.launches.values()), f"MVTCAE inference launched {mx.launches}")
+    return record
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -401,6 +575,12 @@ def main():
         iwae, iwae_launches = slice_run(mx, n=512, epochs=1, loss="iwae_looser")
         print("iwae path: " + json.dumps(iwae))
         launches["bwd"] = iwae_launches["bwd"]
+
+        trained = {}
+        for name in ("mvtcae_mlp", "mvtcae_conv"):
+            record, trained[name] = mvtcae_run(mx, name)
+            print(json.dumps(record))
+        print(json.dumps(mvtcae_inference(mx, trained)))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,5 +1,6 @@
 from .base import BaseModel, BaseMultiVAE, BaseMultiVAEConfig
 from .mmvae import MMVAE, MMVAEConfig
+from .mvtcae import MVTCAE, MVTCAEConfig
 
 __all__ = ["BaseModel", "BaseMultiVAE", "BaseMultiVAEConfig", "MMVAE",
-           "MMVAEConfig"]
+           "MMVAEConfig", "MVTCAE", "MVTCAEConfig"]

@@ -1,15 +1,23 @@
-"""BaseMultiVAE: the shared multimodal-VAE machinery that MMVAE uses.
+"""BaseMultiVAE: the shared multimodal-VAE machinery.
 
 Counterpart of ``multivae_tpu/models/base/base_ae_model.py``: the
 constructor checks, ``set_rescale_factors``, ``set_decoders_dist``,
-``encode_mod`` / ``decode_mod`` (any leading shape) and ``forward``.
-``encode`` / ``decode`` / ``predict`` / the NLL estimators are not ported
-yet.
+``encode_mod`` / ``decode_mod`` (any leading shape), ``forward`` and the
+inference surface: ``encode`` / ``decode`` / ``predict`` /
+``generate_from_prior``, the Gaussian-posterior K-sample joint NLL
+(``_gaussian_iwae_joint_nll``) and ``compute_cond_nll``.
+
+Every random draw goes through ``draw_noise(shape, generator)`` (standard
+normal here; MMVAE overrides it), so a test can feed another package's
+noise. The JAX package compiles one program per encode subset; eager
+PyTorch needs no such sharing, so a model implements ``_encode_subset``
+alone.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -18,11 +26,24 @@ from torch import nn
 from ...data.batch import MultimodalBatch, as_batch
 from ...nn.default_architectures import BaseDictDecoders, BaseDictEncoders
 from ...ops.dists import set_decoder_dist
+from ...ops.gaussian import gaussian_log_prob, rsample_from_gaussian, sum_f32
+from ...ops.iwae import iwae_log_marginal
 from ...utils.device import resolve_device
 from ...utils.model_output import ModelOutput
 from .base_config import BaseMultiVAEConfig
 from .base_model import BaseModel
 from .step import StepInfo
+
+
+def sum_except_batch(x, batch_ndims: int = 1):
+    """Sum all but the leading ``batch_ndims`` axes, in at least float32."""
+    return sum_f32(x.reshape(*x.shape[:batch_ndims], -1))
+
+
+def _all_available(mask) -> bool:
+    if isinstance(mask, torch.Tensor):
+        return bool(mask.bool().all())
+    return bool(np.all(np.asarray(mask)))
 
 
 class BaseMultiVAE(BaseModel):
@@ -172,6 +193,20 @@ class BaseMultiVAE(BaseModel):
         """Decoder output for ``mod``; ``z`` may have any leading shape."""
         return self.decoders[mod](z)["reconstruction"]
 
+    def draw_noise(self, shape, generator: Optional[torch.Generator] = None):
+        """Standard-normal noise of ``shape`` on the model's device: every
+        sample the model draws comes from here."""
+        return torch.randn(shape, generator=generator, device=self.device)
+
+    def stacked_gaussian_params(self, batch: MultimodalBatch, mods=None):
+        """Encode ``mods`` (default all) and stack (mus, log_vars, mask) of
+        shapes (M, B, D), (M, B, D), (M, B)."""
+        mods = list(self.encoders.keys()) if mods is None else list(mods)
+        outs = [self.encode_mod(m, batch.data[m]) for m in mods]
+        return (torch.stack([o["embedding"] for o in outs]),
+                torch.stack([o["log_covariance"] for o in outs]),
+                torch.stack([batch.masks[m] for m in mods]))
+
     def loss_function(self, batch: MultimodalBatch, step: Optional[StepInfo] = None,
                       generator: Optional[torch.Generator] = None) -> ModelOutput:
         """Must return ModelOutput(loss, loss_sum, metrics)."""
@@ -187,3 +222,155 @@ class BaseMultiVAE(BaseModel):
             dataset_size=kwargs.get("dataset_size", batch.n_samples),
         )
         return self.loss_function(batch, step, generator=generator)
+
+    # ------------------------------------------------------------ inference
+    def _normalize_cond_mod(self, cond_mod) -> tuple:
+        if isinstance(cond_mod, str):
+            if cond_mod == "all":
+                return tuple(self.encoders.keys())
+            if cond_mod in self.encoders:
+                return (cond_mod,)
+            raise AttributeError(
+                'If cond_mod is a string, it must either be "all" or a '
+                f"modality name. The provided string {cond_mod} is neither.")
+        cond = tuple(cond_mod)
+        for m in cond:
+            if m not in self.encoders:
+                raise AttributeError(f"Unknown modality in cond_mod: {m}")
+        return cond
+
+    def _check_availability(self, inputs, cond_mod, ignore_incomplete: bool):
+        """Refuse to encode samples missing a conditioning modality."""
+        masks = getattr(inputs, "masks", None)
+        if ignore_incomplete or masks is None:
+            return
+        for m in cond_mod:
+            if m in masks and not _all_available(masks[m]):
+                raise AttributeError(
+                    "You tried to encode an incomplete dataset conditioning on "
+                    f"modalities {list(cond_mod)}, but some samples are not "
+                    "available in all those modalities.")
+
+    def _encode_subset(self, batch: MultimodalBatch, *, cond_mod: tuple, N: int,
+                       return_mean: bool, flatten: bool,
+                       generator: Optional[torch.Generator]) -> dict:
+        """Model-specific encoding; returns {'z': ...}."""
+        raise NotImplementedError
+
+    def encode(self, inputs, cond_mod: Union[list, str] = "all", N: int = 1,
+               return_mean: bool = False, flatten: bool = False,
+               generator: Optional[torch.Generator] = None,
+               ignore_incomplete: bool = False) -> ModelOutput:
+        """Sample the posterior conditioned on a subset of modalities.
+        Returns ModelOutput(z, one_latent_space, cond_mod)."""
+        batch = as_batch(inputs).to(self.device)
+        cond = self._normalize_cond_mod(cond_mod)
+        self._check_availability(inputs, cond, ignore_incomplete)
+        out = self._encode_subset(batch, cond_mod=cond, N=N,
+                                  return_mean=bool(return_mean),
+                                  flatten=bool(flatten), generator=generator)
+        result = ModelOutput(z=out["z"], one_latent_space=True)
+        result["cond_mod"] = list(cond)
+        return result
+
+    def decode(self, embedding: ModelOutput,
+               modalities: Union[list, str] = "all") -> ModelOutput:
+        """Decode a latent code (any leading shape) in ``modalities``."""
+        if modalities == "all":
+            mods = tuple(self.decoders.keys())
+        elif isinstance(modalities, str):
+            mods = (modalities,)
+        else:
+            mods = tuple(modalities)
+        return ModelOutput(**{m: self.decode_mod(m, embedding["z"]) for m in mods})
+
+    def predict(self, inputs, cond_mod: Union[list, str] = "all",
+                gen_mod: Union[list, str] = "all", N: int = 1,
+                flatten: bool = False, generator: Optional[torch.Generator] = None,
+                ignore_incomplete: bool = False) -> ModelOutput:
+        """Cross-modal generation: encode on ``cond_mod``, decode on
+        ``gen_mod``; with N > 1 and not ``flatten`` the outputs are
+        (N, n_data, ...)."""
+        z = self.encode(inputs, cond_mod, N=N, flatten=True, generator=generator,
+                        ignore_incomplete=ignore_incomplete)
+        output = self.decode(z, gen_mod)
+        n_data = z.z.shape[0] // N
+        if not flatten and N > 1:
+            for m in list(output.keys()):
+                output[m] = output[m].reshape(N, n_data, *output[m].shape[1:])
+        return output
+
+    def generate_from_prior(self, n_samples: int,
+                            generator: Optional[torch.Generator] = None
+                            ) -> ModelOutput:
+        """Latents from the standard-normal prior: (n_samples, latent_dim),
+        or (latent_dim,) when n_samples == 1."""
+        shape = (n_samples, self.latent_dim) if n_samples > 1 else (self.latent_dim,)
+        return ModelOutput(z=self.draw_noise(shape, generator), one_latent_space=True)
+
+    def compute_joint_nll(self, inputs, K: int = 1000, batch_size_K: int = 100,
+                          generator: Optional[torch.Generator] = None):
+        raise NotImplementedError
+
+    def _gaussian_iwae_joint_nll(self, batch: MultimodalBatch, joint_mu,
+                                 joint_log_var, K: int, batch_size_K: int,
+                                 generator: Optional[torch.Generator] = None):
+        """K-sample IWAE joint NLL for a Gaussian joint posterior: z ~ q(z|X)
+        weighted by p(X|z) p(z) / q(z|X), in chunks of ``batch_size_K``.
+        Returns the sum over rows of -ln p(X) times the row weights."""
+
+        def logw_chunk(chunk: int):
+            z = rsample_from_gaussian(
+                joint_mu, joint_log_var, N=chunk,
+                noise=self.draw_noise((chunk, *joint_mu.shape), generator))
+            lpx_z = 0.0
+            for m in self.decoders:
+                recon = self.decode_mod(m, z)
+                lpx_z = lpx_z + sum_except_batch(
+                    self.recon_log_probs[m](recon, batch.data[m][None]),
+                    batch_ndims=2)
+            zeros = torch.zeros_like(z)
+            lpz = sum_f32(gaussian_log_prob(z, zeros, zeros))
+            lqz = sum_f32(gaussian_log_prob(z, joint_mu[None], joint_log_var[None]))
+            return lpx_z + lpz - lqz
+
+        ln_px = iwae_log_marginal(logw_chunk, K, batch_size_K)
+        return -(ln_px * batch.weights).sum()
+
+    def _check_complete_for_nll(self, inputs):
+        incomplete = (inputs.incomplete if isinstance(inputs, MultimodalBatch)
+                      else getattr(inputs, "masks", None) is not None)
+        if incomplete:
+            raise AttributeError(
+                "The compute_joint_nll method is not yet implemented for "
+                "incomplete datasets.")
+
+    @torch.no_grad()
+    def compute_cond_nll(self, inputs, subset, pred_mods, k_iwae: int = 1000,
+                         batch_size_k: int = 100,
+                         generator: Optional[torch.Generator] = None
+                         ) -> Dict[str, torch.Tensor]:
+        """Monte-Carlo conditional NLL -ln p(x_pred | x_subset), averaged
+        over the rows: ``batch_size_k`` posterior draws per chunk, chunks
+        combined by logsumexp."""
+        batch = as_batch(inputs).to(self.device)
+        subset = self._normalize_cond_mod(subset)
+        pred_mods = tuple(pred_mods)
+        chunks = {m: [] for m in pred_mods}
+        n_done = 0
+        while n_done < k_iwae:
+            n = min(batch_size_k, k_iwae - n_done)
+            enc = self.encode(batch, list(subset), N=n, flatten=True,
+                              generator=generator, ignore_incomplete=True)
+            dec = self.decode(enc, list(pred_mods))
+            for m in pred_mods:
+                recon = dec[m].reshape(n, -1, *dec[m].shape[1:])
+                chunks[m].append(sum_except_batch(
+                    self.recon_log_probs[m](recon, batch.data[m][None]),
+                    batch_ndims=2))
+            n_done += n
+        cnll = {}
+        for m in pred_mods:
+            lnp = torch.logsumexp(torch.cat(chunks[m]), 0) - math.log(k_iwae)
+            cnll[m] = -lnp.sum() / lnp.shape[0]
+        return cnll

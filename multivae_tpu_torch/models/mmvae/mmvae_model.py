@@ -1,7 +1,11 @@
 """MMVAE: Mixture-of-Experts multimodal VAE with K-sample objectives.
 
-Counterpart of ``multivae_tpu/models/mmvae/mmvae_model.py`` (training
-objectives only; encode / predict / NLL are not ported yet).
+Counterpart of ``multivae_tpu/models/mmvae/mmvae_model.py``: the training
+objectives. MMVAE's own inference methods (its ``_encode_subset``, its
+prior sampler and NLL estimators) are not ported yet: ``encode`` /
+``predict`` / ``generate_from_prior`` / ``compute_joint_nll`` raise
+``NotImplementedError`` here, while the base surface they build on
+(``BaseMultiVAE``, ``ops/iwae.py``) is ported.
 
 - The K importance-sample axis is a leading axis (K, B, D); all M x M
   cross reconstructions go through one decoder call per recon modality on
@@ -35,7 +39,7 @@ from ...ops.kdist import (
     sample_noise,
 )
 from ...utils.model_output import ModelOutput
-from ..base.base_ae_model import BaseMultiVAE
+from ..base.base_ae_model import BaseMultiVAE, sum_except_batch
 from ..base.step import StepInfo
 from .mmvae_config import MMVAEConfig
 
@@ -117,12 +121,15 @@ class MMVAE(BaseMultiVAE):
             recon = self.decode_mod(recon_mod, Z)             # (M, K, B, *)
             lp = self.recon_log_probs[recon_mod](
                 recon, batch.data[recon_mod][None, None])
-            lp = (lp.reshape(*lp.shape[:3], -1).sum(-1)
-                  * self.rescale_factors[recon_mod])
+            lp = sum_except_batch(lp, 3) * self.rescale_factors[recon_mod]
             lpx_z = lpx_z + lp * batch.masks[recon_mod][None, None, :]
 
         lw = (lpx_z + lpz - lqz_x) * mask[:, None, :]
         return {m: lw[i] for i, m in enumerate(mods)}, n_mods_sample
+
+    def generate_from_prior(self, n_samples: int, generator=None):
+        # the base samples N(0, I); MMVAE's prior is its own distribution
+        raise NotImplementedError("MMVAE's generate_from_prior is not ported yet.")
 
     # ----------------------------------------------------------------- loss
     def loss_function(self, batch: MultimodalBatch, step: Optional[StepInfo] = None,

@@ -6,6 +6,7 @@ from .default_architectures import (
     Decoder_AE_MLP,
     Encoder_VAE_MLP,
 )
+from .mmnist import DecoderConvMMNIST, EncoderConvMMNIST, EncoderConvMMNIST_adapted
 
 __all__ = [
     "BaseAEConfig",
@@ -13,6 +14,9 @@ __all__ = [
     "BaseDictDecoders",
     "BaseDictEncoders",
     "BaseEncoder",
+    "DecoderConvMMNIST",
     "Decoder_AE_MLP",
+    "EncoderConvMMNIST",
+    "EncoderConvMMNIST_adapted",
     "Encoder_VAE_MLP",
 ]

@@ -35,10 +35,12 @@ class BaseAEConfig(BaseConfig):
     Args:
         input_dim: the input data dimension (channels, x, y) or (D,).
         latent_dim: latent space dimension.
+        style_dim: private latent dimension (multi-latent models).
     """
 
     input_dim: Optional[Tuple[int, ...]] = None
     latent_dim: int = 10
+    style_dim: int = 0
 
     def __post_init__(self):
         if self.input_dim is not None:
@@ -51,7 +53,8 @@ def reset_linear_(layers, generator: Optional[torch.Generator] = None):
         bound = 1.0 / math.sqrt(lin.in_features)
         with torch.no_grad():
             nn.init.uniform_(lin.weight, -bound, bound, generator=generator)
-            nn.init.uniform_(lin.bias, -bound, bound, generator=generator)
+            if lin.bias is not None:
+                nn.init.uniform_(lin.bias, -bound, bound, generator=generator)
 
 
 class Encoder_VAE_MLP(BaseEncoder):

@@ -32,9 +32,34 @@ def laplace_log_prob(recon, target, scale: float = 1.0):
     return -torch.abs(target - recon) / scale - math.log(2.0 * scale)
 
 
+def cross_entropy_(logits, target_probs, eps: float = 1e-6):
+    """``target * log_softmax(logits + eps)`` over the class axis, with the
+    shape of ``logits`` (per-class terms, not reduced)."""
+    return target_probs * F.log_softmax(logits + eps, dim=-1)
+
+
+def cross_entropy(logits, target, eps: float = 1e-6):
+    """``cross_entropy_`` for text modalities: ``logits`` may be a dict with
+    a 'one_hot' field; ``target`` may be a dict with 'one_hot' probabilities
+    or integer 'tokens' (one-hot over the logits' class axis; a token
+    outside it gives a zero row, as ``jax.nn.one_hot`` does)."""
+    if isinstance(logits, dict):
+        if "one_hot" not in logits:
+            raise NotImplementedError("dict logits must contain a 'one_hot' field")
+        logits = logits["one_hot"]
+    if isinstance(target, dict):
+        if "one_hot" in target:
+            target = target["one_hot"]
+        elif "tokens" in target:
+            classes = torch.arange(logits.shape[-1], device=logits.device)
+            target = (target["tokens"][..., None] == classes).to(logits.dtype)
+    return cross_entropy_(logits, target, eps)
+
+
 def set_decoder_dist(dist_name: str, dist_params: dict):
     """Build an elementwise log-prob callable from a distribution name:
-    'normal', 'bernoulli' (decoder outputs logits) or 'laplace'."""
+    'normal', 'bernoulli' (decoder outputs logits), 'laplace' or
+    'categorical' (``cross_entropy``)."""
     dist_params = dict(dist_params or {})
     if dist_name == "normal":
         scale = float(dist_params.pop("scale", 1.0))
@@ -52,8 +77,8 @@ def set_decoder_dist(dist_name: str, dist_params: dict):
             return laplace_log_prob(recon, target, scale)
 
     elif dist_name == "categorical":
-        raise NotImplementedError(
-            "The 'categorical' decoder distribution is not ported yet.")
+        log_prob = cross_entropy
+
     else:
         raise ValueError(f"The distribution type '{dist_name}' is not supported")
 

@@ -1,19 +1,20 @@
-"""Where the time of an MMVAE DReG training step goes, on one GPU.
+"""Where the time of a training step goes, on one GPU.
 
-Builds the full-width MMVAE of ``chip_smoke.py`` (5 modalities of
-3x28x28, latent 512, K=10, default MLP nets, Laplace decoders, DReG,
-batch 256, Adam 1e-3, float32 without TF32), trains one warm-up epoch of
-``--steps`` steps with ``BaseTrainer``, then profiles a second epoch with
-``torch.profiler`` and prints:
+Builds one full-width workload of ``tools/workloads.py`` (``--model``:
+``mmvae``, the MMVAE of ``chip_smoke.py`` trained with DReG, by default;
+``mvtcae_mlp``; ``mvtcae_conv``; batch 256, Adam 1e-3, float32 without
+TF32), trains one warm-up epoch of ``--steps`` steps with ``BaseTrainer``,
+then profiles a second epoch with ``torch.profiler`` and prints:
 
 - the host wall time per step and the device's busy and idle shares over
-  the profiled epoch (busy = the sum of kernel durations on the device);
-- device time by kernel class (matmul, mixture kernels, optimizer,
-  reductions, the rest) and the top kernels by device time.
+  the profiled epoch (busy = the sum of kernel and copy durations on the
+  device; user annotations such as the optimizer's span are not counted);
+- device time by kernel class (mixture kernels, convolutions, matmul,
+  optimizer, reductions, the rest) and the top kernels by device time.
 
 Run from the root of a checkout:
 
-    python3 -m multivae_tpu_torch.tools.profile_mmvae [--steps 8]
+    python3 -m multivae_tpu_torch.tools.profile_mmvae [--steps 8] [--model mvtcae_conv]
 """
 
 from __future__ import annotations
@@ -25,11 +26,14 @@ import os
 import re
 import time
 
-import numpy as np
 import torch
+
+from . import workloads
 
 _CLASSES = (
     ("mixture", re.compile(r"mixture_")),
+    # cuDNN's convolution kernels (forward, data and weight gradients)
+    ("conv", re.compile(r"conv|cudnn|fprop|dgrad|wgrad|winograd|fft", re.I)),
     ("matmul", re.compile(r"gemm|cutlass|xmma|sm90_|ampere_|cublas", re.I)),
     ("optimizer", re.compile(r"adam|multi_tensor", re.I)),
     ("reduction", re.compile(r"reduce|logsumexp|softmax", re.I)),
@@ -43,32 +47,36 @@ def _kernel_class(name: str) -> str:
     return "elementwise/other"
 
 
+def device_times(events):
+    """(device us by kernel name, launches by kernel name) of profiler
+    events. A user annotation's device-side span (``Optimizer.step#Adam.step``)
+    covers kernels that are counted on their own, so it is left out."""
+    by_kernel, launches = collections.Counter(), collections.Counter()
+    for evt in events:
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)):
+            by_kernel[evt.name] += evt.device_time_total
+            launches[evt.name] += 1
+    return by_kernel, launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--steps", type=int, default=8)
+    parser.add_argument("--model", choices=workloads.NAMES, default="mmvae")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_mmvae needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from ..data import MultimodalBaseDataset
-    from ..models import MMVAE, MMVAEConfig
     from ..trainers import BaseTrainer, BaseTrainerConfig
 
-    n_mods, shape, batch = 5, (3, 28, 28), 256
-    rng = np.random.default_rng(0)
-    data = {f"m{i}": rng.random((batch * args.steps, *shape), dtype=np.float32)
-            for i in range(n_mods)}
-    model = MMVAE(MMVAEConfig(
-        n_modalities=n_mods, latent_dim=512, K=10,
-        input_dims={m: shape for m in data},
-        decoders_dist={m: "laplace" for m in data}), seed=0)
-    trainer = BaseTrainer(model, MultimodalBaseDataset(data),
+    w = workloads.build(args.model, n=256 * args.steps, n_eval=0)
+    trainer = BaseTrainer(w.model, w.train,
                           training_config=BaseTrainerConfig(
                               output_dir=os.path.join("build", "profile_mmvae"),
-                              per_device_train_batch_size=batch, num_epochs=2,
-                              learning_rate=1e-3))
+                              num_epochs=2, **w.trainer_kwargs))
     trainer.train_step(1)  # warm-up: kernel builds, cuBLAS heuristics, allocator
     torch.cuda.synchronize()
 
@@ -80,12 +88,7 @@ def main():
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
 
-    by_kernel = collections.Counter()
-    launches = collections.Counter()
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            by_kernel[evt.name] += evt.device_time_total
-            launches[evt.name] += 1
+    by_kernel, launches = device_times(prof.events())
     if not by_kernel:
         raise SystemExit("the profiler recorded no device events")
     busy_us = sum(by_kernel.values())
@@ -95,6 +98,7 @@ def main():
 
     summary = {
         "device": torch.cuda.get_device_name(0),
+        **({} if args.model == "mmvae" else {"model": args.model}),
         "steps": args.steps,
         "wall_ms_per_step": wall_us / args.steps / 1e3,
         "device_busy_ms_per_step": busy_us / args.steps / 1e3,

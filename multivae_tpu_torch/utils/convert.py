@@ -2,13 +2,24 @@
 
 ``params_from_jax`` maps the nested dict ``jax.tree.map(np.asarray,
 model.params)`` of a ``multivae_tpu`` model to a ``state_dict`` of the
-port's model of the same class and config:
+port's model of the same class and config. The port's nets keep their
+layers in the ModuleLists ``dense``, ``conv`` and ``deconv`` in the order
+Flax creates them, so ``<group>/<m>/Dense_i``, ``Conv_i`` and
+``ConvTranspose_i`` become ``<group>.<m>.dense.<i>``, ``.conv.<i>`` and
+``.deconv.<i>`` (group: ``encoders`` or ``decoders``):
 
-- ``encoders/<m>/Dense_i`` and ``decoders/<m>/Dense_i`` become
-  ``encoders.<m>.dense.<i>`` and ``decoders.<m>.dense.<i>``: the port's
-  MLP nets keep their ``nn.Linear`` layers in a ``dense`` ModuleList in the
-  order Flax creates them. A Dense kernel (in, out) becomes a Linear weight
-  (out, in);
+- a Dense kernel (in, out) becomes a Linear weight (out, in);
+- a Conv kernel (kh, kw, in, out) becomes a Conv2d weight (out, in, kh,
+  kw). Flax's Conv and torch's conv2d both cross-correlate: no flip;
+- a ConvTranspose kernel (kh, kw, in, out) becomes a ConvTranspose2d
+  weight (in, out, kh, kw) flipped in both spatial axes: Flax's transposed
+  conv cross-correlates the dilated input with the kernel as stored, torch's
+  with the kernel flipped (the padding side is the net's business, see
+  ``nn/mmnist.DecoderConvMMNIST``);
+- in an encoder that runs convs before ``Dense_0``, Flax flattened an NHWC
+  map in (h, w, c) order and torch flattens NCHW in (c, h, w) order:
+  ``Dense_0``'s input rows are permuted to match (c is the last conv's
+  output channels, the map is square);
 - ``model/<name>`` (e.g. ``prior_log_var``) becomes the top-level
   parameter ``<name>``.
 
@@ -17,20 +28,55 @@ Only numpy goes in; the JAX side of the conversion is the caller's.
 
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import numpy as np
 import torch
 
 _NET_GROUPS = ("encoders", "decoders")
+_LAYER_LISTS = {"Dense": "dense", "Conv": "conv", "ConvTranspose": "deconv"}
 
 
-def _dense_index(name: str) -> int:
-    prefix, _, idx = name.partition("_")
-    if prefix != "Dense" or not idx.isdigit():
-        raise KeyError(f"Unsupported Flax layer {name!r}: only Dense_i "
-                       "layers of the default MLP nets are mapped.")
-    return int(idx)
+def _layer_key(name: str):
+    kind, _, idx = name.rpartition("_")
+    if kind not in _LAYER_LISTS or not idx.isdigit():
+        raise KeyError(f"Unsupported Flax layer {name!r}: only Dense_i, Conv_i "
+                       "and ConvTranspose_i layers are mapped.")
+    return kind, int(idx)
+
+
+def _hwc_rows_to_chw(kernel: np.ndarray, channels: int) -> np.ndarray:
+    """Permute a Dense kernel's input rows from (h, w, c) to (c, h, w)."""
+    side = math.isqrt(kernel.shape[0] // channels)
+    if side * side * channels != kernel.shape[0]:
+        raise ValueError(f"Dense_0 input {kernel.shape[0]} is not a square "
+                         f"map of {channels} channels")
+    return (kernel.reshape(side, side, channels, -1).transpose(2, 0, 1, 3)
+            .reshape(kernel.shape))
+
+
+def _net_state(prefix: str, layers: dict, encoder: bool) -> Dict[str, torch.Tensor]:
+    keys = {name: _layer_key(name) for name in layers}
+    convs = sorted(i for kind, i in keys.values() if kind == "Conv")
+    state = {}
+    for name, leaf in layers.items():
+        kind, i = keys[name]
+        kernel = np.asarray(leaf["kernel"])
+        if kind == "Dense":
+            if encoder and i == 0 and convs:
+                last = np.asarray(layers[f"Conv_{convs[-1]}"]["kernel"])
+                kernel = _hwc_rows_to_chw(kernel, last.shape[-1])
+            weight = kernel.T
+        elif kind == "Conv":
+            weight = kernel.transpose(3, 2, 0, 1)
+        else:
+            weight = kernel[::-1, ::-1].transpose(2, 3, 0, 1)
+        key = f"{prefix}.{_LAYER_LISTS[kind]}.{i}"
+        state[key + ".weight"] = torch.tensor(weight.copy())
+        if "bias" in leaf:
+            state[key + ".bias"] = torch.tensor(np.asarray(leaf["bias"]))
+    return state
 
 
 def params_from_jax(params: dict) -> Dict[str, torch.Tensor]:
@@ -41,12 +87,8 @@ def params_from_jax(params: dict) -> Dict[str, torch.Tensor]:
     state = {}
     for group in _NET_GROUPS:
         for mod, layers in params.get(group, {}).items():
-            for name, leaf in layers.items():
-                prefix = f"{group}.{mod}.dense.{_dense_index(name)}"
-                state[prefix + ".weight"] = torch.tensor(
-                    np.asarray(leaf["kernel"]).T.copy())
-                state[prefix + ".bias"] = torch.tensor(
-                    np.asarray(leaf["bias"]))
+            state.update(_net_state(f"{group}.{mod}", layers,
+                                    encoder=group == "encoders"))
     for name, leaf in params.get("model", {}).items():
         state[name] = torch.tensor(np.asarray(leaf))
     return state

@@ -81,3 +81,13 @@ def test_default_device_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         resolve_device()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_mvtcae_default_device_raises_without_cuda(monkeypatch):
+    from multivae_tpu_torch.models import MVTCAE, MVTCAEConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = dict(n_modalities=1, latent_dim=2, input_dims={"a": (3,)})
+    with pytest.raises(RuntimeError, match="cuda"):
+        MVTCAE(MVTCAEConfig(**cfg))
+    assert MVTCAE(MVTCAEConfig(**cfg), device="cpu").device == torch.device("cpu")

@@ -332,3 +332,14 @@ def test_default_nets_are_seeded_and_forward_runs():
             generator=torch.Generator().manual_seed(0))
     assert out.loss.shape == () and torch.isfinite(out.loss)
     assert out.loss_sum is out.loss
+
+
+def test_inference_methods_not_yet_ported_raise():
+    model = MMVAE(MMVAEConfig(**_config_kwargs("laplace_with_softmax",
+                                               "dreg_looser")), device="cpu")
+    data, _, _ = _batch_arrays()
+    for call in (lambda: model.encode(data), lambda: model.predict(data),
+                 lambda: model.generate_from_prior(2),
+                 lambda: model.compute_joint_nll(data, K=2)):
+        with pytest.raises(NotImplementedError):
+            call()

@@ -132,5 +132,5 @@ def test_recon_log_probs(name, params):
 def test_unknown_decoder_dist_raises():
     with pytest.raises(ValueError, match="not supported"):
         td.set_decoder_dist("poisson", {})
-    with pytest.raises(NotImplementedError):
-        td.set_decoder_dist("categorical", {})
+    # 'categorical' is a known name: it maps to cross_entropy
+    assert td.set_decoder_dist("categorical", {}) is td.cross_entropy

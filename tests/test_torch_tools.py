@@ -1,0 +1,85 @@
+"""The port's measurement tools on the CPU: the step profiler's kernel
+classes and device-time sums (fed stand-in profiler events), and the
+full-width workloads' shapes (built at a small depth)."""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from multivae_tpu_torch.tools import profile_mmvae, workloads
+
+CUDA, CPU = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+
+
+@pytest.mark.parametrize("name,label", [
+    ("mixture_kernel<true, 5, 4, 0, false>", "mixture"),
+    ("void cudnn::detail::dgrad_engine<float, 512, 6, 5, 3, 3, 3, false>", "conv"),
+    ("sm80_xmma_fprop_implicit_gemm_f32f32_f32f32_f32_nchwkcrs_nchw", "conv"),
+    ("sm80_xmma_wgrad_implicit_gemm_indexed_f32f32_f32f32_f32_nhwckrsc", "conv"),
+    ("void implicit_convolve_sgemm<float, float, 1024, 5, 5, 3, 3, 3, 1>", "conv"),
+    ("sm80_xmma_gemm_f32f32_f32f32_f32_tn_n_tilesize32x32x8_stage3", "matmul"),
+    ("void cutlass::Kernel2<cutlass_80_simt_sgemm_128x64_8x5_nn_align1>", "matmul"),
+    ("void at::native::multi_tensor_apply_kernel<TensorListMetadata<4>>", "optimizer"),
+    ("void at::native::reduce_kernel<512, 1, at::native::ReduceOp<float>>", "reduction"),
+    ("void at::native::vectorized_elementwise_kernel<4, CUDAFunctor_add<float>>",
+     "elementwise/other"),
+])
+def test_kernel_classes(name, label):
+    assert profile_mmvae._kernel_class(name) == label
+
+
+def test_device_times_leave_out_annotations_and_host_events():
+    def evt(name, device_type, us, annotation=False):
+        return types.SimpleNamespace(name=name, device_type=device_type,
+                                     device_time_total=us,
+                                     is_user_annotation=annotation)
+
+    events = [evt("Optimizer.step#Adam.step", CUDA, 2000.0, annotation=True),
+              evt("multi_tensor_apply_kernel", CUDA, 100.0),
+              evt("multi_tensor_apply_kernel", CUDA, 20.0),
+              evt("aten::add", CPU, 0.0),
+              evt("Memcpy HtoD (Pageable -> Device)", CUDA, 50.0)]
+    by_kernel, launches = profile_mmvae.device_times(events)
+    assert by_kernel == {"multi_tensor_apply_kernel": 120.0,
+                         "Memcpy HtoD (Pageable -> Device)": 50.0}
+    assert launches["multi_tensor_apply_kernel"] == 2
+
+
+@pytest.mark.parametrize("name", workloads.NAMES)
+def test_workloads_have_the_published_widths(name):
+    w = workloads.build(name, n=8, n_eval=4, device="cpu")
+    model = w.model
+    assert model.latent_dim == 512
+    assert w.trainer_kwargs["per_device_train_batch_size"] == 256
+    assert w.trainer_kwargs["learning_rate"] == 1e-3
+    dims = {k: tuple(v) for k, v in model.input_dims.items()}
+    if name == "mvtcae_mlp":
+        assert dims == {"m0": (1, 28, 28), "m1": (3, 32, 32)}
+        assert set(model.model_config.decoders_dist.values()) == {"bernoulli"}
+        assert (model.alpha, model.beta) == (0.1, 2.5) and w.eval is None
+        return
+    assert dims == {f"m{i}": (3, 28, 28) for i in range(5)}
+    if name == "mmvae":
+        assert model.K == 10 and w.eval is None
+        return
+    assert (model.alpha, model.beta) == (5.0 / 6.0, 2.5)
+    assert model.model_config.decoder_dist_params["m0"] == {"scale": 0.75}
+    assert w.trainer_kwargs["scheduler_cls"] == "ReduceLROnPlateau"
+    assert w.trainer_kwargs["scheduler_params"] == {"patience": 30}
+    assert len(w.eval) == 4 and not hasattr(w.eval, "masks")
+
+
+def test_conv_workload_is_incomplete_with_dead_rows():
+    w = workloads.build("mvtcae_conv", n=1024, n_eval=0, device="cpu")
+    avail = np.stack([w.train.masks[m] for m in w.train.data])    # (M, n)
+    dead = workloads.dead_rows(1024)
+    assert 5 in dead and not avail[:, dead].any()
+    assert 0.15 < 1 - avail.mean() < 0.25
+    for m, mask in w.train.masks.items():
+        assert (w.train.data[m][~mask] == 0).all()
+    # the conv nets were seeded: two builds give the same weights
+    again = workloads.build("mvtcae_conv", n=8, n_eval=0, device="cpu")
+    for (k, p), q in zip(w.model.state_dict().items(), again.model.state_dict().values()):
+        assert torch.equal(p, q), k
