@@ -17,11 +17,15 @@ Phases (any failure exits non-zero and prints no result line):
    with D=101, which takes the scalar path), with every expert count from
    1 to 8 (each register instance and its padding) and with MQ=11 (more
    than the largest register instance), and with rows longer than one
-   register tile (D=2600 and, scalar, D=2301), for Laplace and Normal, with
-   a masked expert on some columns and one fully masked column, which must
-   get exactly zero dz, dmu and dsig; torch.profiler must see exactly one
-   device kernel in one forward call; then the time of the forward, the
-   full backward and the dz-only backward, each through the public op
+   register tile (D=2600 and, scalar, D=2301), at the MMVAE+ shapes (B=32,
+   D=32, R=5 and 50), at the K=1000 NLLs' shapes (R=500 with B=64, D=512
+   and with B=32, D=32), and with rows of D=4096 and 8192 at MQ=5 and of
+   D=4099 at MQ=11 (the streaming chunked path), for Laplace
+   and Normal, with a masked expert on some columns and one fully masked
+   column, which must get exactly zero dz, dmu and dsig; torch.profiler
+   must see exactly one device kernel in one forward call; then the time of
+   the forward, the full backward and the dz-only backward at the slice
+   shapes and at ``mmvaeplus_k10``'s, each through the public op
    (``tools/mixture_sweep.time_ms``: CUDA events, median of 20 calls, the
    L2 flushed before each by writing 256 MB, host time kept out of the
    window), beside the plain version's time, the bound and the share of it;
@@ -55,8 +59,27 @@ Phases (any failure exits non-zero and prints no result line):
    the MLP model; 256 rows on the conv model), wall seconds as the median
    of 3 after a warm-up; the joint NLL of 8 rows with K=20 and injected
    noise, card vs CPU; no mixture kernel may launch;
-8. a ``kernels`` JSON line, then the last line
-   ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+8. the mixture-of-experts workloads of ``tools/workloads.py``, each trained
+   by ``BaseTrainer.train()`` for 2 epochs: ``mmvae_conv`` (MMVAE on the
+   partial-PolyMNIST conv protocol, 1024 incomplete rows, DReG),
+   ``mmvaeplus_partial`` (MMVAE+ with the resnet nets, K=1, DReG, 1024
+   incomplete rows) and ``mmvaeplus_k10`` (K=10, IWAE, AMSGrad, 512
+   rows); every epoch loss must be finite, the mixture kernels must launch
+   exactly as the objective says on every train and eval step (DReG: two
+   forwards and one dz-only backward a step; IWAE: one forward and one full
+   backward; eval: the forwards), and the trained model's loss on 8 rows
+   must agree between the card and the CPU on the same noise;
+9. ``moe_inference`` on the trained ``mmvae_conv`` and ``mmvaeplus_k10``:
+   encode (N=10, with the private codes for MMVAE+), predict,
+   generate_from_prior(64) + decode, the refusal to encode an incomplete
+   subset; K=1000 joint NLL wall seconds (median of 3 after a warm-up):
+   MMVAE's ``compute_joint_nll`` on 256 rows and ``compute_joint_nll_paper``
+   on 64, MMVAE+'s ``compute_joint_nll`` on 32; the forward kernel's
+   launches per call on the paths that run it; each NLL of 8 rows with K=20
+   card vs CPU;
+10. a ``kernels`` JSON line (launches summed over every training and
+    inference phase), then the last line
+    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -109,8 +132,22 @@ EXPERT_SHAPES = tuple(dict(mz=2, k=3, b=40, d=64, mq=q) for q in range(1, 9))
 # rows longer than one register tile (256 threads of 8 coordinates)
 LONG_ROW_SHAPES = (dict(mz=2, k=2, b=9, d=2600, mq=2),
                    dict(mz=1, k=3, b=5, d=2301, mq=3))   # scalar path
+# MMVAE+ (latent 32, batch 32): K=1 (mmvaeplus_partial) and K=10 (mmvaeplus_k10)
+PLUS_SHAPES = (dict(mz=5, k=1, b=32, d=32, mq=5), dict(mz=5, k=10, b=32, d=32, mq=5))
+K10_SHAPE = PLUS_SHAPES[1]
+# the K=1000 NLLs of moe_inference: MMVAE's paper estimator (100 samples of
+# each of 5 experts, 64 rows) and MMVAE+'s (200 of 5 split in chunks of 100,
+# 32 rows)
+NLL_SHAPES = (dict(mz=5, k=100, b=64, d=512, mq=5), dict(mz=5, k=100, b=32, d=32, mq=5))
+# rows wider than whole rows and staged parameters fit in shared memory:
+# the streaming chunked path (float4 at MQ=5; scalar, in chunks of experts,
+# at D=4099 and MQ=11)
+WIDE_SHAPES = (dict(mz=2, k=2, b=8, d=4096, mq=5), dict(mz=1, k=2, b=4, d=8192, mq=5),
+               dict(mz=1, k=2, b=3, d=4099, mq=11))
 CHECK_SHAPES = (SLICE_SHAPE, RAGGED_SHAPE, ODD_D_SHAPE, MANY_EXPERTS_SHAPE,
-                *EXPERT_SHAPES, *LONG_ROW_SHAPES)
+                *EXPERT_SHAPES, *LONG_ROW_SHAPES, *PLUS_SHAPES, *NLL_SHAPES,
+                *WIDE_SHAPES)
+KERNELS = ("fwd", "bwd", "bwd_dz")
 
 
 class SmokeFailure(Exception):
@@ -218,11 +255,10 @@ def forward_kernel_names(mx):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def mixture_timing(mx):
-    """Kernel, plain and bound times at the slice shapes (Laplace)."""
+def mixture_timing(mx, s=SLICE_SHAPE):
+    """Kernel, plain and bound times at the shapes ``s`` (Laplace)."""
     from multivae_tpu_torch.tools.mixture_sweep import flush_buffer, op_times
 
-    s = SLICE_SHAPE
     z, mus, sig, mask, g = mixture_inputs(**s)
     r, b, d, mq = s["mz"] * s["k"], s["b"], s["d"], s["mq"]
     flush = flush_buffer()
@@ -249,16 +285,17 @@ def mixture_timing(mx):
 def ptxas_summary(report):
     """(kernel instance, registers, spill store bytes, spill load bytes) from
     the compiler's -Xptxas -v report."""
-    pat = re.compile(r"mixture_kernelILb(\d)ELi(\d+)ELi(\d+)ELi(\d)ELb(\d)E")
+    pat = re.compile(r"mixture_kernelILb(\d)ELi(\d+)ELi(\d+)ELi(\d)ELb(\d)ELb(\d)E")
     modes = ("fwd", "bwd_dz", "bwd")
     rows, name, spill = [], None, (0, 0)
     for line in report.splitlines():
         m = pat.search(line)
         if "Function properties for" in line and m:
-            lap, q, w, mode, chunked = m.groups()
+            lap, q, w, mode, chunked, stream = m.groups()
             name = (f"{'laplace' if lap == '1' else 'normal'} {modes[int(mode)]} "
                     f"MQ={'chunks of ' if chunked == '1' else ''}{q} "
-                    f"{'float4' if w == '4' else 'scalar'}")
+                    f"{'float4' if w == '4' else 'scalar'}"
+                    f"{' streaming' if stream == '1' else ''}")
         elif name and "spill stores" in line:
             nums = re.findall(r"(\d+) bytes spill", line)
             spill = (int(nums[0]), int(nums[1]))
@@ -360,7 +397,8 @@ def slice_run(mx, n_mods=5, shape=(3, 28, 28), n=2048, latent_dim=512, K=10,
 @contextlib.contextmanager
 def injected_noise(model, draws, dtype=torch.float32):
     """Make ``model.draw_noise`` return ``draws`` in order (on the model's
-    device, in ``dtype``), checking each shape."""
+    device, in ``dtype``), checking each shape, and ``model.draw_expert``
+    always return the last expert."""
     queue = list(draws)
 
     def draw(shape, generator=None):
@@ -368,12 +406,37 @@ def injected_noise(model, draws, dtype=torch.float32):
         check(tuple(u.shape) == tuple(shape), f"noise {tuple(u.shape)} != {shape}")
         return u.to(model.device, dtype)
 
-    model.draw_noise = draw
+    hooks = {"draw_noise": draw, "draw_expert": lambda n, generator=None: n - 1}
+    for k, v in hooks.items():
+        setattr(model, k, v)
     try:
         yield
     finally:
-        del model.draw_noise
+        for k in hooks:
+            delattr(model, k)
     check(not queue, f"{len(queue)} noise draws left unused")
+
+
+def recorded_draws(model, fn, seed):
+    """Noise of the shapes and the distribution ``fn(model, float32)``
+    draws on the card (a dry run), made on the CPU from ``seed``."""
+    from multivae_tpu_torch.ops.kdist import sample_noise
+
+    shapes = []
+
+    def record(shape, generator=None):
+        shapes.append(tuple(shape))
+        return type(model).draw_noise(model, shape)
+
+    model.draw_noise = record
+    try:
+        with torch.no_grad():
+            fn(model, torch.float32)
+    finally:
+        del model.draw_noise
+    gen = torch.Generator().manual_seed(seed)
+    dist = getattr(model, "dist_name", "normal")
+    return [sample_noise(dist, shape, generator=gen) for shape in shapes]
 
 
 def card_vs_cpu(model, fn, draws):
@@ -402,12 +465,16 @@ def rows_batch(dataset, idx, dtype=torch.float32):
                              masks=raw.get("masks"))
 
 
-def mvtcae_run(mx, name, n=2048, epochs=2, device="cuda"):
-    """Train an MVTCAE workload of ``tools/workloads.py`` with BaseTrainer;
-    returns (the phase's JSON record, the workload)."""
+def workload_run(mx, name, n=2048, epochs=2, device="cuda", per_step=None):
+    """Train a workload of ``tools/workloads.py`` with BaseTrainer; returns
+    (the phase's JSON record, the workload, the mixture launches). The
+    kernels must launch ``per_step`` times (forward, full and dz-only
+    backward) on each train step and the forwards on each eval step: none
+    on the MVTCAE workloads."""
     from multivae_tpu_torch.tools import workloads
     from multivae_tpu_torch.trainers import BaseTrainer, BaseTrainerConfig
 
+    per_step = per_step or {}
     w = workloads.build(name, n=n, device=device)
     trainer = BaseTrainer(w.model, w.train, w.eval, device=device,
                           training_config=BaseTrainerConfig(
@@ -428,31 +495,38 @@ def mvtcae_run(mx, name, n=2048, epochs=2, device="cuda"):
     trainer.train()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    check(not any(mx.launches.values()), f"{name} launched {mx.launches}")
+    launches = dict(mx.launches)
 
     losses = [h["train_epoch_loss"] for h in trainer.history]
     expected_steps = epochs * -(-n // w.trainer_kwargs["per_device_train_batch_size"])
     check(len(step_ends) == expected_steps,
           f"expected {expected_steps} steps, ran {len(step_ends)}")
+    eval_steps = 0 if w.eval is None else epochs * -(
+        -len(w.eval) // w.trainer_kwargs["per_device_eval_batch_size"])
+    expected = {k: per_step.get(k, 0) * expected_steps for k in KERNELS}
+    expected["fwd"] += per_step.get("fwd", 0) * eval_steps
+    check(launches == expected, f"{name}: expected {expected} launches, got {launches}")
     check(all(np.isfinite(losses)), f"non-finite epoch loss: {losses}")
     # time between consecutive steps of one epoch: the first step and the
     # epoch ends (eval pass, loss fetch) stay out
     gaps = [a.elapsed_time(b) for (ea, a), (eb, b) in zip(step_ends, step_ends[1:])
             if ea == eb]
-    record = {"phase": name, "steps": len(step_ends), "epoch_losses": losses,
-              "steps_per_s": len(gaps) / (sum(gaps) / 1e3),
-              "peak_mem_bytes": torch.cuda.max_memory_allocated(), "wall_s": wall_s}
+    record = {"phase": name, "steps": len(step_ends), "eval_steps": eval_steps,
+              "epoch_losses": losses, "steps_per_s": len(gaps) / (sum(gaps) / 1e3),
+              "peak_mem_bytes": torch.cuda.max_memory_allocated(), "wall_s": wall_s,
+              "launches": launches}
     if w.eval is not None:
         record["eval_losses"] = [h["eval_epoch_loss"] for h in trainer.history]
         record["lr"] = trainer.optimizer.param_groups[0]["lr"]
 
-    # the trained model's loss on 8 rows (conv: row 5 has no modality)
-    idx = np.arange(8)
-    u = torch.randn((8, workloads.LATENT), generator=torch.Generator().manual_seed(1))
-    loss = card_vs_cpu(w.model, lambda net, dtype: net.loss_function(
-        rows_batch(w.train, idx, dtype).to(net.device))["loss"], [u])
+    # the trained model's loss on 8 rows (incomplete sets: row 5 has no modality)
+    def small_loss(net, dtype):
+        return net.loss_function(rows_batch(w.train, np.arange(8), dtype)
+                                 .to(net.device))["loss"]
+
+    loss = card_vs_cpu(w.model, small_loss, recorded_draws(w.model, small_loss, 1))
     record.update({f"small_loss_{k}": v for k, v in loss.items()})
-    return record, w
+    return record, w, launches
 
 
 def mvtcae_inference(mx, workloads_by_name, nll_rows=(512, 256), K=1000,
@@ -507,6 +581,95 @@ def mvtcae_inference(mx, workloads_by_name, nll_rows=(512, 256), K=1000,
             draws).items()})
     check(not any(mx.launches.values()), f"MVTCAE inference launched {mx.launches}")
     return record
+
+
+def timed(fn, repeats):
+    """(value of the last call, median wall seconds of ``repeats`` calls
+    after a warm-up call, the warm-up's seconds); each call ends in a host
+    fetch of its value."""
+    times = []
+    for _ in range(repeats + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        value = fn().sum().item()
+        times.append(time.perf_counter() - t0)
+        check(np.isfinite(value), f"non-finite value {value}")
+    return value, float(np.median(times[1:])), times[0]
+
+
+def moe_inference(mx, trained, K=1000, batch_size_K=100, repeats=3,
+                  nll_rows=(256, 64, 32)):
+    """encode / predict / generate / refusal and the K-sample joint NLLs of
+    the trained ``mmvae_conv`` (``compute_joint_nll`` on ``nll_rows[0]``
+    rows, ``compute_joint_nll_paper`` on ``nll_rows[1]``) and
+    ``mmvaeplus_k10`` (``compute_joint_nll`` on ``nll_rows[2]``); returns
+    (the JSON record, the mixture launches of the NLL calls)."""
+    from multivae_tpu_torch.data import IncompleteDataset, MultimodalBaseDataset
+
+    record = {"phase": "moe_inference", "K": K, "batch_size_K": batch_size_K}
+    total = {k: 0 for k in KERNELS}
+    for name, w in trained.items():
+        model, dims = w.model, w.model.input_dims
+        plus = name.startswith("mmvaeplus")
+        rows = w.eval.get_batch(np.arange(min(256, len(w.eval))))
+        n, cond = len(rows["data"]["m0"]), ["m0", "m1"]
+        with torch.no_grad():
+            enc = model.encode(rows, cond_mod=cond, N=10, flatten=True)
+            check(enc.z.shape == (10 * n, model.latent_dim), f"{name} encode {enc.z.shape}")
+            outputs = [enc.z]
+            if plus:
+                for m in dims:
+                    check(enc.modalities_z[m].shape == (10 * n, model.modalities_specific_dim),
+                          f"{name} encode private {m}")
+                outputs += list(enc.modalities_z.values())
+            pred = model.predict(rows, cond_mod=cond, gen_mod="all", N=10)
+            prior = model.generate_from_prior(64)
+            width = model.latent_dim + (model.modalities_specific_dim if plus else 0)
+            check(prior.z.shape == (64, width), f"{name} prior {prior.z.shape}")
+            decoded = model.decode(prior)
+            for m, d in dims.items():
+                check(pred[m].shape == (10, n, *d), f"{name} predict {m} {pred[m].shape}")
+                check(decoded[m].shape == (64, *d), f"{name} prior {m} {decoded[m].shape}")
+            check(all(bool(torch.isfinite(t).all()) for t in
+                      [*outputs, *pred.values(), *decoded.values()]), f"{name}: non-finite")
+        masks = {m: np.ones(n, bool) for m in dims}
+        masks["m0"][0] = False
+        try:
+            model.encode(IncompleteDataset(rows["data"], masks), cond_mod="m0")
+            check(False, f"{name}: encode accepted an incomplete subset")
+        except AttributeError:
+            pass
+
+        # (estimator, rows, K, batch_size_K, forward launches per call)
+        k_plus = K // model.n_modalities
+        nlls = ([("joint_nll_paper", nll_rows[1], -(-K // batch_size_K))] if not plus else [])
+        nlls.insert(0, ("joint_nll", nll_rows[2] if plus else nll_rows[0],
+                        -(-k_plus // batch_size_K) if plus else 0))
+        record[name] = {}
+        for method, n_rows, per_call in nlls:
+            fn = getattr(model, f"compute_{method}")
+            data = MultimodalBaseDataset(w.eval.get_batch(np.arange(n_rows))["data"])
+            mx.reset_launches()
+            value, seconds, warmup = timed(
+                lambda: fn(data, K=K, batch_size_K=batch_size_K), repeats)
+            launches = dict(mx.launches)
+            expected = {"fwd": (repeats + 1) * per_call, "bwd": 0, "bwd_dz": 0}
+            check(launches == expected, f"{name} {method}: expected {expected}, "
+                  f"got {launches}")
+            total = {k: total[k] + launches[k] for k in KERNELS}
+            # 8 rows, K=20, the same noise (and expert) on both sides
+            eight = MultimodalBaseDataset(w.eval.get_batch(np.arange(8))["data"])
+
+            def small(net, dtype, fn_name=f"compute_{method}"):
+                return getattr(net, fn_name)(rows_batch(eight, np.arange(8), dtype),
+                                             K=20, batch_size_K=8).sum()
+
+            record[name][method] = {
+                "rows": n_rows, "nll": value, "seconds": seconds, "warmup_s": warmup,
+                "fwd_launches_per_call": per_call,
+                **{f"small_{k}": v for k, v in card_vs_cpu(
+                    model, small, recorded_draws(model, small, 2)).items()}}
+    return record, total
 
 
 def main():
@@ -565,22 +728,46 @@ def main():
         check(len(names) == 1 and "mixture_kernel" in names[0],
               f"a CUDA forward must be exactly one mixture kernel, saw {names}")
         timing = mixture_timing(mx)
-        for kname, (ms, plain_ms, bound_ms, bound_by) in timing.items():
-            print(f"  mixture_{kname}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-                  f"bound {bound_ms:.4f} ms by {bound_by}, "
-                  f"{100 * bound_ms / ms:.1f}% of bound)")
+        for label, shape, times in (("slice", SLICE_SHAPE, timing),
+                                    ("mmvaeplus_k10", K10_SHAPE, mixture_timing(mx, K10_SHAPE))):
+            print(f"  at the {label} shape {shape}:")
+            for kname, (ms, plain_ms, bound_ms, bound_by) in times.items():
+                print(f"    mixture_{kname}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+                      f"bound {bound_ms:.4f} ms by {bound_by}, "
+                      f"{100 * bound_ms / ms:.1f}% of bound)")
 
-        result, launches = slice_run(mx)
+        # launches of every training and inference phase that runs the kernels
+        launches = {k: 0 for k in KERNELS}
+
+        def add(counts):
+            for k in KERNELS:
+                launches[k] += counts[k]
+
+        result, counts = slice_run(mx)
         print("slice: " + json.dumps(result))
-        iwae, iwae_launches = slice_run(mx, n=512, epochs=1, loss="iwae_looser")
+        add(counts)
+        iwae, counts = slice_run(mx, n=512, epochs=1, loss="iwae_looser")
         print("iwae path: " + json.dumps(iwae))
-        launches["bwd"] = iwae_launches["bwd"]
+        add(counts)
 
         trained = {}
         for name in ("mvtcae_mlp", "mvtcae_conv"):
-            record, trained[name] = mvtcae_run(mx, name)
+            record, trained[name], _ = workload_run(mx, name)
             print(json.dumps(record))
         print(json.dumps(mvtcae_inference(mx, trained)))
+
+        moe = {}
+        dreg, iwae_step = {"fwd": 2, "bwd_dz": 1}, {"fwd": 1, "bwd": 1}
+        for name, n, per_step in (("mmvae_conv", 1024, dreg),
+                                  ("mmvaeplus_partial", 1024, dreg),
+                                  ("mmvaeplus_k10", 512, iwae_step)):
+            record, moe[name], counts = workload_run(mx, name, n=n, per_step=per_step)
+            print(json.dumps(record))
+            add(counts)
+        del moe["mmvaeplus_partial"]
+        record, counts = moe_inference(mx, moe)
+        print(json.dumps(record))
+        add(counts)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -56,14 +56,21 @@
 //  - The chunked path takes what the register instances cannot: MQ > 8
 //    (experts in chunks of 8), rows of more than 256*8 coordinates (NT tiles
 //    of 8 coordinates a thread) and the scalar accesses. It reloads the
-//    parameter registers from shared memory for each (chunk, tile) and is
-//    slower; the slice never takes it.
-//  - z streams through a ring of kStages = 2 shared-memory stages of
-//    kG = 4 rows, filled with cp.async (16-byte cg, or 4-byte ca on the
-//    scalar path; zero-filled past the row's end or R). Each thread copies
-//    and later reads only its own slots, so the ring needs no barrier: the
-//    copy of group i+1 is in flight while group i is computed, and no
-//    register holds it. Rows past R are neither read nor computed.
+//    parameter registers for each (chunk, tile) and is slower; no model
+//    path takes it. Where the whole rows and the staged mu and 1/sig fit in
+//    shared memory it keeps them there as the register path does (z read
+//    once). Beyond that (D > 3072 at MQ=5) it streams: see the ring below.
+//  - z streams through a ring of kStages = 2 shared-memory stages, filled
+//    with cp.async (16-byte cg, or 4-byte ca on the scalar path;
+//    zero-filled past the row's end or R). A stage holds kG = 4 rows,
+//    whole, except on the streaming chunked path, where it holds one tile of
+//    them and mu and sigma are not staged: each (chunk, tile) reloads the
+//    parameter registers from device memory (L2 after the first group) and
+//    forms 1/sig there, a group's tiles stream once per expert chunk and
+//    again for dz, and shared memory no longer grows with D. Each thread
+//    copies and later reads only its own slots, so the ring needs no
+//    barrier: the copy of step i+1 is in flight while step i is computed,
+//    and no register holds it. Rows past R are neither read nor computed.
 //  - The kG*kQ partial sums of a group are reduced together: a
 //    reduce-scatter over the warp (lanes exchange halves: 21 shuffles for 20
 //    sums instead of 100), then one shared-memory pass over the slice's
@@ -89,8 +96,9 @@
 //    bounds of 2 blocks per SM for kQ <= 6 (128 registers); full backward:
 //    P = 128/T, S = 1, launch bounds of one 256-thread block (255
 //    registers). Shared memory holds the ring (2*4*8 floats per thread and
-//    tile) and mu and 1/sig (2*MQ*D floats): that alone limits D, to 3072
-//    at MQ=5 and 4608 at MQ=2 on the H100 (larger inputs raise). At the slice
+//    tile held) and, unless streaming, mu and 1/sig (2*MQ*D floats); the
+//    chunked path streams when that exceeds the card's limit (D > 3072 at
+//    MQ=5), and then needs about 66 KB whatever D is. At the slice
 //    (D=512, MQ=5): T=64, S=1; forward and dz-only: P=4, 256 blocks of 256
 //    threads, 87,896 bytes of shared memory per block (64 KB ring, 20 KB mu
 //    and 1/sig), 2 blocks per SM, so all 256 blocks run in one wave with
@@ -221,22 +229,26 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // Shared memory, in floats: the ring (or, at the end of the full backward,
-// the exchange of dmu/dsig between slices, if larger), then mu and 1/sig
-// of the column, then small per-block arrays.
+// the exchange of dmu/dsig between slices, if larger), then mu and 1/sig of
+// the column (unless streaming), then small per-block arrays. Streaming,
+// nothing in it grows with D.
 struct Layout {
   int mu, is, red, lq, wsum, ls, c, ok, total;
 };
 
 // nq = max(MQ, kq): the experts with the padding of a register instance.
+// A ring stage holds the NT tiles of whole rows, or one tile when streaming.
 __host__ __device__ inline Layout layout(int P, int T, int NT, int kq, int MQ,
-                                         int D, int mode, bool chunked) {
+                                         int D, int mode, bool chunked,
+                                         bool stream) {
   const int nq = MQ > kq ? MQ : kq;
-  const int ring = kStages * P * T * kG * kElems * NT;
+  const int ring = kStages * P * T * kG * kElems * (stream ? 1 : NT);
   const int exch = (mode == kBwdFull && !chunked) ? 2 * P * T * kq * kElems : 0;
+  const int params = stream ? 0 : MQ * D;
   Layout l;
   int o = ring > exch ? ring : exch;
-  l.mu = o;   o += MQ * D;
-  l.is = o;   o += MQ * D;
+  l.mu = o;   o += params;
+  l.is = o;   o += params;
   l.red = o;  o += 2 * P * (T / 32) * kG * kq;  // per-warp partial sums, x2
   l.lq = o;   o += P * kG * nq;             // lq, then w, per slice and row
   l.wsum = o; o += P * MQ;                  // sum_r w per slice, full backward
@@ -247,7 +259,10 @@ __host__ __device__ inline Layout layout(int P, int T, int NT, int kq, int MQ,
   return l;
 }
 
-template <bool kLaplace, int kQ, int kW, int kMode, bool kChunked>
+// kStream (chunked path only): stream row tiles, mu and sigma unstaged. A
+// template parameter, not a flag: the instances that hold whole rows keep
+// the registers they had without the streaming code.
+template <bool kLaplace, int kQ, int kW, int kMode, bool kChunked, bool kStream>
 __global__ void __launch_bounds__(kMaxThreads,
                                   (kMode != kBwdFull && kQ <= 6) ? 2 : 1)
 mixture_kernel(const Args a) {
@@ -268,12 +283,20 @@ mixture_kernel(const Args a) {
   // (chunk, tile); the register path has one of each.
   const int nchunk = kChunked ? (MQ + kQ - 1) / kQ : 1;
   const int NT = kChunked ? a.NT : 1;
-  const int nv = NT * kV;  // ring slots of a row per thread
+  const int nv = NT * kV;  // slots of a row per thread, over all tiles
   const bool reload = nchunk * NT > 1;
+  constexpr bool stream = kChunked && kStream;
   const int slot = blockIdx.y * P + slice, SP = a.S * P;
   const int ngroups = ((R + SP - 1) / SP + kG - 1) / kG;
+  // z passes through the ring one step at a time. A step is the group's kG
+  // rows, whole, except when streaming: then it is one tile of them, and a
+  // group takes one step per (chunk, tile) for its lq and, in the backward,
+  // as many again for dz (all but the first read from L2).
+  const int nsteps = stream ? nchunk * NT * (kMode == kFwd ? 1 : 2) : 1;
+  const int total = ngroups * nsteps;
+  const int TS = stream ? 1 : NT;  // tiles a ring stage holds
 
-  const Layout L = layout(P, T, NT, kQ, MQ, D, kMode, kChunked);
+  const Layout L = layout(P, T, NT, kQ, MQ, D, kMode, kChunked, stream);
   float* ring = smem;
   float* s_mu = smem + L.mu;
   float* s_is = smem + L.is;
@@ -285,39 +308,55 @@ mixture_kernel(const Args a) {
   float* s_ok = smem + L.ok;
 
   auto row_of = [&](int gi, int g) { return slot + (gi * kG + g) * SP; };
-  // Slot jv = j*kV + v of a row holds this thread's coordinates
-  // d = kW*(t + jv*T) + e of tile j.
-  auto ring_at = [&](int gi, int g, int jv) {
-    return ring + ((((gi % kStages) * kG + g) * nv + jv) * PT + tid) * kW;
+  // In the stage of step st, row g holds this thread's coordinates
+  // d = kW*(t + (j*kV + v)*T) + e of tile j, v < kV, in slot j*kV + v (slot
+  // v when streaming: the stage holds tile j alone).
+  auto ring_at = [&](int st, int g, int j, int v) {
+    const int s = (stream ? 0 : j * kV) + v;
+    return ring + ((((st % kStages) * kG + g) * TS * kV + s) * PT + tid) * kW;
   };
-  auto issue = [&](int gi) {
+  auto issue = [&](int st) {
+    const int gi = st / nsteps;
+    const int j0 = stream ? (st - gi * nsteps) % NT : 0;
 #pragma unroll
     for (int g = 0; g < kG; ++g) {
       const int r = row_of(gi, g);
       const bool rok = r < R;
       const float* zr = a.z + ((size_t)(rok ? r : 0) * B + b) * D;
-      for (int j = 0; j < NT; ++j)
+      for (int j = j0; j < j0 + TS; ++j)
 #pragma unroll
         for (int v = 0; v < kV; ++v) {
-          const int jv = j * kV + v, dv = t + jv * T;
+          const int dv = t + (j * kV + v) * T;
           const bool ok = rok && dv < Dv;
-          cp_async<kW>(ring_at(gi, g, jv), ok ? zr + (size_t)dv * kW : a.z, ok);
+          cp_async<kW>(ring_at(st, g, j, v), ok ? zr + (size_t)dv * kW : a.z, ok);
         }
     }
     cp_commit();
   };
+  // The next step: starts the copy of step st + kStages - 1 into the stage
+  // that step st - 1 used (each thread reads only the slots it copied, so no
+  // barrier is needed), waits for step st's tile and returns st.
+  int st_next = 0;
+  auto advance = [&]() {
+    const int st = st_next++;
+    if (st + kStages - 1 < total) issue(st + kStages - 1); else cp_commit();
+    cp_wait<kStages - 1>();
+    return st;
+  };
 
   // Stage the column's mu and sigma once per block (asynchronously, ahead
-  // of z's first rows), then form logc (forward) and 1/sig in place.
-  for (int i = tid; i < MQ * Dv; i += PT) {
-    const int q = i / Dv, dv = i - q * Dv;
-    const size_t off = ((size_t)q * B + b) * D + (size_t)dv * kW;
-    cp_async<kW>(s_mu + q * D + dv * kW, a.mu + off, true);
-    cp_async<kW>(s_is + q * D + dv * kW, a.sig + off, true);
-  }
+  // of z's first rows), then form logc (forward) and 1/sig in place; when
+  // streaming, they are read from device memory instead.
+  if (!stream)
+    for (int i = tid; i < MQ * Dv; i += PT) {
+      const int q = i / Dv, dv = i - q * Dv;
+      const size_t off = ((size_t)q * B + b) * D + (size_t)dv * kW;
+      cp_async<kW>(s_mu + q * D + dv * kW, a.mu + off, true);
+      cp_async<kW>(s_is + q * D + dv * kW, a.sig + off, true);
+    }
   cp_commit();
   for (int i = 0; i < kStages - 1; ++i) {
-    if (i < ngroups) issue(i); else cp_commit();
+    if (i < total) issue(i); else cp_commit();
   }
   for (int q = tid; q < nq; q += PT) {
     const bool real = q < MQ;
@@ -328,14 +367,19 @@ mixture_kernel(const Args a) {
     for (int i = tid; i < P * MQ; i += PT) s_wsum[i] = 0.f;
   cp_wait<kStages - 1>();  // the parameters; z's first rows may still be in flight
   __syncthreads();
-  // 1/sig in place; the forward also sums log sig per expert into logc.
+  // 1/sig in place (unless streaming); the forward also sums log sig per
+  // expert into logc.
   const int nwb = PT >> 5;
   for (int q = 0; q < MQ; ++q) {
     float ls = 0.f;
     for (int d = tid; d < D; d += PT) {
-      const float sg = s_is[q * D + d];
-      if (kMode == kFwd) ls += logf(sg);
-      s_is[q * D + d] = __frcp_rn(sg);
+      if (stream) {
+        if (kMode == kFwd) ls += logf(a.sig[((size_t)q * B + b) * D + d]);
+      } else {
+        const float sg = s_is[q * D + d];
+        if (kMode == kFwd) ls += logf(sg);
+        s_is[q * D + d] = __frcp_rn(sg);
+      }
     }
     if (kMode == kFwd) {
       ls = warp_sum(ls);
@@ -351,8 +395,9 @@ mixture_kernel(const Args a) {
   }
 
   // mu and 1/sig of this thread's coordinates of tile j for experts
-  // [c*kQ, c*kQ+kQ), in registers; zero past D or MQ, so those terms add
-  // exactly 0.
+  // [c*kQ, c*kQ+kQ), in registers (from shared memory, or from device
+  // memory when streaming); zero past D or MQ, so those terms add exactly
+  // 0.
   float pm[kQ][kElems], pis[kQ][kElems];
   auto load_params = [&](int c, int j) {
 #pragma unroll
@@ -365,8 +410,16 @@ mixture_kernel(const Args a) {
 #pragma unroll
         for (int e = 0; e < kW; ++e) m[e] = s[e] = 0.f;
         if (qq < MQ && dv < Dv) {
-          ld_vec<kW>(s_mu + qq * D + dv * kW, m);
-          ld_vec<kW>(s_is + qq * D + dv * kW, s);
+          if (stream) {
+            const size_t off = ((size_t)qq * B + b) * D + (size_t)dv * kW;
+            ld_vec<kW>(a.mu + off, m);
+            ld_vec<kW>(a.sig + off, s);
+#pragma unroll
+            for (int e = 0; e < kW; ++e) s[e] = __frcp_rn(s[e]);
+          } else {
+            ld_vec<kW>(s_mu + qq * D + dv * kW, m);
+            ld_vec<kW>(s_is + qq * D + dv * kW, s);
+          }
         }
 #pragma unroll
         for (int e = 0; e < kW; ++e) {
@@ -395,16 +448,16 @@ mixture_kernel(const Args a) {
       for (int w = 0; w < nwarp; ++w) tot += red[(slice * nwarp + w) * kN + t];
   };
   // Adds to part the partial sums of this thread's coordinates of tile j
-  // for the group's rows and experts [c*kQ, c*kQ+kQ): sum_d |z-mu|/sig
-  // (Laplace) or ((z-mu)/sig)^2.
-  auto partials = [&](int gi, int j, const bool (&rok)[kG], float (&part)[kN]) {
+  // (in step st's stage) for the group's rows and the experts in the
+  // registers: sum_d |z-mu|/sig (Laplace) or ((z-mu)/sig)^2.
+  auto partials = [&](int st, int j, const bool (&rok)[kG], float (&part)[kN]) {
 #pragma unroll
     for (int g = 0; g < kG; ++g) {
       if (!rok[g]) continue;
 #pragma unroll
       for (int v = 0; v < kV; ++v) {
         float zv[kW];
-        ld_vec<kW>(ring_at(gi, g, j * kV + v), zv);
+        ld_vec<kW>(ring_at(st, g, j, v), zv);
 #pragma unroll
         for (int e = 0; e < kW; ++e)
 #pragma unroll
@@ -449,10 +502,8 @@ mixture_kernel(const Args a) {
   }
 
   for (int gi = 0; gi < ngroups; ++gi) {
-    // Group gi + kStages - 1 goes into the stage that group gi - 1 used:
-    // each thread reads only the slots it copied, so no barrier is needed.
-    if (gi + kStages - 1 < ngroups) issue(gi + kStages - 1); else cp_commit();
-    cp_wait<kStages - 1>();
+    // The group's one step when its rows are held whole.
+    const int st0 = stream ? 0 : advance();
     bool rok[kG];
 #pragma unroll
     for (int g = 0; g < kG; ++g) rok[g] = row_of(gi, g) < R;  // same in a slice
@@ -463,7 +514,7 @@ mixture_kernel(const Args a) {
       float part[kN], tot;
 #pragma unroll
       for (int i = 0; i < kN; ++i) part[i] = 0.f;
-      partials(gi, 0, rok, part);
+      partials(st0, 0, rok, part);
       slice_sum(part, tot);
       if (warp == 0) {
         const bool mine = t < kN;
@@ -502,8 +553,9 @@ mixture_kernel(const Args a) {
 #pragma unroll
         for (int i = 0; i < kN; ++i) part[i] = 0.f;
         for (int j = 0; j < NT; ++j) {
+          const int st = stream ? advance() : st0;
           if (reload) load_params(c, j);
-          partials(gi, j, rok, part);
+          partials(st, j, rok, part);
         }
         slice_sum(part, tot);
         if (t < kN) {
@@ -550,6 +602,7 @@ mixture_kernel(const Args a) {
 
       for (int cj = 0; cj < nchunk * NT; ++cj) {
         const int c = cj / NT, j = cj - c * NT;  // expert chunk, tile
+        const int st = stream ? advance() : st0;  // z of the tile, again
         if (kChunked && reload) load_params(c, j);
 #pragma unroll
         for (int g = 0; g < kG; ++g) {
@@ -565,7 +618,7 @@ mixture_kernel(const Args a) {
             const bool ok = dv < Dv;
             float* dzp = a.dz + ((size_t)r * B + b) * D + (size_t)dv * kW;
             float zv[kW], s[kW];  // s = -dz
-            ld_vec<kW>(ring_at(gi, g, jv), zv);
+            ld_vec<kW>(ring_at(st, g, j, v), zv);
 #pragma unroll
             for (int e = 0; e < kW; ++e) s[e] = 0.f;
             if (kChunked && c > 0 && ok) {
@@ -642,11 +695,11 @@ mixture_kernel(const Args a) {
     // dmu = smu/sig^p and dsig = (sa/sig^p - sum_r w)/sig from the sums of
     // all slices (added in slice order), each (q, b, d) written once.
     auto finish = [&](int q, int d, float sm, float sg) {
-      const float is = s_is[q * D + d];
+      const size_t o = ((size_t)q * B + b) * D + d;
+      const float is = stream ? __frcp_rn(a.sig[o]) : s_is[q * D + d];
       const float isp = kLaplace ? is : is * is;
       float ws = 0.f;
       for (int p = 0; p < P; ++p) ws += s_wsum[p * MQ + q];
-      const size_t o = ((size_t)q * B + b) * D + d;
       a.dmu[o] = sm * isp;
       a.dsig[o] = (sg * isp - ws) * is;
     };
@@ -696,12 +749,14 @@ mixture_kernel(const Args a) {
 
 struct Plan {
   int T, P, S, NT, kq;
-  bool chunked;
+  bool chunked, stream;
   size_t smem;
 };
 
-// The launch shape; false for an empty input.
-bool make_plan(int R, int B, int D, int MQ, int mode, int vec, int nsm, Plan* p) {
+// The launch shape on a card with nsm SMs and smem_limit bytes of shared
+// memory per block; false for an empty input.
+bool make_plan(int R, int B, int D, int MQ, int mode, int vec, int nsm,
+               int smem_limit, Plan* p) {
   if (R < 1 || B < 1 || D < 1 || MQ < 1) return false;
   const int kw = vec ? 4 : 1;
   const int kv = kElems / kw;
@@ -726,20 +781,29 @@ bool make_plan(int R, int B, int D, int MQ, int mode, int vec, int nsm, Plan* p)
     if (S < 1) S = 1;
   }
   p->S = S;
-  const size_t floats = layout(P, T, NT, p->kq, MQ, D, mode, p->chunked).total;
-  p->smem = floats * sizeof(float);
+  // the chunked path streams only where whole rows and staged parameters
+  // do not fit
+  auto bytes = [&](bool stream) {
+    return layout(P, T, NT, p->kq, MQ, D, mode, p->chunked, stream).total *
+           sizeof(float);
+  };
+  p->stream = p->chunked && bytes(false) > (size_t)smem_limit;
+  p->smem = bytes(p->stream);
   return true;
 }
 
 template <int kMode, bool kLap>
-const void* pick(int vec, int kq, bool chunked) {
+const void* pick(int vec, int kq, bool chunked, bool stream) {
+  if (chunked && stream)
+    return vec ? (const void*)&mixture_kernel<kLap, kMaxQ, 4, kMode, true, true>
+               : (const void*)&mixture_kernel<kLap, kMaxQ, 1, kMode, true, true>;
   if (chunked)
-    return vec ? (const void*)&mixture_kernel<kLap, kMaxQ, 4, kMode, true>
-               : (const void*)&mixture_kernel<kLap, kMaxQ, 1, kMode, true>;
+    return vec ? (const void*)&mixture_kernel<kLap, kMaxQ, 4, kMode, true, false>
+               : (const void*)&mixture_kernel<kLap, kMaxQ, 1, kMode, true, false>;
   switch (kq) {
-    case 2: return (const void*)&mixture_kernel<kLap, 2, 4, kMode, false>;
-    case 5: return (const void*)&mixture_kernel<kLap, 5, 4, kMode, false>;
-    case kMaxQ: return (const void*)&mixture_kernel<kLap, kMaxQ, 4, kMode, false>;
+    case 2: return (const void*)&mixture_kernel<kLap, 2, 4, kMode, false, false>;
+    case 5: return (const void*)&mixture_kernel<kLap, 5, 4, kMode, false, false>;
+    case kMaxQ: return (const void*)&mixture_kernel<kLap, kMaxQ, 4, kMode, false, false>;
   }
   return nullptr;
 }
@@ -752,14 +816,17 @@ std::set<std::pair<const void*, int>> g_ready;  // (kernel, device) set up
 template <int kMode>
 cudaError_t prepare(const Args& a, int laplace, int vec, Plan* p,
                     const void** kernel) {
-  int dev = 0, nsm = 0;
+  int dev = 0, nsm = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  if (!make_plan(a.R, a.B, a.D, a.MQ, kMode, vec, nsm, p)) return cudaErrorInvalidValue;
-  *kernel = laplace ? pick<kMode, true>(vec, p->kq, p->chunked)
-                    : pick<kMode, false>(vec, p->kq, p->chunked);
+  if (!make_plan(a.R, a.B, a.D, a.MQ, kMode, vec, nsm, optin, p))
+    return cudaErrorInvalidValue;
+  *kernel = laplace ? pick<kMode, true>(vec, p->kq, p->chunked, p->stream)
+                    : pick<kMode, false>(vec, p->kq, p->chunked, p->stream);
   // Once per kernel and device: allow the largest dynamic shared memory a
   // block may have, and prefer shared memory over L1, so that two blocks'
   // rings fit on an SM.
@@ -767,9 +834,6 @@ cudaError_t prepare(const Args& a, int laplace, int vec, Plan* p,
   if (g_ready.count({*kernel, dev})) return cudaSuccess;
   err = cudaFuncSetAttribute(*kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
-  int optin = 0;
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
   if (err == cudaSuccess) g_ready.insert({*kernel, dev});
@@ -816,11 +880,12 @@ const char* mixture_error_string(int err) {
 }
 
 // Shared memory per block in bytes for mode 0 (forward), 1 (dz-only
-// backward) or 2 (full backward); 0 for an empty input. The wrapper checks
-// it against the card's limit before launching.
-size_t mixture_smem(int R, int B, int D, int MQ, int mode, int vec) {
+// backward) or 2 (full backward) on a card that allows smem_limit bytes a
+// block; 0 for an empty input. The wrapper checks it against that limit
+// before launching.
+size_t mixture_smem(int R, int B, int D, int MQ, int mode, int vec, int smem_limit) {
   Plan p;
-  return make_plan(R, B, D, MQ, mode, vec, 132, &p) ? p.smem : 0;
+  return make_plan(R, B, D, MQ, mode, vec, 132, smem_limit, &p) ? p.smem : 0;
 }
 
 // z (R,B,D), mu and sig (MQ,B,D), mask (MQ,B) -> out (R,B), logc (MQ,B).

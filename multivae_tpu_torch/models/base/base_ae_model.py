@@ -2,10 +2,14 @@
 
 Counterpart of ``multivae_tpu/models/base/base_ae_model.py``: the
 constructor checks, ``set_rescale_factors``, ``set_decoders_dist``,
-``encode_mod`` / ``decode_mod`` (any leading shape), ``forward`` and the
+``encode_mod`` / ``decode_mod`` (any leading shape; under
+``torch.utils.checkpoint`` with ``use_remat``), ``forward`` and the
 inference surface: ``encode`` / ``decode`` / ``predict`` /
 ``generate_from_prior``, the Gaussian-posterior K-sample joint NLL
-(``_gaussian_iwae_joint_nll``) and ``compute_cond_nll``.
+(``_gaussian_iwae_joint_nll``) and ``compute_cond_nll``. Models with
+private latent spaces set ``multiple_latent_spaces``: their ``encode``
+returns ``modalities_z`` beside ``z``, and ``decode`` concatenates each
+modality's private code to ``z``.
 
 Every random draw goes through ``draw_noise(shape, generator)`` (standard
 normal here; MMVAE overrides it), so a test can feed another package's
@@ -22,6 +26,7 @@ from typing import Dict, Optional, Union
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ...data.batch import MultimodalBatch, as_batch
 from ...nn.default_architectures import BaseDictDecoders, BaseDictEncoders
@@ -66,13 +71,11 @@ class BaseMultiVAE(BaseModel):
         super().__init__(model_config)
         self._device = resolve_device(device)
         self._seed = seed
-        if model_config.use_remat:
-            raise NotImplementedError(
-                "use_remat (activation rematerialization) is not ported.")
 
         self.n_modalities = model_config.n_modalities
         self.input_dims = model_config.input_dims
         self.latent_dim = model_config.latent_dim
+        self.multiple_latent_spaces = False
         self.use_likelihood_rescaling = model_config.uses_likelihood_rescaling
         self._check_input_dims(model_config)
 
@@ -82,7 +85,7 @@ class BaseMultiVAE(BaseModel):
                 raise AttributeError(
                     "Please provide encoders or input dims for the modalities "
                     "in the model_config.")
-            encoders = BaseDictEncoders(self.input_dims, model_config.latent_dim)
+            encoders = self.default_encoders(model_config)
             self._default_nets.append("encoders")
         else:
             model_config.custom_architectures.append("encoders")
@@ -91,7 +94,7 @@ class BaseMultiVAE(BaseModel):
                 raise AttributeError(
                     "Please provide decoders or input dims for the modalities "
                     "in the model_config.")
-            decoders = BaseDictDecoders(self.input_dims, model_config.latent_dim)
+            decoders = self.default_decoders(model_config)
             self._default_nets.append("decoders")
         else:
             model_config.custom_architectures.append("decoders")
@@ -167,6 +170,13 @@ class BaseMultiVAE(BaseModel):
             for k in recon_dict
         }
 
+    # ------------------------------------------------------------- defaults
+    def default_encoders(self, model_config) -> dict:
+        return BaseDictEncoders(self.input_dims, model_config.latent_dim)
+
+    def default_decoders(self, model_config) -> dict:
+        return BaseDictDecoders(self.input_dims, model_config.latent_dim)
+
     # ------------------------------------------------------- initialization
     def _init_extra_params(self):
         """Extra learnable tensors (prior params...): name -> Parameter."""
@@ -186,17 +196,32 @@ class BaseMultiVAE(BaseModel):
         self.to(self._device)
 
     # -------------------------------------------------------------- compute
+    def _remat(self, fn, *args):
+        """``fn(*args)``; with ``use_remat`` and gradients on, its
+        activations are recomputed in the backward instead of kept (the
+        same numbers, less memory)."""
+        if self.model_config.use_remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
     def encode_mod(self, mod: str, x) -> ModelOutput:
-        return self.encoders[mod](x)
+        return self._remat(self.encoders[mod], x)
 
     def decode_mod(self, mod: str, z):
         """Decoder output for ``mod``; ``z`` may have any leading shape."""
-        return self.decoders[mod](z)["reconstruction"]
+        return self._remat(lambda v: self.decoders[mod](v)["reconstruction"], z)
 
     def draw_noise(self, shape, generator: Optional[torch.Generator] = None):
         """Standard-normal noise of ``shape`` on the model's device: every
         sample the model draws comes from here."""
         return torch.randn(shape, generator=generator, device=self.device)
+
+    def draw_expert(self, n_experts: int,
+                    generator: Optional[torch.Generator] = None) -> int:
+        """A uniform random expert index in [0, n_experts) (the mixture
+        models' encode and NLL)."""
+        device = self.device if generator is None else generator.device
+        return int(torch.randint(n_experts, (), generator=generator, device=device))
 
     def stacked_gaussian_params(self, batch: MultimodalBatch, mods=None):
         """Encode ``mods`` (default all) and stack (mus, log_vars, mask) of
@@ -262,27 +287,44 @@ class BaseMultiVAE(BaseModel):
                generator: Optional[torch.Generator] = None,
                ignore_incomplete: bool = False) -> ModelOutput:
         """Sample the posterior conditioned on a subset of modalities.
-        Returns ModelOutput(z, one_latent_space, cond_mod)."""
+        Returns ModelOutput(z, one_latent_space, cond_mod[, modalities_z])."""
         batch = as_batch(inputs).to(self.device)
         cond = self._normalize_cond_mod(cond_mod)
         self._check_availability(inputs, cond, ignore_incomplete)
         out = self._encode_subset(batch, cond_mod=cond, N=N,
                                   return_mean=bool(return_mean),
                                   flatten=bool(flatten), generator=generator)
-        result = ModelOutput(z=out["z"], one_latent_space=True)
+        result = ModelOutput(z=out["z"],
+                             one_latent_space=not self.multiple_latent_spaces)
         result["cond_mod"] = list(cond)
+        for k, v in out.items():
+            if k != "z":
+                result[k] = v
+        if self.multiple_latent_spaces and "modalities_z" not in result:
+            raise RuntimeError(
+                "Model declares multiple latent spaces but _encode_subset "
+                "returned no 'modalities_z'.")
         return result
+
+    def _decode_modalities(self, modalities) -> tuple:
+        if modalities == "all":
+            return tuple(self.decoders.keys())
+        return (modalities,) if isinstance(modalities, str) else tuple(modalities)
+
+    def _decode_mods(self, z, mods: tuple, modalities_z=None) -> dict:
+        """Decode ``z`` in ``mods``, with each modality's private code
+        concatenated when ``modalities_z`` is given."""
+        return {m: self.decode_mod(m, z if modalities_z is None
+                                   else torch.cat([z, modalities_z[m]], -1))
+                for m in mods}
 
     def decode(self, embedding: ModelOutput,
                modalities: Union[list, str] = "all") -> ModelOutput:
         """Decode a latent code (any leading shape) in ``modalities``."""
-        if modalities == "all":
-            mods = tuple(self.decoders.keys())
-        elif isinstance(modalities, str):
-            mods = (modalities,)
-        else:
-            mods = tuple(modalities)
-        return ModelOutput(**{m: self.decode_mod(m, embedding["z"]) for m in mods})
+        mods = self._decode_modalities(modalities)
+        one_latent_space = embedding.get("one_latent_space", True)
+        modalities_z = None if one_latent_space else embedding["modalities_z"]
+        return ModelOutput(**self._decode_mods(embedding["z"], mods, modalities_z))
 
     def predict(self, inputs, cond_mod: Union[list, str] = "all",
                 gen_mod: Union[list, str] = "all", N: int = 1,

@@ -25,8 +25,9 @@ class BaseMultiVAEConfig(BaseConfig):
         decoder_dist_params: per-modality dist params (e.g. {'scale': 0.75}).
         custom_architectures: names of user-supplied network groups, tracked
             for save/load.
-        use_remat: kept for config compatibility with the JAX package;
-            the port does not rematerialize.
+        use_remat: recompute the encoders' and decoders' activations in
+            the backward instead of keeping them (``torch.utils.checkpoint``;
+            same numbers, less memory).
     """
 
     n_modalities: int = 1

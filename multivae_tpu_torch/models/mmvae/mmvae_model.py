@@ -1,11 +1,9 @@
 """MMVAE: Mixture-of-Experts multimodal VAE with K-sample objectives.
 
 Counterpart of ``multivae_tpu/models/mmvae/mmvae_model.py``: the training
-objectives. MMVAE's own inference methods (its ``_encode_subset``, its
-prior sampler and NLL estimators) are not ported yet: ``encode`` /
-``predict`` / ``generate_from_prior`` / ``compute_joint_nll`` raise
-``NotImplementedError`` here, while the base surface they build on
-(``BaseMultiVAE``, ``ops/iwae.py``) is ported.
+objectives and the inference methods (``encode`` from one random expert of
+the conditioning subset, ``generate_from_prior`` from MMVAE's own prior,
+``compute_joint_nll`` and ``compute_joint_nll_paper``).
 
 - The K importance-sample axis is a leading axis (K, B, D); all M x M
   cross reconstructions go through one decoder call per recon modality on
@@ -19,6 +17,9 @@ prior sampler and NLL estimators) are not ported yet: ``encode`` /
   passes.
 - Missing modalities: masked experts are filled with -1e30 inside the
   mixture logsumexp and masked terms carry exactly zero gradient.
+- Every random draw goes through ``draw_noise`` and the random expert of
+  ``encode`` and ``compute_joint_nll`` through ``draw_expert``, so a test
+  can feed the JAX package's draws.
 """
 
 from __future__ import annotations
@@ -29,10 +30,12 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ...data.batch import MultimodalBatch
+from ...data.batch import MultimodalBatch, as_batch
 from ...ops.dreg import scale_grad
+from ...ops.iwae import chunked_logsumexp, iwae_log_marginal
 from ...ops.kdist import (
     dist_log_prob,
+    dist_rsample,
     dist_rsample_k,
     log_var_to_std,
     mixture_logsumexp,
@@ -127,10 +130,6 @@ class MMVAE(BaseMultiVAE):
         lw = (lpx_z + lpz - lqz_x) * mask[:, None, :]
         return {m: lw[i] for i, m in enumerate(mods)}, n_mods_sample
 
-    def generate_from_prior(self, n_samples: int, generator=None):
-        # the base samples N(0, I); MMVAE's prior is its own distribution
-        raise NotImplementedError("MMVAE's generate_from_prior is not ported yet.")
-
     # ----------------------------------------------------------------- loss
     def loss_function(self, batch: MultimodalBatch, step: Optional[StepInfo] = None,
                       generator: Optional[torch.Generator] = None) -> ModelOutput:
@@ -167,3 +166,93 @@ class MMVAE(BaseMultiVAE):
         per_sample = k_est.sum(0) / n_mods_sample
         loss = -(per_sample * batch.weights).sum()
         return ModelOutput(loss=loss, loss_sum=loss, metrics={})
+
+    def _iwae(self, batch, post_params, zs):
+        """Per-row log-likelihood: log-mean-exp over the K samples, then
+        over the modalities (reference ``iwae``)."""
+        lws, n_mods_sample = self._compute_k_lws(batch, post_params, zs,
+                                                 detach_posteriors=False)
+        stacked = torch.stack(list(lws.values()))  # (M, K, B)
+        k_est = torch.logsumexp(stacked, dim=1) - math.log(stacked.shape[1])
+        return torch.logsumexp(k_est, dim=0) - torch.log(n_mods_sample)
+
+    # ------------------------------------------------------------ inference
+    def _encode_subset(self, batch: MultimodalBatch, *, cond_mod: tuple, N: int,
+                       return_mean: bool, flatten: bool,
+                       generator: Optional[torch.Generator]) -> dict:
+        """One random expert of the conditioning mixture, or the experts'
+        mean with ``return_mean``."""
+        post_params = self._posterior_params(batch, mods=cond_mod)
+        mus = torch.stack([post_params[m][0] for m in cond_mod])
+        if return_mean:
+            emb = mus.mean(0)
+            z = emb.expand(N, *emb.shape) if N > 1 else emb
+        else:
+            idx = self.draw_expert(len(cond_mod), generator)
+            mu, sigma = post_params[cond_mod[idx]]
+            shape = mu.shape if N == 1 else (N, *mu.shape)
+            z = dist_rsample(self.dist_name, mu, sigma, K=N,
+                             u=self.draw_noise(shape, generator))
+        if flatten:
+            z = z.reshape(-1, self.latent_dim)
+        return {"z": z}
+
+    def generate_from_prior(self, n_samples: int,
+                            generator: Optional[torch.Generator] = None) -> ModelOutput:
+        """Latents from MMVAE's prior: (n_samples, latent_dim), or
+        (latent_dim,) when n_samples == 1."""
+        mean, std = self.pz_params()
+        shape = (n_samples, *mean.shape) if n_samples > 1 else mean.shape
+        z = dist_rsample(self.dist_name, mean, std, K=n_samples,
+                         u=self.draw_noise(shape, generator))
+        z = z.reshape(-1, self.latent_dim) if n_samples > 1 else z[0]
+        return ModelOutput(z=z, one_latent_space=True)
+
+    @torch.no_grad()
+    def compute_joint_nll(self, inputs, K: int = 1000, batch_size_K: int = 100,
+                          generator: Optional[torch.Generator] = None):
+        """K-sample estimate of -sum_rows ln p(X): samples of one random
+        expert, weighted by the mixture density (the logsumexp of the
+        experts' densities over the number of modalities); complete data
+        only."""
+        self._check_complete_for_nll(inputs)
+        batch = as_batch(inputs).to(self.device)
+        post_params = self._posterior_params(batch)
+        mods = list(post_params)
+        e_mu, e_sigma = post_params[mods[self.draw_expert(len(mods), generator)]]
+        prior_mu, prior_std = self.pz_params()
+
+        def logw_chunk(chunk: int):
+            z = dist_rsample_k(self.dist_name, e_mu, e_sigma, chunk,
+                               u=self.draw_noise((chunk, *e_mu.shape), generator))
+            lpx_z = 0.0
+            for m in mods:
+                recon = self.decode_mod(m, z)
+                lpx_z = lpx_z + sum_except_batch(
+                    self.recon_log_probs[m](recon, batch.data[m][None]), 2)
+            lpz = dist_log_prob(self.dist_name, z, prior_mu, prior_std).sum(-1)
+            lqz = torch.logsumexp(torch.stack([
+                dist_log_prob(self.dist_name, z, mu, sigma).sum(-1)
+                for mu, sigma in post_params.values()]), 0) - math.log(self.n_modalities)
+            return lpx_z + lpz - lqz
+
+        ln_px = iwae_log_marginal(logw_chunk, K, batch_size_K)
+        return -(ln_px * batch.weights).sum()
+
+    @torch.no_grad()
+    def compute_joint_nll_paper(self, inputs, K: int = 1000, batch_size_K: int = 10,
+                                generator: Optional[torch.Generator] = None):
+        """The paper's estimate: K samples of every expert through ``_iwae``
+        (the mixture density), chunks combined by logsumexp; returns the
+        (B,) per-row NLL."""
+        batch = as_batch(inputs).to(self.device)
+        post_params = self._posterior_params(batch)
+
+        def chunk_lse(n: int):
+            zs = self._sample_embeddings(post_params, n, generator)
+            # undo _iwae's normalization by n and the modality count, so
+            # chunks of different sizes combine exactly
+            return self._iwae(batch, post_params, zs) + math.log(n * self.n_modalities)
+
+        lse = chunked_logsumexp(chunk_lse, K, batch_size_K)
+        return -(lse - math.log(K * self.n_modalities))

@@ -4,6 +4,7 @@ Thin ``nn.Module`` subclasses used as isinstance markers and to document
 the output contract:
 
 - encoder(x) -> ModelOutput(embedding, log_covariance)
+- multilatent encoder -> + style_embedding, style_log_covariance
 - decoder(z) -> ModelOutput(reconstruction)
 """
 
@@ -14,6 +15,10 @@ from torch import nn
 
 class BaseEncoder(nn.Module):
     """Unimodal encoder: x -> ModelOutput(embedding, log_covariance)."""
+
+
+class BaseMultilatentEncoder(BaseEncoder):
+    """Encoder with shared and private (style) latent heads."""
 
 
 class BaseDecoder(nn.Module):

@@ -3,6 +3,8 @@
 
 - ``Encoder_VAE_MLP``: flatten -> [hidden ReLU] x (1 + n_hidden) ->
   (embedding, log_covariance) heads.
+- ``Encoder_VAE_MLP_Style``: flatten -> hidden ReLU -> shared and style
+  (embedding, log_covariance) heads.
 - ``Decoder_AE_MLP``: z -> hidden ReLU -> prod(input_dim) sigmoid ->
   reshape; accepts any leading shape (*, latent_dim).
 
@@ -25,7 +27,7 @@ from torch import nn
 
 from ..utils.config import BaseConfig
 from ..utils.model_output import ModelOutput
-from .base_architectures import BaseDecoder, BaseEncoder
+from .base_architectures import BaseDecoder, BaseEncoder, BaseMultilatentEncoder
 
 
 @dataclasses.dataclass
@@ -85,6 +87,30 @@ class Encoder_VAE_MLP(BaseEncoder):
                            log_covariance=self.dense[-1](h))
 
 
+class Encoder_VAE_MLP_Style(BaseMultilatentEncoder):
+    """MLP encoder with shared and style Gaussian heads."""
+
+    def __init__(self, args: BaseAEConfig, hidden_dim: int = 512):
+        super().__init__()
+        self.input_dim = args.input_dim
+        self.latent_dim = args.latent_dim
+        self.style_dim = args.style_dim
+        self.in_features = int(np.prod(args.input_dim))
+        self.dense = nn.ModuleList(
+            [nn.Linear(self.in_features, hidden_dim)]
+            + [nn.Linear(hidden_dim, d) for d in (args.latent_dim, args.latent_dim,
+                                                  args.style_dim, args.style_dim)])
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        reset_linear_(self.dense, generator)
+
+    def forward(self, x):
+        h = torch.relu(self.dense[0](x.reshape(-1, self.in_features)))
+        return ModelOutput(embedding=self.dense[1](h), log_covariance=self.dense[2](h),
+                           style_embedding=self.dense[3](h),
+                           style_log_covariance=self.dense[4](h))
+
+
 class Decoder_AE_MLP(BaseDecoder):
     """MLP decoder; accepts any leading shape (*, latent_dim)."""
 
@@ -120,5 +146,26 @@ def BaseDictDecoders(input_dims: dict, latent_dim: int) -> Dict[str, BaseDecoder
     return {
         mod: Decoder_AE_MLP(BaseAEConfig(input_dim=tuple(input_dims[mod]),
                                          latent_dim=latent_dim))
+        for mod in input_dims
+    }
+
+
+def BaseDictEncoders_MultiLatents(input_dims: dict, latent_dim: int,
+                                  modality_dims: dict) -> Dict[str, BaseMultilatentEncoder]:
+    """Default multi-latent MLP encoder per modality."""
+    return {
+        mod: Encoder_VAE_MLP_Style(BaseAEConfig(input_dim=tuple(input_dims[mod]),
+                                                latent_dim=latent_dim,
+                                                style_dim=modality_dims[mod]))
+        for mod in input_dims
+    }
+
+
+def BaseDictDecodersMultiLatents(input_dims: dict, latent_dim: int,
+                                 modality_dims: dict) -> Dict[str, BaseDecoder]:
+    """MLP decoders of concat(shared z, private z) per modality."""
+    return {
+        mod: Decoder_AE_MLP(BaseAEConfig(input_dim=tuple(input_dims[mod]),
+                                         latent_dim=latent_dim + modality_dims[mod]))
         for mod in input_dims
     }

@@ -111,7 +111,7 @@ def _lib() -> ctypes.CDLL:
     lib.mixture_fwd.restype = I
     lib.mixture_bwd.argtypes = [P] * 10 + [I] * 6 + [P]
     lib.mixture_bwd.restype = I
-    lib.mixture_smem.argtypes = [I] * 6
+    lib.mixture_smem.argtypes = [I] * 7
     lib.mixture_smem.restype = ctypes.c_size_t
     lib.mixture_launch_shape.argtypes = [I] * 7 + [P]
     lib.mixture_launch_shape.restype = I
@@ -167,9 +167,9 @@ def _vectorized(d: int, *tensors) -> bool:
 
 
 def _check_smem(lib, shape, mode: int, vec: bool, device):
-    nbytes = lib.mixture_smem(*shape, mode, int(vec))
     props = torch.cuda.get_device_properties(device)
     limit = getattr(props, "shared_memory_per_block_optin", 232448)
+    nbytes = lib.mixture_smem(*shape, mode, int(vec), limit)
     if nbytes == 0 or nbytes > limit:
         raise ValueError(
             f"mixture kernel cannot take (R, B, D, MQ) = {shape}: it needs "

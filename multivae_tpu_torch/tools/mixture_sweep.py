@@ -1,10 +1,10 @@
 """Device time of the mixture op against the number of sample rows.
 
 Times the op through its public entry, ``mixture_log_density``, at B=256,
-D=512, MQ=5, Laplace, float32, for each R in ``--rows`` (the MMVAE slice has
-R = MZ*K = 50): the whole forward, the backward with gradients to z, mus and
-sigmas, and the backward to z alone (mus and sigmas detached, the DReG
-case). Each time is ``time_ms``'s, which ``chip_smoke.py`` uses too. The
+D=512, MQ=5 (or at each ``--shape B D MQ``), Laplace, float32, for each R in
+``--rows`` (the MMVAE slice has R = MZ*K = 50): the whole forward, the
+backward with gradients to z, mus and sigmas, and the backward to z alone
+(mus and sigmas detached, the DReG case). Each time is ``time_ms``'s, which ``chip_smoke.py`` uses too. The
 slope over R is the cost of a row in steady state; the intercept is the
 fixed cost of a call.
 
@@ -13,9 +13,10 @@ unpacked parent commit, so that two versions are timed the same way in one
 run. Run it by path (not with ``-m``), on a machine with a CUDA GPU:
 
     python3 multivae_tpu_torch/tools/mixture_sweep.py [--rows 4 16 32 50 100]
-        [--root DIR]
+        [--shape 256 512 5 ...] [--root DIR]
 
-Prints the card's name and power limit, then one JSON line per R.
+Prints the card's name and power limit, then one JSON line per shape and R
+(with the error instead of times where the op refuses the shape).
 """
 
 from __future__ import annotations
@@ -83,6 +84,10 @@ def op_times(fn, z, mus, sigmas, mask, g, flush, dist="laplace"):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--rows", type=int, nargs="+", default=[4, 16, 32, 50, 100])
+    parser.add_argument("--shape", type=int, nargs=3, action="append",
+                        metavar=("B", "D", "MQ"),
+                        help="batch columns, coordinates, experts (repeatable; "
+                             "default 256 512 5)")
     parser.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.dirname(os.path.abspath(__file__)))),
         help="checkout whose multivae_tpu_torch is timed (default: this one)")
@@ -95,21 +100,26 @@ def main():
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())
-    b, d, mq = 256, 512, 5
-    rng = np.random.default_rng(0)
-    mus = torch.tensor(rng.normal(size=(mq, b, d)), dtype=torch.float32,
-                       device="cuda")
-    sig = torch.tensor(rng.uniform(0.5, 1.5, size=(mq, b, d)),
-                       dtype=torch.float32, device="cuda")
-    mask = torch.ones((mq, b), dtype=torch.float32, device="cuda")
     flush = flush_buffer()
-    for r in args.rows:
-        z = torch.tensor(rng.normal(size=(1, r, b, d)), dtype=torch.float32,
-                         device="cuda")
-        g = torch.tensor(rng.normal(size=(1, r, b)), dtype=torch.float32,
-                         device="cuda")
-        ms = op_times(mx.mixture_log_density, z, mus, sig, mask, g, flush)
-        print(json.dumps({"root": args.root, "rows": r, "ms": ms}))
+    for b, d, mq in args.shape or [(256, 512, 5)]:
+        rng = np.random.default_rng(0)
+        mus = torch.tensor(rng.normal(size=(mq, b, d)), dtype=torch.float32,
+                           device="cuda")
+        sig = torch.tensor(rng.uniform(0.5, 1.5, size=(mq, b, d)),
+                           dtype=torch.float32, device="cuda")
+        mask = torch.ones((mq, b), dtype=torch.float32, device="cuda")
+        for r in args.rows:
+            z = torch.tensor(rng.normal(size=(1, r, b, d)), dtype=torch.float32,
+                             device="cuda")
+            g = torch.tensor(rng.normal(size=(1, r, b)), dtype=torch.float32,
+                             device="cuda")
+            line = {"root": args.root, "b": b, "d": d, "mq": mq, "rows": r}
+            try:
+                line["ms"] = op_times(mx.mixture_log_density, z, mus, sig, mask, g,
+                                      flush)
+            except ValueError as e:   # a shape this checkout's op refuses
+                line["error"] = str(e)
+            print(json.dumps(line))
 
 
 if __name__ == "__main__":

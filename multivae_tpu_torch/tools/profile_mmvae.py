@@ -2,9 +2,10 @@
 
 Builds one full-width workload of ``tools/workloads.py`` (``--model``:
 ``mmvae``, the MMVAE of ``chip_smoke.py`` trained with DReG, by default;
-``mvtcae_mlp``; ``mvtcae_conv``; batch 256, Adam 1e-3, float32 without
-TF32), trains one warm-up epoch of ``--steps`` steps with ``BaseTrainer``,
-then profiles a second epoch with ``torch.profiler`` and prints:
+``mvtcae_mlp``; ``mvtcae_conv``; ``mmvae_conv``; ``mmvaeplus_partial``;
+``mmvaeplus_k10``; each at its own batch, float32 without TF32), trains
+one warm-up epoch of ``--steps`` steps with ``BaseTrainer``, then profiles
+a second epoch with ``torch.profiler`` and prints:
 
 - the host wall time per step and the device's busy and idle shares over
   the profiled epoch (busy = the sum of kernel and copy durations on the
@@ -72,7 +73,7 @@ def main():
 
     from ..trainers import BaseTrainer, BaseTrainerConfig
 
-    w = workloads.build(args.model, n=256 * args.steps, n_eval=0)
+    w = workloads.build(args.model, n=workloads.BATCH[args.model] * args.steps, n_eval=0)
     trainer = BaseTrainer(w.model, w.train,
                           training_config=BaseTrainerConfig(
                               output_dir=os.path.join("build", "profile_mmvae"),

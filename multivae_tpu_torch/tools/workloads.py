@@ -11,13 +11,30 @@ random data in the real datasets' shapes, made from a seed.
   ``examples/case_studies/partial_polymnist/global_config.py:55-84``): 5
   modalities of 3x28x28, ``EncoderConvMMNIST_adapted`` /
   ``DecoderConvMMNIST``, latent 512, Laplace decoders of scale 0.75, beta
-  2.5, alpha 5/6, ReduceLROnPlateau(patience=30) on an eval set. The train
-  set is an ``IncompleteDataset``: each (row, modality) is missing with
-  probability 0.2, and a few rows have no modality at all. The eval set is
-  complete, as PolyMNIST's test set is.
+  2.5, alpha 5/6, ReduceLROnPlateau(patience=30) on an eval set.
+- ``mmvae_conv``: MMVAE on the same protocol
+  (``examples/case_studies/partial_polymnist/mmvae.py``): the same nets and
+  decoders, latent 512, K=10, ``laplace_with_softmax`` posteriors, a fixed
+  prior (``learn_prior=False``), DReG.
+- ``mmvaeplus_partial``: MMVAE+ on partial PolyMNIST
+  (``examples/case_studies/mmvae_plus_partial/train.py:68-134``):
+  ``EncoderResnetMMNIST`` / ``DecoderResnetMMNIST`` at their paper widths
+  (nf 64), latent 32 plus private 32, Laplace decoders of scale 0.75, K=1,
+  beta 2.5, learned modality priors, a fixed shared prior, ``joint_prior``,
+  DReG; batch 32, ReduceLROnPlateau(patience=30) on a 10% eval split.
+- ``mmvaeplus_k10``: the paper's MMVAE+ run (``examples/mmvae_plus_polymnist.py:39-91``
+  with ``--K 10``): the same model with K=10, ``iwae_looser`` and
+  ``use_remat``, batch 32, Adam with ``amsgrad=True``, on complete data
+  with a 10% eval split.
 
-All: batch 256, Adam 1e-3, float32, seed 0. Only depth is cut (rows,
-epochs).
+The train sets of ``mvtcae_conv``, ``mmvae_conv`` and
+``mmvaeplus_partial`` are ``IncompleteDataset``s: each (row, modality) is
+missing with probability 0.2, and a few rows have no modality at all. The
+eval sets of the first two are complete, as PolyMNIST's test set is; the
+MMVAE+ eval split is cut from the same incomplete data.
+
+All: Adam 1e-3, float32, seed 0; batch 256 unless stated. Only depth is
+cut (rows, epochs).
 """
 
 from __future__ import annotations
@@ -28,9 +45,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-NAMES = ("mmvae", "mvtcae_mlp", "mvtcae_conv")
+NAMES = ("mmvae", "mvtcae_mlp", "mvtcae_conv", "mmvae_conv", "mmvaeplus_partial",
+         "mmvaeplus_k10")
+BATCH = {name: 32 if name.startswith("mmvaeplus") else 256 for name in NAMES}
 POLYMNIST = (3, 28, 28)
 LATENT = 512
+PLUS_LATENT = 32   # MMVAE+: shared and private latent dims
 MISSING = 0.2   # partial PolyMNIST: share of (row, modality) pairs missing
 SEED = 0
 
@@ -47,65 +67,123 @@ def _images(rng, n, dims):
     return {m: rng.random((n, *d), dtype=np.float32) for m, d in dims.items()}
 
 
-def _trainer_kwargs(**extra):
-    return dict(per_device_train_batch_size=256, per_device_eval_batch_size=256,
-                learning_rate=1e-3, optimizer_cls="Adam", **extra)
+def _trainer_kwargs(name, **extra):
+    return dict(per_device_train_batch_size=BATCH[name],
+                per_device_eval_batch_size=BATCH[name], learning_rate=1e-3,
+                optimizer_cls="Adam", **extra)
 
 
-def build(name: str, n: int = 2048, n_eval: int = 512, device="cuda") -> Workload:
-    """The workload ``name`` (one of ``NAMES``) with ``n`` train rows."""
-    from ..data import IncompleteDataset, MultimodalBaseDataset
-    from ..models import MMVAE, MMVAEConfig, MVTCAE, MVTCAEConfig
-    from ..nn import BaseAEConfig, DecoderConvMMNIST, EncoderConvMMNIST_adapted
-
-    rng = np.random.default_rng(SEED)
-    if name == "mmvae":
-        dims = {f"m{i}": POLYMNIST for i in range(5)}
-        model = MMVAE(MMVAEConfig(
-            n_modalities=5, latent_dim=LATENT, K=10, input_dims=dims,
-            decoders_dist={m: "laplace" for m in dims},
-            prior_and_posterior_dist="laplace_with_softmax", loss="dreg_looser"),
-            seed=SEED, device=device)
-        return Workload(model, MultimodalBaseDataset(_images(rng, n, dims)), None,
-                        _trainer_kwargs())
-    if name == "mvtcae_mlp":
-        dims = {"m0": (1, 28, 28), "m1": (3, 32, 32)}
-        model = MVTCAE(MVTCAEConfig(
-            n_modalities=2, latent_dim=LATENT, input_dims=dims,
-            decoders_dist={m: "bernoulli" for m in dims}), seed=SEED, device=device)
-        return Workload(model, MultimodalBaseDataset(_images(rng, n, dims)), None,
-                        _trainer_kwargs())
-    if name != "mvtcae_conv":
-        raise ValueError(f"unknown workload {name!r}; expected one of {NAMES}")
-
-    dims = {f"m{i}": POLYMNIST for i in range(5)}
-    cfg = BaseAEConfig(latent_dim=LATENT, input_dim=POLYMNIST)
-    encoders = {m: EncoderConvMMNIST_adapted(cfg) for m in dims}
-    decoders = {m: DecoderConvMMNIST(cfg) for m in dims}
+def _seeded(encoders: dict, decoders: dict):
+    """User nets keep their weights: seed them here (per modality, the
+    encoder, then the decoder)."""
     generator = torch.Generator().manual_seed(SEED)
-    for m in dims:  # user nets keep their weights: seed them here
+    for m in encoders:
         encoders[m].reset_parameters(generator)
         decoders[m].reset_parameters(generator)
-    model = MVTCAE(MVTCAEConfig(
-        n_modalities=5, latent_dim=LATENT, input_dims=dims,
-        decoders_dist={m: "laplace" for m in dims},
-        decoder_dist_params={m: {"scale": 0.75} for m in dims},
-        beta=2.5, alpha=5.0 / 6.0), encoders=encoders, decoders=decoders,
-        seed=SEED, device=device)
+    return encoders, decoders
 
+
+def _incomplete(rng, n, dims):
+    """(data, masks) of partial PolyMNIST: each (row, modality) missing with
+    probability ``MISSING``, the ``dead_rows`` with no modality, missing
+    entries zeroed."""
     data = _images(rng, n, dims)
     available = rng.random((n, len(dims))) >= MISSING
     available[dead_rows(n)] = False
     masks = {m: available[:, i] for i, m in enumerate(dims)}
     for m in dims:
         data[m][~masks[m]] = 0.0
-    eval_set = MultimodalBaseDataset(_images(rng, n_eval, dims)) if n_eval else None
+    return data, masks
+
+
+def build(name: str, n: int = 2048, n_eval: Optional[int] = None,
+          device="cuda") -> Workload:
+    """The workload ``name`` (one of ``NAMES``) with ``n`` train rows and
+    ``n_eval`` eval rows (default: 512 for the conv protocols, a tenth of
+    ``n`` for MMVAE+, none for the others; 0 for none)."""
+    from ..data import IncompleteDataset, MultimodalBaseDataset
+    from ..models import MMVAE, MMVAEConfig, MMVAEPlus, MMVAEPlusConfig, MVTCAE, MVTCAEConfig
+    from ..nn import (
+        BaseAEConfig,
+        DecoderConvMMNIST,
+        DecoderResnetMMNIST,
+        EncoderConvMMNIST_adapted,
+        EncoderResnetMMNIST,
+    )
+
+    if name not in NAMES:
+        raise ValueError(f"unknown workload {name!r}; expected one of {NAMES}")
+    rng = np.random.default_rng(SEED)
+    poly = {f"m{i}": POLYMNIST for i in range(5)}
+    laplace = dict(decoders_dist={m: "laplace" for m in poly},
+                   decoder_dist_params={m: {"scale": 0.75} for m in poly})
+    if name == "mmvae":
+        model = MMVAE(MMVAEConfig(
+            n_modalities=5, latent_dim=LATENT, K=10, input_dims=poly,
+            decoders_dist={m: "laplace" for m in poly},
+            prior_and_posterior_dist="laplace_with_softmax", loss="dreg_looser"),
+            seed=SEED, device=device)
+        return Workload(model, MultimodalBaseDataset(_images(rng, n, poly)), None,
+                        _trainer_kwargs(name))
+    if name == "mvtcae_mlp":
+        dims = {"m0": (1, 28, 28), "m1": (3, 32, 32)}
+        model = MVTCAE(MVTCAEConfig(
+            n_modalities=2, latent_dim=LATENT, input_dims=dims,
+            decoders_dist={m: "bernoulli" for m in dims}), seed=SEED, device=device)
+        return Workload(model, MultimodalBaseDataset(_images(rng, n, dims)), None,
+                        _trainer_kwargs(name))
+
+    if name.startswith("mmvaeplus"):
+        k10 = name == "mmvaeplus_k10"
+        encoders, decoders = _seeded(
+            {m: EncoderResnetMMNIST(PLUS_LATENT, PLUS_LATENT) for m in poly},
+            {m: DecoderResnetMMNIST(2 * PLUS_LATENT) for m in poly})
+        model = MMVAEPlus(MMVAEPlusConfig(
+            n_modalities=5, latent_dim=PLUS_LATENT, modalities_specific_dim=PLUS_LATENT,
+            input_dims=poly, K=10 if k10 else 1,
+            prior_and_posterior_dist="laplace_with_softmax", learn_shared_prior=False,
+            learn_modality_prior=True, beta=2.5, reconstruction_option="joint_prior",
+            loss="iwae_looser" if k10 else "dreg_looser", use_remat=k10, **laplace),
+            encoders=encoders, decoders=decoders, seed=SEED, device=device)
+        n_eval = n // 10 if n_eval is None else n_eval
+        if k10:
+            train = MultimodalBaseDataset(_images(rng, n, poly))
+            eval_set = MultimodalBaseDataset(_images(rng, n_eval, poly)) if n_eval else None
+            return Workload(model, train, eval_set, _trainer_kwargs(
+                name, optimizer_params={"amsgrad": True}))
+        data, masks = _incomplete(rng, n + n_eval, poly)
+        rows = {"train": slice(0, n), "eval": slice(n, n + n_eval)}
+        split = {k: IncompleteDataset({m: v[s] for m, v in data.items()},
+                                      {m: v[s] for m, v in masks.items()})
+                 for k, s in rows.items()}
+        return Workload(model, split["train"], split["eval"] if n_eval else None,
+                        _trainer_kwargs(name, scheduler_cls="ReduceLROnPlateau",
+                                        scheduler_params={"patience": 30}))
+
+    # the partial-PolyMNIST conv protocol: mvtcae_conv, mmvae_conv
+    cfg = BaseAEConfig(latent_dim=LATENT, input_dim=POLYMNIST)
+    encoders, decoders = _seeded({m: EncoderConvMMNIST_adapted(cfg) for m in poly},
+                                 {m: DecoderConvMMNIST(cfg) for m in poly})
+    if name == "mvtcae_conv":
+        config = MVTCAEConfig(n_modalities=5, latent_dim=LATENT, input_dims=poly,
+                              beta=2.5, alpha=5.0 / 6.0, **laplace)
+        model = MVTCAE(config, encoders=encoders, decoders=decoders, seed=SEED,
+                       device=device)
+    else:
+        config = MMVAEConfig(n_modalities=5, latent_dim=LATENT, input_dims=poly, K=10,
+                             prior_and_posterior_dist="laplace_with_softmax",
+                             learn_prior=False, loss="dreg_looser", **laplace)
+        model = MMVAE(config, encoders=encoders, decoders=decoders, seed=SEED,
+                      device=device)
+    data, masks = _incomplete(rng, n, poly)
+    n_eval = 512 if n_eval is None else n_eval
+    eval_set = MultimodalBaseDataset(_images(rng, n_eval, poly)) if n_eval else None
     return Workload(model, IncompleteDataset(data, masks), eval_set,
-                    _trainer_kwargs(scheduler_cls="ReduceLROnPlateau",
+                    _trainer_kwargs(name, scheduler_cls="ReduceLROnPlateau",
                                     scheduler_params={"patience": 30}))
 
 
 def dead_rows(n: int) -> np.ndarray:
-    """Rows of ``mvtcae_conv``'s train set with no modality (row 5 among
-    them, so the first 8 rows hold one)."""
+    """Rows of the incomplete train sets with no modality (row 5 among them,
+    so the first 8 rows hold one)."""
     return np.arange(5, n, 509)

@@ -1,31 +1,42 @@
 """Optimizer and LR-scheduler factories from config strings.
 
-Counterpart of ``multivae_tpu/trainers/base/optim.py``: the same
-whitelist of optimizer names, built here as ``torch.optim`` classes. The
-parameter names are torch's; the optax spellings the JAX package also
-accepts (``b1``/``b2`` for ``betas``, RMSprop's ``decay`` for ``alpha``)
-are translated. Schedulers are ``torch.optim.lr_scheduler`` classes by
-name, stepped once per epoch.
+Counterpart of ``multivae_tpu/trainers/base/optim.py``: the same whitelist
+of optimizer names and parameter names, computing the JAX package's
+(optax's) update for each. The torch spellings the port also accepts are
+kept: ``betas`` for ``b1``/``b2``, RMSprop's ``alpha`` for ``decay``,
+``amsgrad``, and the L2 ``weight_decay``/``lr_decay``/``dampening`` options
+torch's classes have.
+
+Where a ``torch.optim`` class computes optax's update it is used: Adam,
+AdamW, Adadelta, SGD, Adamax and RAdam with their plain options (AdamW
+with optax's default ``weight_decay`` of 1e-4). ``OptaxRule`` computes the
+rest: ``optax.amsgrad`` (the max of the bias-corrected second moment),
+optax's ``eps_root``, Adam's ``nesterov`` and RAdam's ``threshold``, and
+optax's Adagrad and RMSprop (their defaults, and ``eps`` inside the square
+root). Schedulers are ``torch.optim.lr_scheduler`` classes by name, stepped
+once per epoch.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
+_ADAM_KEYS = {"b1", "b2", "eps", "eps_root", "weight_decay"}
+# name -> (the JAX whitelist plus the torch spellings, optax's defaults)
 _OPTIMIZERS = {
-    "Adam": (torch.optim.Adam, {"betas", "eps", "weight_decay", "amsgrad"}),
-    "AdamW": (torch.optim.AdamW, {"betas", "eps", "weight_decay", "amsgrad"}),
-    "Adagrad": (torch.optim.Adagrad, {"eps", "initial_accumulator_value",
-                                      "weight_decay", "lr_decay"}),
-    "Adadelta": (torch.optim.Adadelta, {"rho", "eps", "weight_decay"}),
-    "SGD": (torch.optim.SGD, {"momentum", "nesterov", "dampening",
-                              "weight_decay"}),
-    "RMSprop": (torch.optim.RMSprop, {"alpha", "eps", "momentum", "centered",
-                                      "weight_decay"}),
-    "Adamax": (torch.optim.Adamax, {"betas", "eps", "weight_decay"}),
-    "RAdam": (torch.optim.RAdam, {"betas", "eps", "weight_decay"}),
+    "Adam": (_ADAM_KEYS | {"nesterov", "amsgrad"}, {}),
+    "AdamW": (_ADAM_KEYS | {"nesterov", "amsgrad"}, dict(weight_decay=1e-4)),
+    "Adagrad": ({"eps", "initial_accumulator_value", "weight_decay", "lr_decay"},
+                dict(eps=1e-7, initial_accumulator_value=0.1)),
+    "Adadelta": ({"rho", "eps", "weight_decay"}, dict(rho=0.9, eps=1e-6)),
+    "SGD": ({"momentum", "nesterov", "dampening", "weight_decay"}, {}),
+    "RMSprop": ({"decay", "eps", "momentum", "centered", "initial_scale",
+                 "weight_decay"}, dict(decay=0.9, eps=1e-8)),
+    "Adamax": ({"b1", "b2", "eps", "weight_decay"}, {}),
+    "RAdam": (_ADAM_KEYS | {"threshold"}, {}),
 }
 
 _SCHEDULERS = ("StepLR", "MultiStepLR", "ExponentialLR", "LinearLR",
@@ -33,18 +44,174 @@ _SCHEDULERS = ("StepLR", "MultiStepLR", "ExponentialLR", "LinearLR",
                "CosineAnnealingWarmRestarts", "ReduceLROnPlateau")
 
 
-def _translate_optax_params(optimizer_cls: str, params: dict) -> dict:
+def _adam_rule(ps, gs, states, h, t):
+    """optax ``scale_by_adam`` / ``scale_by_amsgrad`` / ``scale_by_radam``
+    times -lr, with torch's coupled ``weight_decay`` for Adam and RAdam and
+    optax's decoupled one (``add_decayed_weights``) for AdamW; over the
+    parameters ``ps`` at step ``t`` with ``torch._foreach_*`` ops."""
+    b1, b2 = h["b1"], h["b2"]
+    if h["weight_decay"] and not h["decoupled"]:
+        gs = torch._foreach_add(gs, ps, alpha=h["weight_decay"])
+    for p, state in zip(ps, states):
+        if "mu" not in state:
+            state["mu"], state["nu"] = torch.zeros_like(p), torch.zeros_like(p)
+            if h["amsgrad"]:
+                state["nu_max"] = torch.zeros_like(p)
+    mus, nus = [s["mu"] for s in states], [s["nu"] for s in states]
+    torch._foreach_mul_(mus, b1)
+    torch._foreach_add_(mus, gs, alpha=1 - b1)
+    torch._foreach_mul_(nus, b2)
+    torch._foreach_addcmul_(nus, gs, gs, value=1 - b2)
+    if h["nesterov"]:
+        mu_hat = torch._foreach_mul(mus, b1 / (1 - b1 ** (t + 1)))
+        torch._foreach_add_(mu_hat, gs, alpha=(1 - b1) / (1 - b1 ** t))
+    else:
+        mu_hat = torch._foreach_div(mus, 1 - b1 ** t)
+    nu_hat = torch._foreach_div(nus, 1 - b2 ** t)
+    if h["amsgrad"]:
+        nu_hat = [s["nu_max"] for s in states]
+        torch._foreach_maximum_(nu_hat, torch._foreach_div(nus, 1 - b2 ** t))
+    denom = torch._foreach_add(nu_hat, h["eps_root"])
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, h["eps"])
+    update = torch._foreach_div(mu_hat, denom)
+    if h["threshold"] is not None:   # RAdam: rectify while the variance is tractable
+        ro_inf = 2.0 / (1.0 - b2) - 1.0
+        ro = ro_inf - 2 * t * b2 ** t / (1 - b2 ** t)
+        if ro >= h["threshold"]:
+            torch._foreach_mul_(update, math.sqrt((ro - 4.0) * (ro - 2.0) * ro_inf
+                                                  / ((ro_inf - 4.0) * (ro_inf - 2.0) * ro)))
+        else:
+            update = mu_hat
+    if h["weight_decay"] and h["decoupled"]:
+        torch._foreach_add_(update, ps, alpha=h["weight_decay"])
+    torch._foreach_mul_(update, -h["lr"])
+    return update
+
+
+def _each(rule):
+    """A rule over one parameter, ``rule(p, g, state, h, t)``, as a rule
+    over the list."""
+    def over(ps, gs, states, h, t):
+        return [rule(p, g, state, h, t) for p, g, state in zip(ps, gs, states)]
+    return over
+
+
+def _adagrad_rule(p, g, state, h, t):
+    """optax ``scale_by_rss`` (eps inside the square root, accumulator from
+    ``initial_accumulator_value``) with torch's ``weight_decay`` and
+    ``lr_decay``."""
+    if h["weight_decay"]:
+        g = g + h["weight_decay"] * p
+    if "sum" not in state:
+        state["sum"] = torch.full_like(p, h["initial_accumulator_value"])
+    acc = state["sum"].addcmul_(g, g)
+    scale = torch.where(acc > 0, torch.rsqrt(acc + h["eps"]), 0.0)
+    lr = h["lr"] / (1 + (t - 1) * h["lr_decay"])
+    return -lr * scale * g
+
+
+def _rmsprop_rule(p, g, state, h, t):
+    """optax ``rmsprop``: ``scale_by_rms`` or ``scale_by_stddev`` (eps inside
+    the square root, second moment from ``initial_scale``), then -lr, then
+    the momentum trace; with torch's ``weight_decay``."""
+    decay = h["decay"]
+    if h["weight_decay"]:
+        g = g + h["weight_decay"] * p
+    if "nu" not in state:
+        state["nu"] = torch.full_like(p, h["initial_scale"])
+    nu = state["nu"].mul_(decay).addcmul_(g, g, value=1 - decay)
+    if h["centered"]:
+        mu = state.setdefault("mu", torch.zeros_like(p)).mul_(decay).add_(
+            g, alpha=1 - decay)
+        nu = nu - mu * mu
+    update = -h["lr"] * torch.rsqrt(nu + h["eps"]) * g
+    if h["momentum"]:
+        update = state["trace"] = (update if "trace" not in state
+                                   else update + h["momentum"] * state["trace"])
+    return update
+
+
+class OptaxRule(torch.optim.Optimizer):
+    """An optax update rule as a ``torch.optim.Optimizer``: the parameters
+    of a group that have a gradient, taken together where they are at the
+    same step t (counted from 1 in ``state["step"]``), get
+    ``rule(params, grads, states, group, t)``, the updates to add."""
+
+    def __init__(self, params, rule, lr: float, **hyper):
+        super().__init__(params, dict(lr=lr, **hyper))
+        self.rule = rule
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            by_step = {}
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                state["step"] = state.get("step", 0) + 1
+                by_step.setdefault(state["step"], []).append(p)
+            for t, ps in by_step.items():
+                updates = self.rule(ps, [p.grad for p in ps],
+                                    [self.state[p] for p in ps], group, t)
+                torch._foreach_add_(ps, updates)
+        return loss
+
+
+def _translate(optimizer_cls: str, params: dict) -> dict:
     out = dict(params)
-    if "b1" in out or "b2" in out:
-        out["betas"] = (out.pop("b1", 0.9), out.pop("b2", 0.999))
-    if optimizer_cls == "RMSprop" and "decay" in out:
-        out["alpha"] = out.pop("decay")
+    if "betas" in out:
+        out["b1"], out["b2"] = out.pop("betas")
+    if optimizer_cls == "RMSprop" and "alpha" in out:
+        out["decay"] = out.pop("alpha")
     return out
+
+
+def _build(name: str, parameters, lr: float, p: dict):
+    betas = (p.pop("b1", 0.9), p.pop("b2", 0.999))
+    eps = p.pop("eps", 1e-8)
+    if name in ("Adam", "AdamW", "RAdam"):
+        h = dict(b1=betas[0], b2=betas[1], eps=eps, eps_root=p.pop("eps_root", 0.0),
+                 weight_decay=p.pop("weight_decay", 0.0),
+                 nesterov=p.pop("nesterov", False),
+                 amsgrad=p.pop("amsgrad", False), decoupled=name == "AdamW",
+                 threshold=p.pop("threshold", 5.0) if name == "RAdam" else None)
+        if h["amsgrad"] and h["nesterov"]:
+            raise TypeError("amsgrad does not take nesterov (optax.amsgrad has "
+                            "no such option).")
+        if not (h["eps_root"] or h["nesterov"] or h["amsgrad"]
+                or (name == "RAdam" and h["threshold"] != 5.0)):
+            ctor = {"Adam": torch.optim.Adam, "AdamW": torch.optim.AdamW,
+                    "RAdam": torch.optim.RAdam}[name]
+            return ctor(parameters, lr=lr, betas=betas, eps=eps,
+                        weight_decay=h["weight_decay"])
+        return OptaxRule(parameters, _adam_rule, lr, **h)
+    if name == "Adagrad":
+        return OptaxRule(parameters, _each(_adagrad_rule), lr, eps=eps,
+                         initial_accumulator_value=p["initial_accumulator_value"],
+                         weight_decay=p.get("weight_decay", 0.0),
+                         lr_decay=p.get("lr_decay", 0.0))
+    if name == "RMSprop":
+        return OptaxRule(parameters, _each(_rmsprop_rule), lr, eps=eps, decay=p["decay"],
+                         centered=p.get("centered", False),
+                         momentum=p.get("momentum") or 0.0,
+                         initial_scale=p.get("initial_scale", 0.0),
+                         weight_decay=p.get("weight_decay", 0.0))
+    if name == "Adamax":
+        return torch.optim.Adamax(parameters, lr=lr, betas=betas, eps=eps, **p)
+    if name == "Adadelta":
+        return torch.optim.Adadelta(parameters, lr=lr, eps=eps, **p)
+    return torch.optim.SGD(parameters, lr=lr, **{**p, "momentum": p.get("momentum") or 0})
 
 
 def make_optimizer(optimizer_cls: str, parameters, learning_rate: float,
                    optimizer_params: Optional[dict] = None):
-    """Build a ``torch.optim`` optimizer by name over ``parameters``.
+    """Build the optimizer named ``optimizer_cls`` over ``parameters``.
 
     Raises AttributeError on unknown names and TypeError on bad params.
     """
@@ -52,14 +219,14 @@ def make_optimizer(optimizer_cls: str, parameters, learning_rate: float,
         raise AttributeError(
             f"Unable to build `{optimizer_cls}` optimizer. Available "
             f"optimizers: {sorted(_OPTIMIZERS)}")
-    ctor, allowed = _OPTIMIZERS[optimizer_cls]
-    params = _translate_optax_params(optimizer_cls, optimizer_params or {})
+    allowed, defaults = _OPTIMIZERS[optimizer_cls]
+    params = _translate(optimizer_cls, optimizer_params or {})
     unknown = set(params) - allowed
     if unknown:
         raise TypeError(
             f"Error in optimizer's parameters. Unknown parameters {unknown} "
             f"for `{optimizer_cls}` (allowed: {sorted(allowed)}).")
-    return ctor(parameters, lr=learning_rate, **params)
+    return _build(optimizer_cls, parameters, learning_rate, {**defaults, **params})
 
 
 def make_scheduler(scheduler_cls: Optional[str], optimizer,

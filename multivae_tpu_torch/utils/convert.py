@@ -3,10 +3,12 @@
 ``params_from_jax`` maps the nested dict ``jax.tree.map(np.asarray,
 model.params)`` of a ``multivae_tpu`` model to a ``state_dict`` of the
 port's model of the same class and config. The port's nets keep their
-layers in the ModuleLists ``dense``, ``conv`` and ``deconv`` in the order
-Flax creates them, so ``<group>/<m>/Dense_i``, ``Conv_i`` and
-``ConvTranspose_i`` become ``<group>.<m>.dense.<i>``, ``.conv.<i>`` and
-``.deconv.<i>`` (group: ``encoders`` or ``decoders``):
+layers in the ModuleLists ``dense``, ``conv``, ``deconv`` and ``blocks``
+in the order Flax creates them, so ``<group>/<m>/Dense_i``, ``Conv_i``,
+``ConvTranspose_i`` and ``ResnetBlock_i`` become ``<group>.<m>.dense.<i>``,
+``.conv.<i>``, ``.deconv.<i>`` and ``.blocks.<i>`` (group: ``encoders`` or
+``decoders``), and a ``ResnetBlock_i``'s own ``Conv_j`` becomes
+``.blocks.<i>.conv.<j>``:
 
 - a Dense kernel (in, out) becomes a Linear weight (out, in);
 - a Conv kernel (kh, kw, in, out) becomes a Conv2d weight (out, in, kh,
@@ -16,10 +18,15 @@ Flax creates them, so ``<group>/<m>/Dense_i``, ``Conv_i`` and
   conv cross-correlates the dilated input with the kernel as stored, torch's
   with the kernel flipped (the padding side is the net's business, see
   ``nn/mmnist.DecoderConvMMNIST``);
-- in an encoder that runs convs before ``Dense_0``, Flax flattened an NHWC
-  map in (h, w, c) order and torch flattens NCHW in (c, h, w) order:
-  ``Dense_0``'s input rows are permuted to match (c is the last conv's
-  output channels, the map is square);
+- in an encoder whose Dense layers read a flattened conv map, Flax
+  flattened an NHWC map in (h, w, c) order and torch flattens NCHW in (c,
+  h, w) order, so those layers' input rows are permuted to match (the map
+  is square). With top-level convs only (``EncoderConvMMNIST``) that is
+  ``Dense_0``, after the last conv; in an encoder built of
+  ``ResnetBlock_i`` (``EncoderResnetMMNIST``) every Dense is a head on a
+  flattened branch, whose channels are those of the last block. A decoder
+  reshapes its Dense output channels-first, as the port's does: no
+  permutation there;
 - ``model/<name>`` (e.g. ``prior_log_var``) becomes the top-level
   parameter ``<name>``.
 
@@ -35,14 +42,15 @@ import numpy as np
 import torch
 
 _NET_GROUPS = ("encoders", "decoders")
-_LAYER_LISTS = {"Dense": "dense", "Conv": "conv", "ConvTranspose": "deconv"}
+_LAYER_LISTS = {"Dense": "dense", "Conv": "conv", "ConvTranspose": "deconv",
+                "ResnetBlock": "blocks"}
 
 
 def _layer_key(name: str):
     kind, _, idx = name.rpartition("_")
     if kind not in _LAYER_LISTS or not idx.isdigit():
-        raise KeyError(f"Unsupported Flax layer {name!r}: only Dense_i, Conv_i "
-                       "and ConvTranspose_i layers are mapped.")
+        raise KeyError(f"Unsupported Flax layer {name!r}: only Dense_i, Conv_i, "
+                       "ConvTranspose_i and ResnetBlock_i are mapped.")
     return kind, int(idx)
 
 
@@ -50,29 +58,43 @@ def _hwc_rows_to_chw(kernel: np.ndarray, channels: int) -> np.ndarray:
     """Permute a Dense kernel's input rows from (h, w, c) to (c, h, w)."""
     side = math.isqrt(kernel.shape[0] // channels)
     if side * side * channels != kernel.shape[0]:
-        raise ValueError(f"Dense_0 input {kernel.shape[0]} is not a square "
+        raise ValueError(f"Dense input {kernel.shape[0]} is not a square "
                          f"map of {channels} channels")
     return (kernel.reshape(side, side, channels, -1).transpose(2, 0, 1, 3)
             .reshape(kernel.shape))
 
 
+def _flat_map_channels(layers: dict, keys: dict) -> Dict[int, int]:
+    """Encoder: Dense index -> channels of the flattened map it reads."""
+    blocks = sorted(i for kind, i in keys.values() if kind == "ResnetBlock")
+    if blocks:
+        last = layers[f"ResnetBlock_{blocks[-1]}"]["Conv_1"]["kernel"]
+        return {i: np.shape(last)[-1] for kind, i in keys.values() if kind == "Dense"}
+    convs = sorted(i for kind, i in keys.values() if kind == "Conv")
+    if convs and "Dense_0" in layers:
+        return {0: np.shape(layers[f"Conv_{convs[-1]}"]["kernel"])[-1]}
+    return {}
+
+
 def _net_state(prefix: str, layers: dict, encoder: bool) -> Dict[str, torch.Tensor]:
     keys = {name: _layer_key(name) for name in layers}
-    convs = sorted(i for kind, i in keys.values() if kind == "Conv")
+    flat = _flat_map_channels(layers, keys) if encoder else {}
     state = {}
     for name, leaf in layers.items():
         kind, i = keys[name]
+        key = f"{prefix}.{_LAYER_LISTS[kind]}.{i}"
+        if kind == "ResnetBlock":
+            state.update(_net_state(key, leaf, encoder=False))
+            continue
         kernel = np.asarray(leaf["kernel"])
         if kind == "Dense":
-            if encoder and i == 0 and convs:
-                last = np.asarray(layers[f"Conv_{convs[-1]}"]["kernel"])
-                kernel = _hwc_rows_to_chw(kernel, last.shape[-1])
+            if i in flat:
+                kernel = _hwc_rows_to_chw(kernel, flat[i])
             weight = kernel.T
         elif kind == "Conv":
             weight = kernel.transpose(3, 2, 0, 1)
         else:
             weight = kernel[::-1, ::-1].transpose(2, 3, 0, 1)
-        key = f"{prefix}.{_LAYER_LISTS[kind]}.{i}"
         state[key + ".weight"] = torch.tensor(weight.copy())
         if "bias" in leaf:
             state[key + ".bias"] = torch.tensor(np.asarray(leaf["bias"]))

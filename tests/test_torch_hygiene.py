@@ -91,3 +91,17 @@ def test_mvtcae_default_device_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         MVTCAE(MVTCAEConfig(**cfg))
     assert MVTCAE(MVTCAEConfig(**cfg), device="cpu").device == torch.device("cpu")
+
+
+def test_mmvaeplus_default_device_raises_without_cuda(monkeypatch):
+    from multivae_tpu_torch.models import MMVAEPlus, MMVAEPlusConfig
+    from multivae_tpu_torch.tools import workloads
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = dict(n_modalities=1, latent_dim=2, modalities_specific_dim=2,
+               input_dims={"a": (3,)})
+    with pytest.raises(RuntimeError, match="cuda"):
+        MMVAEPlus(MMVAEPlusConfig(**cfg))
+    with pytest.raises(RuntimeError, match="cuda"):
+        workloads.build("mmvaeplus_k10", n=8)
+    assert MMVAEPlus(MMVAEPlusConfig(**cfg), device="cpu").device == torch.device("cpu")

@@ -334,12 +334,144 @@ def test_default_nets_are_seeded_and_forward_runs():
     assert out.loss_sum is out.loss
 
 
-def test_inference_methods_not_yet_ported_raise():
+def test_inference_methods_run_like_jax():
+    """The inference methods run where the JAX package runs them."""
     model = MMVAE(MMVAEConfig(**_config_kwargs("laplace_with_softmax",
                                                "dreg_looser")), device="cpu")
     data, _, _ = _batch_arrays()
-    for call in (lambda: model.encode(data), lambda: model.predict(data),
-                 lambda: model.generate_from_prior(2),
-                 lambda: model.compute_joint_nll(data, K=2)):
-        with pytest.raises(NotImplementedError):
-            call()
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        assert model.encode(data, generator=gen).z.shape == (B, LATENT)
+        assert model.predict(data, cond_mod="m0", generator=gen)["m1"].shape == (B, 6)
+        assert model.generate_from_prior(2, generator=gen).z.shape == (2, LATENT)
+    assert model.compute_joint_nll(data, K=2, generator=gen).shape == ()
+
+
+def test_inference_methods_not_yet_ported_raise():
+    """What the JAX package has not implemented raises in the port too (the
+    joint NLL of incomplete data), as does what it refuses (an incomplete
+    or unknown conditioning subset)."""
+    model = MMVAE(MMVAEConfig(**_config_kwargs("laplace_with_softmax",
+                                               "dreg_looser")), device="cpu")
+    data, masks, _ = _batch_arrays()
+    with pytest.raises(AttributeError, match="not yet implemented for incomplete"):
+        model.compute_joint_nll(_Masked(data, masks), K=2)
+    with pytest.raises(AttributeError, match="incomplete dataset"):
+        model.encode(_Masked(data, masks), cond_mod="m1")
+    with pytest.raises(AttributeError, match="neither"):
+        model.encode(data, cond_mod="m9")
+
+
+class _Masked:
+    """A dataset-like input with masks (``encode`` checks them)."""
+
+    def __init__(self, data, masks):
+        self.data, self.masks = data, masks
+
+
+# Inference: latent samples and decoder outputs are elementwise functions of
+# the same noise (a few ulps of O(1)); the NLLs are sums like the losses.
+VALUE_TOL = dict(rtol=1e-5, atol=1e-5)
+EPS = float(jnp.finfo(jnp.float32).eps)
+
+
+class _JaxDraws:
+    """``draw_noise`` / ``draw_expert`` hooks returning the JAX package's
+    draws: the Laplace noise ``uniform(key, shape, -0.5 + eps, 0.5)`` of
+    each key in ``keys`` in turn, and the expert index ``randint(key, (), 0,
+    n)`` of ``expert_key``."""
+
+    def __init__(self, keys, expert_key=None):
+        self.keys, self.expert_key, self.shapes = list(keys), expert_key, []
+
+    def noise(self, shape, generator=None):
+        self.shapes.append(tuple(shape))
+        key = self.keys.pop(0)
+        return torch.tensor(np.asarray(
+            jax.random.uniform(key, tuple(shape), jnp.float32, -0.5 + EPS, 0.5)))
+
+    def expert(self, n, generator=None):
+        return int(jax.random.randint(self.expert_key, (), 0, n))
+
+    def install(self, model):
+        model.draw_noise, model.draw_expert = self.noise, self.expert
+        return self
+
+
+def _chain(key, n):
+    """The keys ``lax.scan`` hands out: the carry split once per chunk."""
+    subs = []
+    for _ in range(n):
+        key, sub = jax.random.split(key)
+        subs.append(sub)
+    return subs
+
+
+def test_encode_predict_generate_match_jax():
+    jmodel = _jax_model()
+    tmodel = _port_model(jmodel)
+    data, _, _ = _batch_arrays(seed=5)
+    key = jax.random.key(6)
+    _, choice, sample = jax.random.split(key, 3)
+    cond = ["m0", "m2"]
+    with torch.no_grad():
+        for N, flatten, mean, shape in ((3, True, False, (3 * B, LATENT)),
+                                        (3, False, False, (3, B, LATENT)),
+                                        (1, False, False, (B, LATENT)),
+                                        (2, False, True, (2, B, LATENT))):
+            ref = jmodel.encode(data, cond_mod=cond, N=N, flatten=flatten,
+                                return_mean=mean, rng=key)
+            draws = _JaxDraws([sample], choice).install(tmodel)
+            out = tmodel.encode(data, cond_mod=cond, N=N, flatten=flatten,
+                                return_mean=mean)
+            assert out.z.shape == shape == ref.z.shape and out.one_latent_space
+            assert draws.keys == ([sample] if mean else [])
+            np.testing.assert_allclose(out.z.numpy(), np.asarray(ref.z), **VALUE_TOL)
+
+        ref = jmodel.predict(data, cond_mod=cond, gen_mod="all", N=3, rng=key)
+        _JaxDraws([sample], choice).install(tmodel)
+        out = tmodel.predict(data, cond_mod=cond, gen_mod="all", N=3)
+        for m, d in DIMS.items():
+            assert out[m].shape == (3, B, *d) == ref[m].shape
+            np.testing.assert_allclose(out[m].numpy(), np.asarray(ref[m]), **VALUE_TOL)
+
+        for n_samples, shape in ((5, (5, LATENT)), (1, (LATENT,))):
+            ref = jmodel.generate_from_prior(n_samples, rng=key)
+            _JaxDraws([key]).install(tmodel)
+            out = tmodel.generate_from_prior(n_samples)
+            assert out.z.shape == shape == ref.z.shape and out.one_latent_space
+            np.testing.assert_allclose(out.z.numpy(), np.asarray(ref.z), **VALUE_TOL)
+            rec, jrec = tmodel.decode(out, "m2"), jmodel.decode(ref, "m2")
+            np.testing.assert_allclose(rec["m2"].numpy(), np.asarray(jrec["m2"]),
+                                       **VALUE_TOL)
+
+
+def test_joint_nll_matches_jax():
+    jmodel = _jax_model()
+    tmodel = _port_model(jmodel)
+    data, _, _ = _batch_arrays(seed=7)
+    key = jax.random.key(8)
+    K, chunk = 7, 3                       # chunks of 3, 3 and a remainder of 1
+    ref = float(jmodel.compute_joint_nll(data, K=K, batch_size_K=chunk, rng=key))
+    rest, choice = jax.random.split(key)
+    draws = _JaxDraws(_chain(rest, 3), choice).install(tmodel)
+    out = tmodel.compute_joint_nll(data, K=K, batch_size_K=chunk)
+    assert draws.shapes == [(3, B, LATENT), (3, B, LATENT), (1, B, LATENT)]
+    assert out.shape == () and not out.requires_grad
+    np.testing.assert_allclose(out.item(), ref, **LOSS_TOL)
+
+
+def test_joint_nll_paper_matches_jax():
+    jmodel = _jax_model()
+    tmodel = _port_model(jmodel)
+    data, _, _ = _batch_arrays(seed=9)
+    key = jax.random.key(10)
+    K, chunk = 5, 2                       # chunks of 2, 2 and 1
+    ref = np.asarray(jmodel.compute_joint_nll_paper(data, K=K, batch_size_K=chunk,
+                                                    rng=key))
+    keys = [k for sub in _chain(key, 3) for k in jax.random.split(sub, len(DIMS))]
+    draws = _JaxDraws(keys).install(tmodel)
+    out = tmodel.compute_joint_nll_paper(data, K=K, batch_size_K=chunk)
+    assert draws.shapes == [(n, B, LATENT) for n in (2, 2, 1) for _ in DIMS]
+    assert out.shape == (B,) == ref.shape
+    np.testing.assert_allclose(out.numpy(), ref, **LOSS_TOL)

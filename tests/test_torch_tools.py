@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from multivae_tpu_torch.nn import mmnist
 from multivae_tpu_torch.tools import profile_mmvae, workloads
 
 CUDA, CPU = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
@@ -51,8 +52,9 @@ def test_device_times_leave_out_annotations_and_host_events():
 def test_workloads_have_the_published_widths(name):
     w = workloads.build(name, n=8, n_eval=4, device="cpu")
     model = w.model
-    assert model.latent_dim == 512
-    assert w.trainer_kwargs["per_device_train_batch_size"] == 256
+    plus = name.startswith("mmvaeplus")
+    assert model.latent_dim == (32 if plus else 512)
+    assert w.trainer_kwargs["per_device_train_batch_size"] == (32 if plus else 256)
     assert w.trainer_kwargs["learning_rate"] == 1e-3
     dims = {k: tuple(v) for k, v in model.input_dims.items()}
     if name == "mvtcae_mlp":
@@ -64,11 +66,31 @@ def test_workloads_have_the_published_widths(name):
     if name == "mmvae":
         assert model.K == 10 and w.eval is None
         return
-    assert (model.alpha, model.beta) == (5.0 / 6.0, 2.5)
     assert model.model_config.decoder_dist_params["m0"] == {"scale": 0.75}
+    assert len(w.eval) == 4
+    if plus:
+        cfg = model.model_config
+        assert (model.modalities_specific_dim, model.beta) == (32, 2.5)
+        assert isinstance(model.encoders["m0"], mmnist.EncoderResnetMMNIST)
+        assert model.decoders["m0"].dense[0].in_features == 64
+        assert model.decoders["m0"].blocks[-1].conv[0].in_channels == 64   # nf
+        assert (cfg.learn_modality_prior, cfg.learn_shared_prior) == (True, False)
+        if name == "mmvaeplus_k10":
+            assert (model.K, model.objective, cfg.use_remat) == (10, "iwae_looser", True)
+            assert w.trainer_kwargs["optimizer_params"] == {"amsgrad": True}
+            assert not hasattr(w.train, "masks")
+        else:
+            assert (model.K, model.objective) == (1, "dreg_looser")
+            assert hasattr(w.train, "masks") and hasattr(w.eval, "masks")
+        return
+    if name == "mmvae_conv":
+        assert (model.K, model.learn_prior, model.objective) == (10, False, "dreg_looser")
+        assert isinstance(model.decoders["m0"], mmnist.DecoderConvMMNIST)
+    else:
+        assert (model.alpha, model.beta) == (5.0 / 6.0, 2.5)
     assert w.trainer_kwargs["scheduler_cls"] == "ReduceLROnPlateau"
     assert w.trainer_kwargs["scheduler_params"] == {"patience": 30}
-    assert len(w.eval) == 4 and not hasattr(w.eval, "masks")
+    assert not hasattr(w.eval, "masks")
 
 
 def test_conv_workload_is_incomplete_with_dead_rows():
@@ -83,3 +105,20 @@ def test_conv_workload_is_incomplete_with_dead_rows():
     again = workloads.build("mvtcae_conv", n=8, n_eval=0, device="cpu")
     for (k, p), q in zip(w.model.state_dict().items(), again.model.state_dict().values()):
         assert torch.equal(p, q), k
+
+
+def test_moe_workloads_share_the_partial_protocol():
+    """mmvae_conv trains on mvtcae_conv's incomplete data and nets (same
+    seeded weights); mmvaeplus_partial's eval split is cut from its own
+    incomplete rows."""
+    conv = workloads.build("mvtcae_conv", n=64, n_eval=8, device="cpu")
+    moe = workloads.build("mmvae_conv", n=64, n_eval=8, device="cpu")
+    for m in conv.train.data:
+        assert np.array_equal(conv.train.data[m], moe.train.data[m])
+        assert np.array_equal(conv.train.masks[m], moe.train.masks[m])
+    for k, v in conv.model.encoders.state_dict().items():
+        assert torch.equal(moe.model.encoders.state_dict()[k], v), k
+    plus = workloads.build("mmvaeplus_partial", n=1024, device="cpu")
+    assert (len(plus.train), len(plus.eval)) == (1024, 102)
+    avail = np.stack([plus.train.masks[m] for m in plus.train.data])
+    assert 0.15 < 1 - avail.mean() < 0.25 and not avail[:, 5].any()
