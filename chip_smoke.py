@@ -57,28 +57,38 @@ Phases (any failure exits non-zero and prints no result line):
    incomplete conditioning subset; the K=1000 joint NLL (``bench.py``'s
    ``bench_nll_jax`` setting: 512 complete rows, ``batch_size_K=100``, on
    the MLP model; 256 rows on the conv model), wall seconds as the median
-   of 3 after a warm-up; the joint NLL of 8 rows with K=20 and injected
-   noise, card vs CPU; no mixture kernel may launch;
+   of 3 after a warm-up, and its peak memory; the joint NLL of 8 rows with
+   K=20 and injected noise, card vs CPU; no mixture kernel may launch;
 8. the mixture-of-experts workloads of ``tools/workloads.py``, each trained
    by ``BaseTrainer.train()`` for 2 epochs: ``mmvae_conv`` (MMVAE on the
    partial-PolyMNIST conv protocol, 1024 incomplete rows, DReG),
    ``mmvaeplus_partial`` (MMVAE+ with the resnet nets, K=1, DReG, 1024
-   incomplete rows) and ``mmvaeplus_k10`` (K=10, IWAE, AMSGrad, 512
-   rows); every epoch loss must be finite, the mixture kernels must launch
+   incomplete rows), ``mmvaeplus_k10`` (K=10, IWAE, AMSGrad, 512 rows) and
+   ``cmvae_polymnist`` (CMVAE, 40 clusters, K=1, IWAE, AMSGrad, 256 rows);
+   every epoch loss must be finite, the mixture kernels must launch
    exactly as the objective says on every train and eval step (DReG: two
    forwards and one dz-only backward a step; IWAE: one forward and one full
    backward; eval: the forwards), and the trained model's loss on 8 rows
    must agree between the card and the CPU on the same noise;
-9. ``moe_inference`` on the trained ``mmvae_conv`` and ``mmvaeplus_k10``:
-   encode (N=10, with the private codes for MMVAE+), predict,
-   generate_from_prior(64) + decode, the refusal to encode an incomplete
-   subset; K=1000 joint NLL wall seconds (median of 3 after a warm-up):
-   MMVAE's ``compute_joint_nll`` on 256 rows and ``compute_joint_nll_paper``
-   on 64, MMVAE+'s ``compute_joint_nll`` on 32; the forward kernel's
-   launches per call on the paths that run it; each NLL of 8 rows with K=20
-   card vs CPU;
-10. a ``kernels`` JSON line (launches summed over every training and
-    inference phase), then the last line
+9. ``moe_inference`` on the trained ``mmvae_conv``, ``mmvaeplus_k10`` and
+   ``cmvae_polymnist``: encode (N=10, with the private codes for MMVAE+ and
+   CMVAE), predict, generate_from_prior(64) + decode, the refusal to encode
+   an incomplete subset; K=1000 joint NLL wall seconds (median of 3 after a
+   warm-up) and peak memory: MMVAE's ``compute_joint_nll`` on 256 rows and
+   ``compute_joint_nll_paper`` on 64, MMVAE+'s and CMVAE's
+   ``compute_joint_nll`` on 32; the forward kernel's launches per call on
+   the paths that run it; each NLL of 8 rows with K=20 card vs CPU; CMVAE's
+   ``predict_clusters`` and ``prune_clusters`` on 256 rows;
+10. the PoE-family workloads, each trained 16 steps: ``mvae_conv`` (MVAE on
+    the conv protocol, complete data, 6 subset ELBOs a step),
+    ``mopoe_conv`` (MoPoE, 20% missing, a subset drawn per row) and
+    ``crmvae_resnet`` (CRMVAE, the resnet nets, latent 512); finite losses,
+    the 8-row loss card vs CPU, no mixture launch; then ``poe_inference``:
+    the same inference checks, K=1000 NLL seconds and peak memory (MVAE and
+    MoPoE on 256 rows, MoPoE's paper form too, CRMVAE on 64), 8-row K=20
+    NLLs card vs CPU;
+11. a ``kernels`` JSON line (launches summed over every training and
+    inference phase that runs the kernels), then the last line
     ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -148,6 +158,8 @@ CHECK_SHAPES = (SLICE_SHAPE, RAGGED_SHAPE, ODD_D_SHAPE, MANY_EXPERTS_SHAPE,
                 *EXPERT_SHAPES, *LONG_ROW_SHAPES, *PLUS_SHAPES, *NLL_SHAPES,
                 *WIDE_SHAPES)
 KERNELS = ("fwd", "bwd", "bwd_dz")
+# the joint NLLs' importance samples and chunk (the reference's K=1000)
+NLL_K, NLL_CHUNK = 1000, 100
 
 
 class SmokeFailure(Exception):
@@ -397,8 +409,8 @@ def slice_run(mx, n_mods=5, shape=(3, 28, 28), n=2048, latent_dim=512, K=10,
 @contextlib.contextmanager
 def injected_noise(model, draws, dtype=torch.float32):
     """Make ``model.draw_noise`` return ``draws`` in order (on the model's
-    device, in ``dtype``), checking each shape, and ``model.draw_expert``
-    always return the last expert."""
+    device, in ``dtype``), checking each shape, and the model's other draw
+    hooks return fixed choices."""
     queue = list(draws)
 
     def draw(shape, generator=None):
@@ -406,7 +418,14 @@ def injected_noise(model, draws, dtype=torch.float32):
         check(tuple(u.shape) == tuple(shape), f"noise {tuple(u.shape)} != {shape}")
         return u.to(model.device, dtype)
 
-    hooks = {"draw_noise": draw, "draw_expert": lambda n, generator=None: n - 1}
+    # the other random choices, made the same on both sides: the last
+    # expert, the most likely subset of each row (MoPoE), the first
+    # candidate subsets (MVAE) and clusters in turn (CMVAE)
+    hooks = {"draw_noise": draw, "draw_expert": lambda n, generator=None: n - 1,
+             "draw_components": lambda logits, generator=None: logits.argmax(-1),
+             "draw_subsets": lambda n, k, generator=None: torch.arange(k, device=model.device),
+             "draw_clusters": lambda logits, n, generator=None: (
+                 torch.arange(n, device=model.device) % logits.shape[-1])}
     for k, v in hooks.items():
         setattr(model, k, v)
     try:
@@ -490,6 +509,7 @@ def workload_run(mx, name, n=2048, epochs=2, device="cuda", per_step=None):
     trainer.optimizer.register_step_post_hook(on_step)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()   # earlier phases' models, this model
     mx.reset_launches()
     t0 = time.perf_counter()
     trainer.train()
@@ -498,11 +518,10 @@ def workload_run(mx, name, n=2048, epochs=2, device="cuda", per_step=None):
     launches = dict(mx.launches)
 
     losses = [h["train_epoch_loss"] for h in trainer.history]
-    expected_steps = epochs * -(-n // w.trainer_kwargs["per_device_train_batch_size"])
+    expected_steps = epochs * len(trainer.train_loader)
     check(len(step_ends) == expected_steps,
           f"expected {expected_steps} steps, ran {len(step_ends)}")
-    eval_steps = 0 if w.eval is None else epochs * -(
-        -len(w.eval) // w.trainer_kwargs["per_device_eval_batch_size"])
+    eval_steps = 0 if w.eval is None else epochs * len(trainer.eval_loader)
     expected = {k: per_step.get(k, 0) * expected_steps for k in KERNELS}
     expected["fwd"] += per_step.get("fwd", 0) * eval_steps
     check(launches == expected, f"{name}: expected {expected} launches, got {launches}")
@@ -513,8 +532,9 @@ def workload_run(mx, name, n=2048, epochs=2, device="cuda", per_step=None):
             if ea == eb]
     record = {"phase": name, "steps": len(step_ends), "eval_steps": eval_steps,
               "epoch_losses": losses, "steps_per_s": len(gaps) / (sum(gaps) / 1e3),
-              "peak_mem_bytes": torch.cuda.max_memory_allocated(), "wall_s": wall_s,
-              "launches": launches}
+              "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+              "peak_above_held_bytes": torch.cuda.max_memory_allocated() - held,
+              "wall_s": wall_s, "launches": launches}
     if w.eval is not None:
         record["eval_losses"] = [h["eval_epoch_loss"] for h in trainer.history]
         record["lr"] = trainer.optimizer.param_groups[0]["lr"]
@@ -527,60 +547,6 @@ def workload_run(mx, name, n=2048, epochs=2, device="cuda", per_step=None):
     loss = card_vs_cpu(w.model, small_loss, recorded_draws(w.model, small_loss, 1))
     record.update({f"small_loss_{k}": v for k, v in loss.items()})
     return record, w, launches
-
-
-def mvtcae_inference(mx, workloads_by_name, nll_rows=(512, 256), K=1000,
-                     batch_size_K=100, repeats=3):
-    """encode / predict / generate / refusal / joint NLL on trained models."""
-    from multivae_tpu_torch.data import IncompleteDataset, MultimodalBaseDataset
-
-    mx.reset_launches()
-    record = {"phase": "mvtcae_inference", "K": K, "batch_size_K": batch_size_K}
-    for (name, w), n_nll in zip(workloads_by_name.items(), nll_rows):
-        model, dims = w.model, w.model.input_dims
-        complete = w.eval if w.eval is not None else w.train
-        rows = complete.get_batch(np.arange(min(256, len(complete))))
-        n, cond = len(rows["data"]["m0"]), ["m0", "m1"]
-        with torch.no_grad():
-            z = model.encode(rows, cond_mod=cond, N=10, flatten=True).z
-            check(z.shape == (10 * n, model.latent_dim), f"{name} encode {z.shape}")
-            pred = model.predict(rows, cond_mod=cond, gen_mod="all", N=10)
-            prior = model.decode(model.generate_from_prior(64))
-            for m, d in dims.items():
-                check(pred[m].shape == (10, n, *d), f"{name} predict {m} {pred[m].shape}")
-                check(prior[m].shape == (64, *d), f"{name} prior {m} {prior[m].shape}")
-            check(all(bool(torch.isfinite(t).all()) for t in
-                      [z, *pred.values(), *prior.values()]), f"{name}: non-finite")
-        masks = {m: np.ones(n, bool) for m in dims}
-        masks["m0"][0] = False
-        try:
-            model.encode(IncompleteDataset(rows["data"], masks), cond_mod="m0")
-            check(False, f"{name}: encode accepted an incomplete subset")
-        except AttributeError:
-            pass
-
-        nll_set = MultimodalBaseDataset(complete.get_batch(np.arange(n_nll))["data"])
-        times = []
-        for i in range(repeats + 1):   # the first call is the warm-up
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            nll = model.compute_joint_nll(nll_set, K=K, batch_size_K=batch_size_K)
-            nll = nll.item()
-            times.append(time.perf_counter() - t0)
-            check(np.isfinite(nll), f"{name}: joint NLL {nll}")
-        record[name] = {"nll_rows": n_nll, "joint_nll": nll,
-                        "joint_nll_s": float(np.median(times[1:])),
-                        "joint_nll_warmup_s": times[0]}
-        # 8 rows, K=20 in chunks of 8, 8 and 4, the same noise on both sides
-        gen = torch.Generator().manual_seed(2)
-        draws = [torch.randn((k, 8, model.latent_dim), generator=gen) for k in (8, 8, 4)]
-        eight = MultimodalBaseDataset(complete.get_batch(np.arange(8))["data"])
-        record[name].update({f"small_nll_{k}": v for k, v in card_vs_cpu(
-            model, lambda net, dtype: net.compute_joint_nll(
-                rows_batch(eight, np.arange(8), dtype), K=20, batch_size_K=8),
-            draws).items()})
-    check(not any(mx.launches.values()), f"MVTCAE inference launched {mx.launches}")
-    return record
 
 
 def timed(fn, repeats):
@@ -597,79 +563,139 @@ def timed(fn, repeats):
     return value, float(np.median(times[1:])), times[0]
 
 
-def moe_inference(mx, trained, K=1000, batch_size_K=100, repeats=3,
-                  nll_rows=(256, 64, 32)):
-    """encode / predict / generate / refusal and the K-sample joint NLLs of
-    the trained ``mmvae_conv`` (``compute_joint_nll`` on ``nll_rows[0]``
-    rows, ``compute_joint_nll_paper`` on ``nll_rows[1]``) and
-    ``mmvaeplus_k10`` (``compute_joint_nll`` on ``nll_rows[2]``); returns
-    (the JSON record, the mixture launches of the NLL calls)."""
-    from multivae_tpu_torch.data import IncompleteDataset, MultimodalBaseDataset
+def inference_surface(name, model, rows):
+    """encode (N=10, flatten; the private codes too), predict (N=10),
+    generate_from_prior(64) + decode, all finite and of the right shapes,
+    and the refusal to encode a subset missing in a row."""
+    from multivae_tpu_torch.data import IncompleteDataset
 
-    record = {"phase": "moe_inference", "K": K, "batch_size_K": batch_size_K}
+    dims = model.input_dims
+    n, cond = len(rows["data"]["m0"]), ["m0", "m1"]
+    with torch.no_grad():
+        enc = model.encode(rows, cond_mod=cond, N=10, flatten=True)
+        check(enc.z.shape == (10 * n, model.latent_dim), f"{name} encode {enc.z.shape}")
+        outputs = [enc.z]
+        if model.multiple_latent_spaces:
+            for m in dims:
+                check(enc.modalities_z[m].shape == (10 * n, model.style_dims[m]),
+                      f"{name} encode private {m}")
+            outputs += list(enc.modalities_z.values())
+        pred = model.predict(rows, cond_mod=cond, gen_mod="all", N=10)
+        prior = model.generate_from_prior(64)
+        # MMVAE+ samples the full (shared, private) code from its prior
+        width = model.latent_dim + (model.modalities_specific_dim
+                                    if model.model_name == "MMVAEPlus" else 0)
+        check(prior.z.shape == (64, width), f"{name} prior {prior.z.shape}")
+        decoded = model.decode(prior)
+        for m, d in dims.items():
+            check(pred[m].shape == (10, n, *d), f"{name} predict {m} {pred[m].shape}")
+            check(decoded[m].shape == (64, *d), f"{name} prior {m} {decoded[m].shape}")
+        check(all(bool(torch.isfinite(t).all()) for t in
+                  [*outputs, *pred.values(), *decoded.values()]), f"{name}: non-finite")
+    masks = {m: np.ones(n, bool) for m in dims}
+    masks["m0"][0] = False
+    try:
+        model.encode(IncompleteDataset(rows["data"], masks), cond_mod="m0")
+        check(False, f"{name}: encode accepted an incomplete subset")
+    except AttributeError:
+        pass
+
+
+def nll_phase(mx, name, model, complete, method, n_rows, per_call, K, batch_size_K,
+              repeats):
+    """Time ``model.compute_<method>`` on ``n_rows`` rows of ``complete``
+    (median of ``repeats`` after a warm-up), with its peak device memory;
+    the mixture forward must launch ``per_call`` times a call and nothing
+    else; then the same estimator on 8 rows with K=20, card vs CPU on the
+    same noise. Returns (the record, the launches)."""
+    from multivae_tpu_torch.data import MultimodalBaseDataset
+
+    fn = getattr(model, f"compute_{method}")
+    data = MultimodalBaseDataset(complete.get_batch(np.arange(n_rows))["data"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    mx.reset_launches()
+    value, seconds, warmup = timed(lambda: fn(data, K=K, batch_size_K=batch_size_K),
+                                   repeats)
+    launches = dict(mx.launches)
+    peak = torch.cuda.max_memory_allocated()
+    expected = {"fwd": (repeats + 1) * per_call, "bwd": 0, "bwd_dz": 0}
+    check(launches == expected, f"{name} {method}: expected {expected}, got {launches}")
+    # 8 rows, K=20, the same noise (and choices) on both sides
+    eight = MultimodalBaseDataset(complete.get_batch(np.arange(8))["data"])
+
+    def small(net, dtype):
+        return getattr(net, f"compute_{method}")(rows_batch(eight, np.arange(8), dtype),
+                                                  K=20, batch_size_K=8).sum()
+
+    return {"rows": n_rows, "nll": value, "seconds": seconds, "warmup_s": warmup,
+            "peak_mem_bytes": peak, "peak_above_held_bytes": peak - held,
+            "fwd_launches_per_call": per_call,
+            **{f"small_{k}": v for k, v in card_vs_cpu(
+                model, small, recorded_draws(model, small, 2)).items()}}, launches
+
+
+def inference_phase(mx, phase, trained, nll_plan, K=None, batch_size_K=None, repeats=3,
+                    cluster_rows=256):
+    """On each trained workload: the inference surface (no mixture launch),
+    then each joint NLL of ``nll_plan[name]``, a list of (estimator, rows,
+    forward launches per call), timed with its peak memory and checked card
+    vs CPU on 8 rows (``nll_phase``); CMVAE's cluster calls on
+    ``cluster_rows`` rows. Returns (the JSON record, the mixture launches
+    of the NLL calls)."""
+    from multivae_tpu_torch.data import MultimodalBaseDataset
+
+    K, batch_size_K = K or NLL_K, batch_size_K or NLL_CHUNK
+    record = {"phase": phase, "K": K, "batch_size_K": batch_size_K}
     total = {k: 0 for k in KERNELS}
     for name, w in trained.items():
-        model, dims = w.model, w.model.input_dims
-        plus = name.startswith("mmvaeplus")
-        rows = w.eval.get_batch(np.arange(min(256, len(w.eval))))
-        n, cond = len(rows["data"]["m0"]), ["m0", "m1"]
-        with torch.no_grad():
-            enc = model.encode(rows, cond_mod=cond, N=10, flatten=True)
-            check(enc.z.shape == (10 * n, model.latent_dim), f"{name} encode {enc.z.shape}")
-            outputs = [enc.z]
-            if plus:
-                for m in dims:
-                    check(enc.modalities_z[m].shape == (10 * n, model.modalities_specific_dim),
-                          f"{name} encode private {m}")
-                outputs += list(enc.modalities_z.values())
-            pred = model.predict(rows, cond_mod=cond, gen_mod="all", N=10)
-            prior = model.generate_from_prior(64)
-            width = model.latent_dim + (model.modalities_specific_dim if plus else 0)
-            check(prior.z.shape == (64, width), f"{name} prior {prior.z.shape}")
-            decoded = model.decode(prior)
-            for m, d in dims.items():
-                check(pred[m].shape == (10, n, *d), f"{name} predict {m} {pred[m].shape}")
-                check(decoded[m].shape == (64, *d), f"{name} prior {m} {decoded[m].shape}")
-            check(all(bool(torch.isfinite(t).all()) for t in
-                      [*outputs, *pred.values(), *decoded.values()]), f"{name}: non-finite")
-        masks = {m: np.ones(n, bool) for m in dims}
-        masks["m0"][0] = False
-        try:
-            model.encode(IncompleteDataset(rows["data"], masks), cond_mod="m0")
-            check(False, f"{name}: encode accepted an incomplete subset")
-        except AttributeError:
-            pass
-
-        # (estimator, rows, K, batch_size_K, forward launches per call)
-        k_plus = K // model.n_modalities
-        nlls = ([("joint_nll_paper", nll_rows[1], -(-K // batch_size_K))] if not plus else [])
-        nlls.insert(0, ("joint_nll", nll_rows[2] if plus else nll_rows[0],
-                        -(-k_plus // batch_size_K) if plus else 0))
+        model = w.model
+        complete = w.eval if w.eval is not None else w.train
+        mx.reset_launches()
+        inference_surface(name, model, complete.get_batch(np.arange(min(256, len(complete)))))
+        check(not any(mx.launches.values()), f"{name} encode/predict launched {mx.launches}")
         record[name] = {}
-        for method, n_rows, per_call in nlls:
-            fn = getattr(model, f"compute_{method}")
-            data = MultimodalBaseDataset(w.eval.get_batch(np.arange(n_rows))["data"])
-            mx.reset_launches()
-            value, seconds, warmup = timed(
-                lambda: fn(data, K=K, batch_size_K=batch_size_K), repeats)
-            launches = dict(mx.launches)
-            expected = {"fwd": (repeats + 1) * per_call, "bwd": 0, "bwd_dz": 0}
-            check(launches == expected, f"{name} {method}: expected {expected}, "
-                  f"got {launches}")
+        for method, n_rows, per_call in nll_plan[name]:
+            record[name][method], launches = nll_phase(
+                mx, name, model, complete, method, n_rows, per_call, K, batch_size_K,
+                repeats)
             total = {k: total[k] + launches[k] for k in KERNELS}
-            # 8 rows, K=20, the same noise (and expert) on both sides
-            eight = MultimodalBaseDataset(w.eval.get_batch(np.arange(8))["data"])
-
-            def small(net, dtype, fn_name=f"compute_{method}"):
-                return getattr(net, fn_name)(rows_batch(eight, np.arange(8), dtype),
-                                             K=20, batch_size_K=8).sum()
-
-            record[name][method] = {
-                "rows": n_rows, "nll": value, "seconds": seconds, "warmup_s": warmup,
-                "fwd_launches_per_call": per_call,
-                **{f"small_{k}": v for k, v in card_vs_cpu(
-                    model, small, recorded_draws(model, small, 2)).items()}}
+        if name.startswith("cmvae"):
+            record[name].update(cluster_phase(mx, model, MultimodalBaseDataset(
+                complete.get_batch(np.arange(cluster_rows))["data"])))
     return record, total
+
+
+def cluster_phase(mx, model, data):
+    """CMVAE's ``predict_clusters`` and ``prune_clusters`` (batches of 128)
+    on ``data``: valid clusters, posteriors that sum to 1, a kept count in
+    [2, C] with -inf on exactly the removed clusters, no mixture launch."""
+    C = model.model_config.number_of_clusters
+    mx.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred = model.predict_clusters(data.get_batch(np.arange(len(data))), compute_lliks=True)
+    clusters = pred.clusters.cpu().numpy()
+    predict_s = time.perf_counter() - t0
+    check(clusters.shape == (len(data),) and ((0 <= clusters) & (clusters < C)).all(),
+          f"predict_clusters gave {clusters}")
+    for m, pc_z in pred.pc_zs.items():
+        check(bool(torch.allclose(pc_z.sum(0), torch.ones_like(pc_z[0]), atol=1e-5)),
+              f"q(c|z) of {m} does not sum to 1")
+    check(bool(torch.isfinite(pred.norm_lliks).all()), "norm_lliks not finite")
+    t0 = time.perf_counter()
+    entropies = model.prune_clusters(data, batch_size=128)
+    prune_s = time.perf_counter() - t0
+    pc = model.pc_params.detach().cpu().numpy()
+    check(2 <= model.n_clusters <= C and np.isinf(pc).sum() == C - model.n_clusters,
+          f"prune_clusters kept {model.n_clusters}, pc_params {pc}")
+    check(not any(mx.launches.values()), f"cluster calls launched {mx.launches}")
+    return {"predict_clusters": {"rows": len(data), "seconds": predict_s,
+                                 "n_distinct": int(len(np.unique(clusters)))},
+            "prune_clusters": {"rows": len(data), "seconds": prune_s,
+                               "n_clusters": model.n_clusters,
+                               "entropy_kept": entropies[model.n_clusters]}}
 
 
 def main():
@@ -754,20 +780,39 @@ def main():
         for name in ("mvtcae_mlp", "mvtcae_conv"):
             record, trained[name], _ = workload_run(mx, name)
             print(json.dumps(record))
-        print(json.dumps(mvtcae_inference(mx, trained)))
+        print(json.dumps(inference_phase(mx, "mvtcae_inference", trained, {
+            "mvtcae_mlp": [("joint_nll", 512, 0)],
+            "mvtcae_conv": [("joint_nll", 256, 0)]})[0]))
 
         moe = {}
         dreg, iwae_step = {"fwd": 2, "bwd_dz": 1}, {"fwd": 1, "bwd": 1}
         for name, n, per_step in (("mmvae_conv", 1024, dreg),
                                   ("mmvaeplus_partial", 1024, dreg),
-                                  ("mmvaeplus_k10", 512, iwae_step)):
+                                  ("mmvaeplus_k10", 512, iwae_step),
+                                  ("cmvae_polymnist", 256, iwae_step)):
             record, moe[name], counts = workload_run(mx, name, n=n, per_step=per_step)
             print(json.dumps(record))
             add(counts)
         del moe["mmvaeplus_partial"]
-        record, counts = moe_inference(mx, moe)
+        # MMVAE+ and CMVAE evaluate the mixture once a chunk of K // M samples
+        # of every expert, MMVAE's paper estimator once a chunk of K
+        per_expert_chunks = -(-(NLL_K // 5) // NLL_CHUNK)
+        record, counts = inference_phase(mx, "moe_inference", moe, {
+            "mmvae_conv": [("joint_nll", 256, 0),
+                           ("joint_nll_paper", 64, -(-NLL_K // NLL_CHUNK))],
+            "mmvaeplus_k10": [("joint_nll", 32, per_expert_chunks)],
+            "cmvae_polymnist": [("joint_nll", 32, per_expert_chunks)]})
         print(json.dumps(record))
         add(counts)
+
+        poe = {}
+        for name in ("mvae_conv", "mopoe_conv", "crmvae_resnet"):
+            record, poe[name], _ = workload_run(mx, name)
+            print(json.dumps(record))
+        print(json.dumps(inference_phase(mx, "poe_inference", poe, {
+            "mvae_conv": [("joint_nll", 256, 0)],
+            "mopoe_conv": [("joint_nll", 256, 0), ("joint_nll_paper", 256, 0)],
+            "crmvae_resnet": [("joint_nll", 64, 0)]})[0]))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -173,21 +173,20 @@ class MMVAEPlus(BaseMultiVAE):
             out[recon_mod] = self.decode_mod(recon_mod, torch.cat([U, W], -1))
         return out
 
-    def _compute_k_lws(self, batch: MultimodalBatch, posteriors, zs, recons,
-                       detach_posteriors: bool, beta: Optional[float] = None,
-                       unit_rescale: bool = False):
-        """Per-modality (K, B) log importance weights and the per-sample
-        number of available modalities."""
-        beta = self.beta if beta is None else beta
+    def _k_lw_terms(self, batch: MultimodalBatch, posteriors, zs, recons,
+                    detach_posteriors: bool, unit_rescale: bool = False) -> dict:
+        """The terms of the log importance weights that MMVAE+ and CMVAE
+        share, on the stacked (M, K, B) layout: the availability ``mask``
+        (M, B) and ``n_mods_sample`` (B,), the samples ``U`` and ``W``, the
+        mixture density of u ``lqu_x`` (the one mixture call), the private
+        posterior's ``lqw_x`` and the masked reconstruction term ``lpx_z``.
+        ``detach_posteriors`` stops the gradient to the posteriors'
+        parameters in both densities (DReG)."""
         mods = list(posteriors)
         mask = torch.stack([batch.masks[m] for m in mods])  # (M, B)
         n_mods_sample = mask.sum(0).clamp_min(1.0)
-        pz_mu, pz_std = self.pz_params()
-
         U = torch.stack([zs[m]["u"] for m in mods])           # (M, K, B, D)
         W = torch.stack([zs[m]["w"] for m in mods])           # (M, K, B, S)
-        lpz = dist_log_prob(self.dist_name, torch.cat([U, W], -1), pz_mu,
-                            pz_std).sum(-1)
 
         stacked = [torch.stack([posteriors[m][code][i] for m in mods])
                    for code in ("u", "w") for i in (0, 1)]
@@ -207,9 +206,22 @@ class MMVAEPlus(BaseMultiVAE):
             factor = 1.0 if unit_rescale else self.rescale_factors[recon_mod]
             lp = sum_except_batch(lp, 3) * factor
             lpx_z = lpx_z + lp * batch.masks[recon_mod][None, None, :]
+        return {"mask": mask, "n_mods_sample": n_mods_sample, "U": U, "W": W,
+                "lqu_x": lqu_x, "lqw_x": lqw_x, "lpx_z": lpx_z}
 
-        lw = (lpx_z + beta * (lpz - lqu_x - lqw_x)) * mask[:, None, :]
-        return {m: lw[i] for i, m in enumerate(mods)}, n_mods_sample
+    def _compute_k_lws(self, batch: MultimodalBatch, posteriors, zs, recons,
+                       detach_posteriors: bool, beta: Optional[float] = None,
+                       unit_rescale: bool = False):
+        """Per-modality (K, B) log importance weights and the per-sample
+        number of available modalities."""
+        beta = self.beta if beta is None else beta
+        t = self._k_lw_terms(batch, posteriors, zs, recons, detach_posteriors,
+                             unit_rescale)
+        pz_mu, pz_std = self.pz_params()
+        lpz = dist_log_prob(self.dist_name, torch.cat([t["U"], t["W"]], -1), pz_mu,
+                            pz_std).sum(-1)
+        lw = (t["lpx_z"] + beta * (lpz - t["lqu_x"] - t["lqw_x"])) * t["mask"][:, None, :]
+        return {m: lw[i] for i, m in enumerate(posteriors)}, t["n_mods_sample"]
 
     # ----------------------------------------------------------------- loss
     def loss_function(self, batch: MultimodalBatch, step: Optional[StepInfo] = None,
@@ -262,6 +274,15 @@ class MMVAEPlus(BaseMultiVAE):
         pz_mu, pz_std = self.pz_params()
         return pz_mu[:, self.latent_dim:], pz_std[:, self.latent_dim:]
 
+    def _shared_posterior(self, posteriors, cond_mod: tuple, return_mean: bool,
+                          generator: Optional[torch.Generator]):
+        """(mean, std) that ``encode`` samples the shared code from: the
+        mean of the subset's means (std unused) with ``return_mean``, else
+        the posterior of one random conditioning modality."""
+        if return_mean:
+            return torch.stack([posteriors[m]["u"][0] for m in cond_mod]).mean(0), None
+        return posteriors[cond_mod[self.draw_expert(len(cond_mod), generator)]]["u"]
+
     def _encode_subset(self, batch: MultimodalBatch, *, cond_mod: tuple, N: int,
                        return_mean: bool, flatten: bool,
                        generator: Optional[torch.Generator]) -> dict:
@@ -275,11 +296,7 @@ class MMVAEPlus(BaseMultiVAE):
             return dist_rsample(self.dist_name, mu, std, K=N,
                                 u=self.draw_noise(shape, generator))
 
-        if return_mean:
-            z = sample(torch.stack([posteriors[m]["u"][0] for m in cond_mod]).mean(0), None)
-        else:
-            idx = self.draw_expert(len(cond_mod), generator)
-            z = sample(*posteriors[cond_mod[idx]]["u"])
+        z = sample(*self._shared_posterior(posteriors, cond_mod, return_mean, generator))
         style_z = {}
         for m in self.encoders:
             if m in cond_mod:

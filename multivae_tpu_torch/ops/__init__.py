@@ -17,8 +17,11 @@ from .kdist import (
     sample_noise,
 )
 from .mixture import mixture_log_density, mixture_log_density_plain
+from .subsets import all_subsets, all_subsets_mask, subsets_to_mask
 
 __all__ = [
+    "all_subsets",
+    "all_subsets_mask",
     "chunked_logsumexp",
     "dist_log_prob",
     "dist_rsample",
@@ -36,4 +39,5 @@ __all__ = [
     "sample_noise",
     "scale_grad",
     "stable_poe",
+    "subsets_to_mask",
 ]

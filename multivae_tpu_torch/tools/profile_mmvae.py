@@ -3,7 +3,8 @@
 Builds one full-width workload of ``tools/workloads.py`` (``--model``:
 ``mmvae``, the MMVAE of ``chip_smoke.py`` trained with DReG, by default;
 ``mvtcae_mlp``; ``mvtcae_conv``; ``mmvae_conv``; ``mmvaeplus_partial``;
-``mmvaeplus_k10``; each at its own batch, float32 without TF32), trains
+``mmvaeplus_k10``; ``cmvae_polymnist``; ``mvae_conv``; ``mopoe_conv``;
+``crmvae_resnet``; each at its own batch, float32 without TF32), trains
 one warm-up epoch of ``--steps`` steps with ``BaseTrainer``, then profiles
 a second epoch with ``torch.profiler`` and prints:
 

@@ -27,11 +27,28 @@ random data in the real datasets' shapes, made from a seed.
   ``use_remat``, batch 32, Adam with ``amsgrad=True``, on complete data
   with a 10% eval split.
 
-The train sets of ``mvtcae_conv``, ``mmvae_conv`` and
-``mmvaeplus_partial`` are ``IncompleteDataset``s: each (row, modality) is
+- ``cmvae_polymnist``: the paper's CMVAE run (``examples/cmvae_polymnist.py:42-79``):
+  the resnet nets, latent 32 plus private 32, 40 clusters, K=1,
+  ``iwae_looser``, beta 2.5, learned modality priors, Laplace decoders of
+  scale 0.75; batch 32, Adam with ``amsgrad=True``, complete data, no eval
+  set.
+- ``mvae_conv``: MVAE on the partial-PolyMNIST conv protocol
+  (``examples/case_studies/partial_polymnist/mvae.py`` with
+  ``--missing_ratio 0``): ``use_subsampling``, k 0, no warm-up, beta 2.5 on
+  complete data (6 subset ELBOs a step).
+- ``mopoe_conv``: MoPoE on that protocol (``.../mopoe.py``, 20% missing and
+  kept): beta 2.5, a subset drawn per row, ``drop_last``.
+- ``crmvae_resnet``: CRMVAE on Translated PolyMNIST
+  (``examples/crmvae_translated_polymnist.py:37-75``; the data here are
+  random in the 3x28x28 shape): the resnet nets without private branch,
+  latent 512, beta 0.1, Laplace decoders of scale 0.75, no likelihood
+  rescaling; Adam 5e-4, ``drop_last``, a 15% eval split.
+
+The train sets of ``mvtcae_conv``, ``mmvae_conv``, ``mmvaeplus_partial``
+and ``mopoe_conv`` are ``IncompleteDataset``s: each (row, modality) is
 missing with probability 0.2, and a few rows have no modality at all. The
-eval sets of the first two are complete, as PolyMNIST's test set is; the
-MMVAE+ eval split is cut from the same incomplete data.
+eval sets of the conv protocols are complete, as PolyMNIST's test set is;
+the MMVAE+ eval split is cut from the same incomplete data.
 
 All: Adam 1e-3, float32, seed 0; batch 256 unless stated. Only depth is
 cut (rows, epochs).
@@ -46,8 +63,9 @@ import numpy as np
 import torch
 
 NAMES = ("mmvae", "mvtcae_mlp", "mvtcae_conv", "mmvae_conv", "mmvaeplus_partial",
-         "mmvaeplus_k10")
-BATCH = {name: 32 if name.startswith("mmvaeplus") else 256 for name in NAMES}
+         "mmvaeplus_k10", "cmvae_polymnist", "mvae_conv", "mopoe_conv", "crmvae_resnet")
+BATCH = {name: 32 if name.startswith(("mmvaeplus", "cmvae")) else 256 for name in NAMES}
+CLUSTERS = 40   # CMVAE's clusters
 POLYMNIST = (3, 28, 28)
 LATENT = 512
 PLUS_LATENT = 32   # MMVAE+: shared and private latent dims
@@ -68,9 +86,11 @@ def _images(rng, n, dims):
 
 
 def _trainer_kwargs(name, **extra):
-    return dict(per_device_train_batch_size=BATCH[name],
-                per_device_eval_batch_size=BATCH[name], learning_rate=1e-3,
-                optimizer_cls="Adam", **extra)
+    kwargs = dict(per_device_train_batch_size=BATCH[name],
+                  per_device_eval_batch_size=BATCH[name], learning_rate=1e-3,
+                  optimizer_cls="Adam")
+    kwargs.update(extra)
+    return kwargs
 
 
 def _seeded(encoders: dict, decoders: dict):
@@ -100,9 +120,25 @@ def build(name: str, n: int = 2048, n_eval: Optional[int] = None,
           device="cuda") -> Workload:
     """The workload ``name`` (one of ``NAMES``) with ``n`` train rows and
     ``n_eval`` eval rows (default: 512 for the conv protocols, a tenth of
-    ``n`` for MMVAE+, none for the others; 0 for none)."""
+    ``n`` for MMVAE+, 15% of ``n`` for CRMVAE, none for the others; 0 for
+    none)."""
     from ..data import IncompleteDataset, MultimodalBaseDataset
-    from ..models import MMVAE, MMVAEConfig, MMVAEPlus, MMVAEPlusConfig, MVTCAE, MVTCAEConfig
+    from ..models import (
+        CMVAE,
+        CRMVAE,
+        MMVAE,
+        MVAE,
+        MVTCAE,
+        CMVAEConfig,
+        CRMVAEConfig,
+        MMVAEConfig,
+        MMVAEPlus,
+        MMVAEPlusConfig,
+        MoPoE,
+        MoPoEConfig,
+        MVAEConfig,
+        MVTCAEConfig,
+    )
     from ..nn import (
         BaseAEConfig,
         DecoderConvMMNIST,
@@ -160,27 +196,58 @@ def build(name: str, n: int = 2048, n_eval: Optional[int] = None,
                         _trainer_kwargs(name, scheduler_cls="ReduceLROnPlateau",
                                         scheduler_params={"patience": 30}))
 
-    # the partial-PolyMNIST conv protocol: mvtcae_conv, mmvae_conv
+    if name == "cmvae_polymnist":
+        encoders, decoders = _seeded(
+            {m: EncoderResnetMMNIST(PLUS_LATENT, PLUS_LATENT) for m in poly},
+            {m: DecoderResnetMMNIST(2 * PLUS_LATENT) for m in poly})
+        model = CMVAE(CMVAEConfig(
+            n_modalities=5, latent_dim=PLUS_LATENT, modalities_specific_dim=PLUS_LATENT,
+            input_dims=poly, K=1, number_of_clusters=CLUSTERS,
+            prior_and_posterior_dist="laplace_with_softmax", learn_modality_prior=True,
+            beta=2.5, loss="iwae_looser", **laplace),
+            encoders=encoders, decoders=decoders, seed=SEED, device=device)
+        return Workload(model, MultimodalBaseDataset(_images(rng, n, poly)), None,
+                        _trainer_kwargs(name, optimizer_params={"amsgrad": True}))
+    if name == "crmvae_resnet":
+        encoders, decoders = _seeded(
+            {m: EncoderResnetMMNIST(0, LATENT) for m in poly},
+            {m: DecoderResnetMMNIST(LATENT) for m in poly})
+        model = CRMVAE(CRMVAEConfig(n_modalities=5, latent_dim=LATENT, input_dims=poly,
+                                    uses_likelihood_rescaling=False, beta=0.1, **laplace),
+                       encoders=encoders, decoders=decoders, seed=SEED, device=device)
+        n_eval = int(0.15 * n) if n_eval is None else n_eval
+        eval_set = MultimodalBaseDataset(_images(rng, n_eval, poly)) if n_eval else None
+        return Workload(model, MultimodalBaseDataset(_images(rng, n, poly)), eval_set,
+                        _trainer_kwargs(name, learning_rate=5e-4, drop_last=True))
+
+    # the partial-PolyMNIST conv protocol: mvtcae_conv, mmvae_conv, mvae_conv,
+    # mopoe_conv
     cfg = BaseAEConfig(latent_dim=LATENT, input_dim=POLYMNIST)
     encoders, decoders = _seeded({m: EncoderConvMMNIST_adapted(cfg) for m in poly},
                                  {m: DecoderConvMMNIST(cfg) for m in poly})
+    base = dict(n_modalities=5, latent_dim=LATENT, input_dims=poly, **laplace)
+    nets = dict(encoders=encoders, decoders=decoders, seed=SEED, device=device)
+    extra = {}
     if name == "mvtcae_conv":
-        config = MVTCAEConfig(n_modalities=5, latent_dim=LATENT, input_dims=poly,
-                              beta=2.5, alpha=5.0 / 6.0, **laplace)
-        model = MVTCAE(config, encoders=encoders, decoders=decoders, seed=SEED,
-                       device=device)
+        model = MVTCAE(MVTCAEConfig(beta=2.5, alpha=5.0 / 6.0, **base), **nets)
+    elif name == "mmvae_conv":
+        model = MMVAE(MMVAEConfig(K=10, prior_and_posterior_dist="laplace_with_softmax",
+                                  learn_prior=False, loss="dreg_looser", **base), **nets)
+    elif name == "mvae_conv":
+        model = MVAE(MVAEConfig(use_subsampling=True, k=0, warmup=0, beta=2.5, **base),
+                     **nets)
     else:
-        config = MMVAEConfig(n_modalities=5, latent_dim=LATENT, input_dims=poly, K=10,
-                             prior_and_posterior_dist="laplace_with_softmax",
-                             learn_prior=False, loss="dreg_looser", **laplace)
-        model = MMVAE(config, encoders=encoders, decoders=decoders, seed=SEED,
-                      device=device)
-    data, masks = _incomplete(rng, n, poly)
+        model = MoPoE(MoPoEConfig(beta=2.5, **base), **nets)
+        extra["drop_last"] = True
+    if name == "mvae_conv":   # --missing_ratio 0: complete data
+        train = MultimodalBaseDataset(_images(rng, n, poly))
+    else:
+        train = IncompleteDataset(*_incomplete(rng, n, poly))
     n_eval = 512 if n_eval is None else n_eval
     eval_set = MultimodalBaseDataset(_images(rng, n_eval, poly)) if n_eval else None
-    return Workload(model, IncompleteDataset(data, masks), eval_set,
+    return Workload(model, train, eval_set,
                     _trainer_kwargs(name, scheduler_cls="ReduceLROnPlateau",
-                                    scheduler_params={"patience": 30}))
+                                    scheduler_params={"patience": 30}, **extra))
 
 
 def dead_rows(n: int) -> np.ndarray:

@@ -104,7 +104,8 @@ class BaseTrainer:
         metric_sums = {}
         for batch_idx, batch in enumerate(loader):
             batch = batch.to(self.device, non_blocking=True)
-            info = StepInfo(epoch=epoch, batch_ratio=batch_idx / n_batches,
+            # the eval pass leaves batch_ratio at 0, as the JAX trainer does
+            info = StepInfo(epoch=epoch, batch_ratio=batch_idx / n_batches if train else 0.0,
                             dataset_size=dataset_size)
             out = self.model.loss_function(batch, info, generator=generator)
             if train:

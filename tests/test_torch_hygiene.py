@@ -83,25 +83,29 @@ def test_default_device_raises_without_cuda(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_mvtcae_default_device_raises_without_cuda(monkeypatch):
-    from multivae_tpu_torch.models import MVTCAE, MVTCAEConfig
+# (model, config, the config's extra fields, a workload that builds it)
+DEVICE_CASES = {
+    "mvtcae": ("MVTCAE", {}, None),
+    "mmvaeplus": ("MMVAEPlus", {"modalities_specific_dim": 2}, "mmvaeplus_k10"),
+    "cmvae": ("CMVAE", {"modalities_specific_dim": 2}, "cmvae_polymnist"),
+    "mvae": ("MVAE", {}, "mvae_conv"),
+    "mopoe": ("MoPoE", {}, "mopoe_conv"),
+    "crmvae": ("CRMVAE", {}, "crmvae_resnet"),
+}
 
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    cfg = dict(n_modalities=1, latent_dim=2, input_dims={"a": (3,)})
-    with pytest.raises(RuntimeError, match="cuda"):
-        MVTCAE(MVTCAEConfig(**cfg))
-    assert MVTCAE(MVTCAEConfig(**cfg), device="cpu").device == torch.device("cpu")
 
-
-def test_mmvaeplus_default_device_raises_without_cuda(monkeypatch):
-    from multivae_tpu_torch.models import MMVAEPlus, MMVAEPlusConfig
+@pytest.mark.parametrize("case", list(DEVICE_CASES))
+def test_model_default_device_raises_without_cuda(monkeypatch, case):
+    from multivae_tpu_torch import models
     from multivae_tpu_torch.tools import workloads
 
+    name, extra, workload = DEVICE_CASES[case]
+    model_cls, config_cls = getattr(models, name), getattr(models, name + "Config")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    cfg = dict(n_modalities=1, latent_dim=2, modalities_specific_dim=2,
-               input_dims={"a": (3,)})
+    cfg = dict(n_modalities=1, latent_dim=2, input_dims={"a": (3,)}, **extra)
     with pytest.raises(RuntimeError, match="cuda"):
-        MMVAEPlus(MMVAEPlusConfig(**cfg))
-    with pytest.raises(RuntimeError, match="cuda"):
-        workloads.build("mmvaeplus_k10", n=8)
-    assert MMVAEPlus(MMVAEPlusConfig(**cfg), device="cpu").device == torch.device("cpu")
+        model_cls(config_cls(**cfg))
+    if workload is not None:
+        with pytest.raises(RuntimeError, match="cuda"):
+            workloads.build(workload, n=8)
+    assert model_cls(config_cls(**cfg), device="cpu").device == torch.device("cpu")

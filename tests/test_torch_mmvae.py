@@ -347,7 +347,7 @@ def test_inference_methods_run_like_jax():
     assert model.compute_joint_nll(data, K=2, generator=gen).shape == ()
 
 
-def test_inference_methods_not_yet_ported_raise():
+def test_inference_refuses_like_jax():
     """What the JAX package has not implemented raises in the port too (the
     joint NLL of incomplete data), as does what it refuses (an incomplete
     or unknown conditioning subset)."""

@@ -53,9 +53,10 @@ def test_workloads_have_the_published_widths(name):
     w = workloads.build(name, n=8, n_eval=4, device="cpu")
     model = w.model
     plus = name.startswith("mmvaeplus")
-    assert model.latent_dim == (32 if plus else 512)
-    assert w.trainer_kwargs["per_device_train_batch_size"] == (32 if plus else 256)
-    assert w.trainer_kwargs["learning_rate"] == 1e-3
+    small = name.startswith(("mmvaeplus", "cmvae"))
+    assert model.latent_dim == (32 if small else 512)
+    assert w.trainer_kwargs["per_device_train_batch_size"] == (32 if small else 256)
+    assert w.trainer_kwargs["learning_rate"] == (5e-4 if name == "crmvae_resnet" else 1e-3)
     dims = {k: tuple(v) for k, v in model.input_dims.items()}
     if name == "mvtcae_mlp":
         assert dims == {"m0": (1, 28, 28), "m1": (3, 32, 32)}
@@ -67,7 +68,24 @@ def test_workloads_have_the_published_widths(name):
         assert model.K == 10 and w.eval is None
         return
     assert model.model_config.decoder_dist_params["m0"] == {"scale": 0.75}
+    if name == "cmvae_polymnist":
+        cfg = model.model_config
+        assert (model.modalities_specific_dim, model.beta, model.n_clusters) == (32, 2.5, 40)
+        assert (model.K, model.objective, cfg.learn_modality_prior) == (1, "iwae_looser", True)
+        assert isinstance(model.encoders["m0"], mmnist.EncoderResnetMMNIST)
+        assert model.decoders["m0"].dense[0].in_features == 64
+        assert w.trainer_kwargs["optimizer_params"] == {"amsgrad": True}
+        assert w.eval is None and not hasattr(w.train, "masks")
+        return
     assert len(w.eval) == 4
+    if name == "crmvae_resnet":
+        assert (model.beta, model.use_likelihood_rescaling) == (0.1, False)
+        assert model.encoders["m0"].style_dim == 0
+        assert model.decoders["m0"].dense[0].in_features == 512
+        assert model.encoders["m0"].dense[0].in_features == 256 * 7 * 7   # nf 64, 2 doublings
+        assert w.trainer_kwargs["drop_last"] and "scheduler_cls" not in w.trainer_kwargs
+        assert not hasattr(w.train, "masks")
+        return
     if plus:
         cfg = model.model_config
         assert (model.modalities_specific_dim, model.beta) == (32, 2.5)
@@ -83,9 +101,16 @@ def test_workloads_have_the_published_widths(name):
             assert (model.K, model.objective) == (1, "dreg_looser")
             assert hasattr(w.train, "masks") and hasattr(w.eval, "masks")
         return
+    assert isinstance(model.decoders["m0"], mmnist.DecoderConvMMNIST)
     if name == "mmvae_conv":
         assert (model.K, model.learn_prior, model.objective) == (10, False, "dreg_looser")
-        assert isinstance(model.decoders["m0"], mmnist.DecoderConvMMNIST)
+    elif name == "mvae_conv":
+        # --missing_ratio 0: sub-sampling on complete data, 1 + 5 subset ELBOs
+        assert (model.subsampling, model.k, model.warmup, model.beta) == (True, 0, 0, 2.5)
+        assert not hasattr(w.train, "masks")
+    elif name == "mopoe_conv":
+        assert model.beta == 2.5 and len(model.subsets) == 31
+        assert w.trainer_kwargs["drop_last"] and hasattr(w.train, "masks")
     else:
         assert (model.alpha, model.beta) == (5.0 / 6.0, 2.5)
     assert w.trainer_kwargs["scheduler_cls"] == "ReduceLROnPlateau"
