@@ -87,7 +87,18 @@ Phases (any failure exits non-zero and prints no result line):
     the same inference checks, K=1000 NLL seconds and peak memory (MVAE and
     MoPoE on 256 rows, MoPoE's paper form too, CRMVAE on 64), 8-row K=20
     NLLs card vs CPU;
-11. a ``kernels`` JSON line (launches summed over every training and
+11. the joint-encoder family and DMVAE: ``dmvae_mnist_svhn`` (DMVAE's
+    published MNIST-SVHN run, 16 steps), ``jmvae_conv`` (JMVAE on the conv
+    protocol, complete data, 16 steps), ``telbo_conv`` (TELBO, warm-up 2,
+    3 epochs of 4 steps through the ``MultistageTrainer``: the optimizer
+    reset at epoch 2 and the stage flip at epoch 3) and ``cvae_tutorial``
+    (the CVAE tutorial, 3 epochs of 4 steps); finite losses, the 8-row loss
+    card vs CPU, no mixture launch; then ``joint_inference`` on the first
+    three: encode, predict, prior, K=1000 NLL seconds and peak memory
+    (DMVAE on 512 rows, JMVAE and TELBO on 256), 8-row K=20 NLLs card vs
+    CPU; and CVAE's predict (from all modalities and from the prior of the
+    conditioning ones) and generate_from_prior;
+12. a ``kernels`` JSON line (launches summed over every training and
     inference phase that runs the kernels), then the last line
     ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -485,28 +496,45 @@ def rows_batch(dataset, idx, dtype=torch.float32):
 
 
 def workload_run(mx, name, n=2048, epochs=2, device="cuda", per_step=None):
-    """Train a workload of ``tools/workloads.py`` with BaseTrainer; returns
-    (the phase's JSON record, the workload, the mixture launches). The
-    kernels must launch ``per_step`` times (forward, full and dz-only
-    backward) on each train step and the forwards on each eval step: none
-    on the MVTCAE workloads."""
+    """Train a workload of ``tools/workloads.py`` with its trainer
+    (BaseTrainer unless it names another); returns (the phase's JSON record,
+    the workload, the mixture launches). The kernels must launch
+    ``per_step`` times (forward, full and dz-only backward) on each train
+    step and the forwards on each eval step: none on the MVTCAE workloads.
+    The steps are counted by a hook on the optimizer, set again on the new
+    optimizer of a ``MultistageTrainer`` reset."""
     from multivae_tpu_torch.tools import workloads
     from multivae_tpu_torch.trainers import BaseTrainer, BaseTrainerConfig
 
     per_step = per_step or {}
     w = workloads.build(name, n=n, device=device)
-    trainer = BaseTrainer(w.model, w.train, w.eval, device=device,
-                          training_config=BaseTrainerConfig(
-                              output_dir=os.path.join(ROOT, "build", "chip_smoke"),
-                              num_epochs=epochs, seed=0, **w.trainer_kwargs))
+    trainer = (w.trainer_cls or BaseTrainer)(
+        w.model, w.train, w.eval, device=device,
+        training_config=BaseTrainerConfig(
+            output_dir=os.path.join(ROOT, "build", "chip_smoke"),
+            num_epochs=epochs, seed=0, **w.trainer_kwargs))
     step_ends = []   # (epoch, CUDA event after the optimizer step)
+    optimizers = []  # each optimizer the run stepped with
 
     def on_step(*_):
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         step_ends.append((len(trainer.history), ev))
 
-    trainer.optimizer.register_step_post_hook(on_step)
+    def hook_optimizer():
+        if not optimizers or optimizers[-1] is not trainer.optimizer:
+            trainer.optimizer.register_step_post_hook(on_step)
+            optimizers.append(trainer.optimizer)
+
+    prepare = trainer.prepare_train_step
+
+    def prepare_and_hook(*args):
+        out = prepare(*args)
+        hook_optimizer()
+        return out
+
+    hook_optimizer()
+    trainer.prepare_train_step = prepare_and_hook
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()   # earlier phases' models, this model
@@ -526,6 +554,9 @@ def workload_run(mx, name, n=2048, epochs=2, device="cuda", per_step=None):
     expected["fwd"] += per_step.get("fwd", 0) * eval_steps
     check(launches == expected, f"{name}: expected {expected} launches, got {launches}")
     check(all(np.isfinite(losses)), f"non-finite epoch loss: {losses}")
+    resets = [e for e in getattr(w.model, "reset_optimizer_epochs", []) if e <= epochs]
+    check(len(optimizers) == 1 + len(resets),
+          f"{name}: {len(optimizers) - 1} optimizer resets, expected {resets}")
     # time between consecutive steps of one epoch: the first step and the
     # epoch ends (eval pass, loss fetch) stay out
     gaps = [a.elapsed_time(b) for (ea, a), (eb, b) in zip(step_ends, step_ends[1:])
@@ -535,6 +566,8 @@ def workload_run(mx, name, n=2048, epochs=2, device="cuda", per_step=None):
               "peak_mem_bytes": torch.cuda.max_memory_allocated(),
               "peak_above_held_bytes": torch.cuda.max_memory_allocated() - held,
               "wall_s": wall_s, "launches": launches}
+    if resets:
+        record.update(optimizer_resets=resets, final_stage=w.model.current_stage)
     if w.eval is not None:
         record["eval_losses"] = [h["eval_epoch_loss"] for h in trainer.history]
         record["lr"] = trainer.optimizer.param_groups[0]["lr"]
@@ -566,11 +599,15 @@ def timed(fn, repeats):
 def inference_surface(name, model, rows):
     """encode (N=10, flatten; the private codes too), predict (N=10),
     generate_from_prior(64) + decode, all finite and of the right shapes,
-    and the refusal to encode a subset missing in a row."""
+    and the refusal to encode a subset missing in a row. The conditioning
+    subset is the first two modalities (the first alone for TELBO, which
+    encodes no other proper subset)."""
     from multivae_tpu_torch.data import IncompleteDataset
 
     dims = model.input_dims
-    n, cond = len(rows["data"]["m0"]), ["m0", "m1"]
+    mods = list(dims)
+    cond = mods[:1] if model.model_name == "TELBO" else mods[:2]
+    n = len(rows["data"][mods[0]])
     with torch.no_grad():
         enc = model.encode(rows, cond_mod=cond, N=10, flatten=True)
         check(enc.z.shape == (10 * n, model.latent_dim), f"{name} encode {enc.z.shape}")
@@ -593,9 +630,9 @@ def inference_surface(name, model, rows):
         check(all(bool(torch.isfinite(t).all()) for t in
                   [*outputs, *pred.values(), *decoded.values()]), f"{name}: non-finite")
     masks = {m: np.ones(n, bool) for m in dims}
-    masks["m0"][0] = False
+    masks[mods[0]][0] = False
     try:
-        model.encode(IncompleteDataset(rows["data"], masks), cond_mod="m0")
+        model.encode(IncompleteDataset(rows["data"], masks), cond_mod=mods[0])
         check(False, f"{name}: encode accepted an incomplete subset")
     except AttributeError:
         pass
@@ -696,6 +733,28 @@ def cluster_phase(mx, model, data):
             "prune_clusters": {"rows": len(data), "seconds": prune_s,
                                "n_clusters": model.n_clusters,
                                "entropy_kept": entropies[model.n_clusters]}}
+
+
+def cvae_surface(w):
+    """The trained CVAE: predict from all modalities (N=10) and from the
+    prior of the conditioning ones, generate_from_prior (N=3, flatten) +
+    decode; finite, of the right shapes. Returns its JSON record."""
+    model = w.model
+    rows = w.train.get_batch(np.arange(64))
+    cond = {m: rows["data"][m] for m in model.conditioning_modalities}
+    target = tuple(model.model_config.input_dims[model.main_modality])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        from_all = model.predict(rows, cond_mod="all", N=10)[model.main_modality]
+        from_prior = model.predict(rows, cond_mod=list(cond))[model.main_modality]
+        decoded = model.decode(model.generate_from_prior(cond, N=3, flatten=True))
+    outputs = (from_all, from_prior, decoded.reconstruction)
+    check([tuple(t.shape) for t in outputs] == [(10, 64, *target), (64, *target),
+                                                (3 * 64, *target)],
+          f"cvae shapes {[tuple(t.shape) for t in outputs]}")
+    check(all(bool(torch.isfinite(t).all()) for t in outputs), "cvae: non-finite")
+    return {"rows": 64, "seconds": time.perf_counter() - t0}
 
 
 def main():
@@ -813,6 +872,21 @@ def main():
             "mvae_conv": [("joint_nll", 256, 0)],
             "mopoe_conv": [("joint_nll", 256, 0), ("joint_nll_paper", 256, 0)],
             "crmvae_resnet": [("joint_nll", 64, 0)]})[0]))
+
+        joint = {}
+        for name, n, epochs in (("dmvae_mnist_svhn", 2048, 2), ("jmvae_conv", 2048, 2),
+                                ("telbo_conv", 1024, 3), ("cvae_tutorial", 256, 3)):
+            record, joint[name], _ = workload_run(mx, name, n=n, epochs=epochs)
+            print(json.dumps(record))
+        mx.reset_launches()
+        cvae = cvae_surface(joint.pop("cvae_tutorial"))
+        check(not any(mx.launches.values()), f"cvae inference launched {mx.launches}")
+        record, _ = inference_phase(mx, "joint_inference", joint, {
+            "dmvae_mnist_svhn": [("joint_nll", 512, 0)],
+            "jmvae_conv": [("joint_nll", 256, 0)],
+            "telbo_conv": [("joint_nll", 256, 0)]})
+        record["cvae_tutorial"] = cvae
+        print(json.dumps(record))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

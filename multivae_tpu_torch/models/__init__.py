@@ -1,13 +1,19 @@
 from .base import BaseModel, BaseMultiVAE, BaseMultiVAEConfig
 from .cmvae import CMVAE, CMVAEConfig
 from .crmvae import CRMVAE, CRMVAEConfig
+from .cvae import CVAE, CVAEConfig
+from .dmvae import DMVAE, DMVAEConfig
+from .jmvae import JMVAE, JMVAEConfig
+from .joint_models import BaseJointModel, BaseJointModelConfig
 from .mmvae import MMVAE, MMVAEConfig
 from .mmvaePlus import MMVAEPlus, MMVAEPlusConfig
 from .mopoe import MoPoE, MoPoEConfig
 from .mvae import MVAE, MVAEConfig
 from .mvtcae import MVTCAE, MVTCAEConfig
+from .telbo import TELBO, TELBOConfig
 
-__all__ = ["BaseModel", "BaseMultiVAE", "BaseMultiVAEConfig", "CMVAE", "CMVAEConfig",
-           "CRMVAE", "CRMVAEConfig", "MMVAE", "MMVAEConfig", "MMVAEPlus",
-           "MMVAEPlusConfig", "MoPoE", "MoPoEConfig", "MVAE", "MVAEConfig", "MVTCAE",
-           "MVTCAEConfig"]
+__all__ = ["BaseJointModel", "BaseJointModelConfig", "BaseModel", "BaseMultiVAE",
+           "BaseMultiVAEConfig", "CMVAE", "CMVAEConfig", "CRMVAE", "CRMVAEConfig", "CVAE",
+           "CVAEConfig", "DMVAE", "DMVAEConfig", "JMVAE", "JMVAEConfig", "MMVAE",
+           "MMVAEConfig", "MMVAEPlus", "MMVAEPlusConfig", "MoPoE", "MoPoEConfig", "MVAE",
+           "MVAEConfig", "MVTCAE", "MVTCAEConfig", "TELBO", "TELBOConfig"]

@@ -12,10 +12,10 @@ returns ``modalities_z`` beside ``z``, and ``decode`` concatenates each
 modality's private code to ``z``.
 
 Every random draw goes through ``draw_noise(shape, generator)`` (standard
-normal here; MMVAE overrides it), so a test can feed another package's
-noise. The JAX package compiles one program per encode subset; eager
-PyTorch needs no such sharing, so a model implements ``_encode_subset``
-alone.
+normal, from ``BaseModel``; MMVAE overrides it), so a test can feed another
+package's noise. The JAX package compiles one program per encode subset;
+eager PyTorch needs no such sharing, so a model implements
+``_encode_subset`` alone.
 """
 
 from __future__ import annotations
@@ -182,15 +182,20 @@ class BaseMultiVAE(BaseModel):
         """Extra learnable tensors (prior params...): name -> Parameter."""
         return {}
 
+    def _reset_extra_nets(self, generator: torch.Generator):
+        """Draw the weights of the default nets beyond the per-modality ones
+        (a joint encoder) from ``generator``."""
+
     def init_params(self):
         """Draw the default nets' weights from ``torch.Generator(seed)`` (per
-        modality: encoder, then decoder), register the extra parameters and
-        move everything to the model's device. User-supplied nets keep their
-        own weights."""
+        modality: encoder, then decoder; then ``_reset_extra_nets``),
+        register the extra parameters and move everything to the model's
+        device. User-supplied nets keep their own weights."""
         generator = torch.Generator().manual_seed(self._seed)
         for mod in self.encoders:
             for group in self._default_nets:
                 getattr(self, group)[mod].reset_parameters(generator)
+        self._reset_extra_nets(generator)
         for name, param in self._init_extra_params().items():
             self.register_parameter(name, param)
         self.to(self._device)
@@ -210,11 +215,6 @@ class BaseMultiVAE(BaseModel):
     def decode_mod(self, mod: str, z):
         """Decoder output for ``mod``; ``z`` may have any leading shape."""
         return self._remat(lambda v: self.decoders[mod](v)["reconstruction"], z)
-
-    def draw_noise(self, shape, generator: Optional[torch.Generator] = None):
-        """Standard-normal noise of ``shape`` on the model's device: every
-        sample the model draws comes from here."""
-        return torch.randn(shape, generator=generator, device=self.device)
 
     def draw_expert(self, n_experts: int,
                     generator: Optional[torch.Generator] = None) -> int:

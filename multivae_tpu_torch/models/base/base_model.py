@@ -5,7 +5,10 @@ Counterpart of ``multivae_tpu/models/base/base_model.py``. A model is an
 beside ``model_config.json`` and ``environment.json`` (the JAX package
 writes ``model.msgpack`` in the same layout). Custom architectures are
 pickled per entry of ``model_config.custom_architectures``, as the JAX
-package does with cloudpickle; loading them runs code from the pickle, so
+package does with cloudpickle: a network group held in an ``nn.ModuleDict``
+(``encoders``, ``decoders``) as a dict of modules, a single module
+(``joint_encoder``, CVAE's ``encoder``) whole, and each is given back to
+the constructor in that form. Loading them runs code from the pickle, so
 load only folders you wrote.
 """
 
@@ -18,6 +21,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ...ops.gaussian import rsample_from_gaussian
 from ...utils.config import EnvironmentConfig, get_config_class
 
 
@@ -34,6 +38,22 @@ class BaseModel(nn.Module):
     def device(self) -> torch.device:
         return next(self.parameters()).device
 
+    def draw_noise(self, shape, generator: Optional[torch.Generator] = None):
+        """Standard-normal noise of ``shape`` on the model's device: every
+        sample the model draws comes from here, so a test can feed another
+        package's noise."""
+        return torch.randn(shape, generator=generator, device=self.device)
+
+    def _sample(self, mu, log_var, N: int = 1, return_mean: bool = False,
+                flatten: bool = False, generator: Optional[torch.Generator] = None):
+        """``rsample_from_gaussian`` with its noise from ``draw_noise`` (none
+        drawn with ``return_mean``)."""
+        noise = None
+        if not return_mean:
+            noise = self.draw_noise(mu.shape if N == 1 else (N, *mu.shape), generator)
+        return rsample_from_gaussian(mu, log_var, N=N, return_mean=return_mean,
+                                     flatten=flatten, noise=noise)
+
     # ------------------------------------------------------------ save/load
     def save(self, dir_path: str, state_dict: Optional[dict] = None):
         """Save the config, the weights (``state_dict``, default the live
@@ -46,7 +66,8 @@ class BaseModel(nn.Module):
         torch.save(self.state_dict() if state_dict is None else state_dict,
                    os.path.join(dir_path, "model.pt"))
         for arch_name in set(self.model_config.custom_architectures):
-            torch.save(dict(getattr(self, arch_name)),
+            arch = getattr(self, arch_name)
+            torch.save(dict(arch) if isinstance(arch, nn.ModuleDict) else arch,
                        os.path.join(dir_path, f"{arch_name}.pkl"))
 
     @classmethod

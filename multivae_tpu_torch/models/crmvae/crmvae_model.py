@@ -88,13 +88,7 @@ class CRMVAE(BaseMultiVAE):
                        generator: Optional[torch.Generator]) -> dict:
         """The masked PoE of the conditioning modalities."""
         joint_mu, joint_lv, _ = self._joint_posterior(batch, mods=cond_mod)
-        noise = None
-        if not return_mean:
-            noise = self.draw_noise(joint_mu.shape if N == 1 else (N, *joint_mu.shape),
-                                    generator)
-        return {"z": rsample_from_gaussian(joint_mu, joint_lv, N=N,
-                                           return_mean=return_mean, flatten=flatten,
-                                           noise=noise)}
+        return {"z": self._sample(joint_mu, joint_lv, N, return_mean, flatten, generator)}
 
     @torch.no_grad()
     def compute_joint_nll(self, inputs, K: int = 1000, batch_size_K: int = 100,

@@ -185,14 +185,6 @@ class MoPoE(BaseMultiVAE):
         return ModelOutput(loss=loss, loss_sum=loss * n_data, metrics=metrics)
 
     # ------------------------------------------------------------ inference
-    def _sample(self, mu, log_var, N: int, return_mean: bool, flatten: bool,
-                generator: Optional[torch.Generator]):
-        noise = None
-        if not return_mean:
-            noise = self.draw_noise(mu.shape if N == 1 else (N, *mu.shape), generator)
-        return rsample_from_gaussian(mu, log_var, N=N, return_mean=return_mean,
-                                     flatten=flatten, noise=noise)
-
     def _encode_subset(self, batch: MultimodalBatch, *, cond_mod: tuple, N: int,
                        return_mean: bool, flatten: bool,
                        generator: Optional[torch.Generator]) -> dict:

@@ -142,11 +142,7 @@ class MVAE(BaseMultiVAE):
         """PoE of the conditioning modalities' available experts and the
         prior expert."""
         mu, log_var = self._joint_posterior(batch, cond_mod)
-        noise = None
-        if not return_mean:
-            noise = self.draw_noise(mu.shape if N == 1 else (N, *mu.shape), generator)
-        return {"z": rsample_from_gaussian(mu, log_var, N=N, return_mean=return_mean,
-                                           flatten=flatten, noise=noise)}
+        return {"z": self._sample(mu, log_var, N, return_mean, flatten, generator)}
 
     @torch.no_grad()
     def compute_joint_nll(self, inputs, K: int = 1000, batch_size_K: int = 100,

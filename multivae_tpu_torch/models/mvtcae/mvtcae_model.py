@@ -94,13 +94,8 @@ class MVTCAE(BaseMultiVAE):
         the other experts out gives the same numbers as the JAX package's
         masked PoE over the subset indicator: their precision would be 0."""
         joint_mu, joint_log_var, _ = self._joint_posterior(batch, mods=cond_mod)
-        noise = None
-        if not return_mean:
-            shape = joint_mu.shape if N == 1 else (N, *joint_mu.shape)
-            noise = self.draw_noise(shape, generator)
-        return {"z": rsample_from_gaussian(joint_mu, joint_log_var, N=N,
-                                           return_mean=return_mean,
-                                           flatten=flatten, noise=noise)}
+        return {"z": self._sample(joint_mu, joint_log_var, N, return_mean, flatten,
+                                  generator)}
 
     @torch.no_grad()
     def compute_joint_nll(self, inputs, K: int = 1000, batch_size_K: int = 100,

@@ -5,7 +5,9 @@ the output contract:
 
 - encoder(x) -> ModelOutput(embedding, log_covariance)
 - multilatent encoder -> + style_embedding, style_log_covariance
+- joint encoder(dict x) -> ModelOutput(embedding, log_covariance)
 - decoder(z) -> ModelOutput(reconstruction)
+- conditional decoder(z, cond_mods) -> ModelOutput(reconstruction)
 """
 
 from __future__ import annotations
@@ -23,3 +25,13 @@ class BaseMultilatentEncoder(BaseEncoder):
 
 class BaseDecoder(nn.Module):
     """Unimodal decoder: z -> ModelOutput(reconstruction)."""
+
+
+class BaseJointEncoder(nn.Module):
+    """Joint encoder over a dict of modalities:
+    dict x -> ModelOutput(embedding, log_covariance)."""
+
+
+class BaseConditionalDecoder(nn.Module):
+    """Decoder conditioned on other modalities' data:
+    (z, cond_mods) -> ModelOutput(reconstruction)."""

@@ -7,6 +7,11 @@
   (embedding, log_covariance) heads.
 - ``Decoder_AE_MLP``: z -> hidden ReLU -> prod(input_dim) sigmoid ->
   reshape; accepts any leading shape (*, latent_dim).
+- ``MultipleHeadJointEncoder``: its own copies of the unimodal encoders,
+  their embeddings concatenated -> [hidden ReLU] x n_hidden_layers ->
+  (embedding, log_covariance) heads.
+- ``ConditionalDecoderMLP``: concat(z, each conditioning modality's data
+  flattened) -> ``Decoder_AE_MLP``.
 
 Each net keeps its ``nn.Linear`` layers in the ModuleList ``dense`` in the
 order the Flax modules create ``Dense_0, Dense_1, ...``, which is what
@@ -17,6 +22,7 @@ weight and bias, from an explicit generator.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import Dict, Optional, Tuple
@@ -27,7 +33,13 @@ from torch import nn
 
 from ..utils.config import BaseConfig
 from ..utils.model_output import ModelOutput
-from .base_architectures import BaseDecoder, BaseEncoder, BaseMultilatentEncoder
+from .base_architectures import (
+    BaseConditionalDecoder,
+    BaseDecoder,
+    BaseEncoder,
+    BaseJointEncoder,
+    BaseMultilatentEncoder,
+)
 
 
 @dataclasses.dataclass
@@ -169,3 +181,59 @@ def BaseDictDecodersMultiLatents(input_dims: dict, latent_dim: int,
                                          latent_dim=latent_dim + modality_dims[mod]))
         for mod in input_dims
     }
+
+
+class MultipleHeadJointEncoder(BaseJointEncoder):
+    """Joint encoder: independent copies of the unimodal encoders (deep
+    copies: their weights are not tied to the originals), the concatenation
+    of their embeddings through ``n_hidden_layers`` hidden ReLU layers, and
+    (embedding, log_covariance) heads of ``args.latent_dim``.
+
+    The copies sit in the ModuleDict ``dict_encoders`` and the fusion layers
+    in ``dense``, as the Flax module's ``dict_encoders_<m>`` and ``Dense_i``.
+    """
+
+    def __init__(self, dict_encoders: dict, args: BaseAEConfig, hidden_dim: int = 512,
+                 n_hidden_layers: int = 2):
+        super().__init__()
+        self.latent_dim = args.latent_dim
+        self.dict_encoders = nn.ModuleDict(
+            {m: copy.deepcopy(enc) for m, enc in dict_encoders.items()})
+        joint_input_dim = sum(enc.latent_dim for enc in self.dict_encoders.values())
+        widths = [joint_input_dim] + [hidden_dim] * n_hidden_layers
+        self.dense = nn.ModuleList(
+            [nn.Linear(a, b) for a, b in zip(widths[:-1], widths[1:])]
+            + [nn.Linear(hidden_dim, args.latent_dim),
+               nn.Linear(hidden_dim, args.latent_dim)])
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        for enc in self.dict_encoders.values():
+            enc.reset_parameters(generator)
+        reset_linear_(self.dense, generator)
+
+    def forward(self, x: dict):
+        h = torch.cat([enc(x[m])["embedding"] for m, enc in self.dict_encoders.items()],
+                      -1)
+        for lin in self.dense[:-2]:
+            h = torch.relu(lin(h))
+        return ModelOutput(embedding=self.dense[-2](h), log_covariance=self.dense[-1](h))
+
+
+class ConditionalDecoderMLP(BaseConditionalDecoder):
+    """MLP decoder of z concatenated with the conditioning modalities' data,
+    each flattened, in ``cond_data_dims`` order."""
+
+    def __init__(self, latent_dim: int, data_dim: tuple, cond_data_dims: dict):
+        super().__init__()
+        self.latent_dim = latent_dim
+        self.cond_data_dims = {m: tuple(d) for m, d in cond_data_dims.items()}
+        all_dim = latent_dim + sum(int(np.prod(d)) for d in self.cond_data_dims.values())
+        self.network = Decoder_AE_MLP(BaseAEConfig(input_dim=tuple(data_dim),
+                                                   latent_dim=all_dim))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        self.network.reset_parameters(generator)
+
+    def forward(self, z, cond_mods: dict):
+        parts = [z] + [cond_mods[m].reshape(z.shape[0], -1) for m in self.cond_data_dims]
+        return self.network(torch.cat(parts, -1))

@@ -4,9 +4,12 @@ Builds one full-width workload of ``tools/workloads.py`` (``--model``:
 ``mmvae``, the MMVAE of ``chip_smoke.py`` trained with DReG, by default;
 ``mvtcae_mlp``; ``mvtcae_conv``; ``mmvae_conv``; ``mmvaeplus_partial``;
 ``mmvaeplus_k10``; ``cmvae_polymnist``; ``mvae_conv``; ``mopoe_conv``;
-``crmvae_resnet``; each at its own batch, float32 without TF32), trains
-one warm-up epoch of ``--steps`` steps with ``BaseTrainer``, then profiles
-a second epoch with ``torch.profiler`` and prints:
+``crmvae_resnet``; ``dmvae_mnist_svhn``; ``jmvae_conv``; ``telbo_conv``;
+``cvae_tutorial``; each at its own batch, float32 without TF32), trains
+one warm-up epoch of ``--steps`` steps with the workload's trainer
+(``BaseTrainer``; the ``MultistageTrainer`` for ``telbo_conv``, whose
+epochs here are stage 1: the profile calls ``train_step`` alone), then
+profiles a second epoch with ``torch.profiler`` and prints:
 
 - the host wall time per step and the device's busy and idle shares over
   the profiled epoch (busy = the sum of kernel and copy durations on the
@@ -75,10 +78,10 @@ def main():
     from ..trainers import BaseTrainer, BaseTrainerConfig
 
     w = workloads.build(args.model, n=workloads.BATCH[args.model] * args.steps, n_eval=0)
-    trainer = BaseTrainer(w.model, w.train,
-                          training_config=BaseTrainerConfig(
-                              output_dir=os.path.join("build", "profile_mmvae"),
-                              num_epochs=2, **w.trainer_kwargs))
+    trainer = (w.trainer_cls or BaseTrainer)(
+        w.model, w.train, training_config=BaseTrainerConfig(
+            output_dir=os.path.join("build", "profile_mmvae"), num_epochs=2,
+            **w.trainer_kwargs))
     trainer.train_step(1)  # warm-up: kernel builds, cuBLAS heuristics, allocator
     torch.cuda.synchronize()
 

@@ -44,6 +44,24 @@ random data in the real datasets' shapes, made from a seed.
   latent 512, beta 0.1, Laplace decoders of scale 0.75, no likelihood
   rescaling; Adam 5e-4, ``drop_last``, a 15% eval split.
 
+- ``dmvae_mnist_svhn``: DMVAE's published MNIST-SVHN run
+  (``examples/dmvae_mnist_svhn.py:33-57``): MNIST 1x28x28 and SVHN
+  3x32x32, shared latent 10, private dims {mnist 1, svhn 4}, likelihood
+  rescaling {mnist 50, svhn 1}, the default multi-latent MLP nets, Normal
+  decoders; complete data, no eval set.
+- ``jmvae_conv``: JMVAE on the partial-PolyMNIST conv protocol
+  (``examples/case_studies/partial_polymnist/jmvae.py``): alpha 0.1,
+  warm-up 200, the conv nets with the default joint encoder over copies of
+  them; complete data (JMVAE refuses masks).
+- ``telbo_conv``: TELBO on the same protocol and nets (the repo has no
+  published TELBO run: the case study's base config), trained by the
+  ``MultistageTrainer`` with warm-up 2 instead of the config's 10, so that
+  a 3-epoch run crosses the optimizer reset and the stage flip.
+- ``cvae_tutorial``: the repo's only CVAE configuration
+  (``examples/tutorials/training_a_cvae_model.py:24-54``): a target of 12
+  conditioned on 6 and 1x4x4, latent 8, the default nets and a
+  ``MultipleHeadJointEncoder`` prior network; batch 64, no eval set.
+
 The train sets of ``mvtcae_conv``, ``mmvae_conv``, ``mmvaeplus_partial``
 and ``mopoe_conv`` are ``IncompleteDataset``s: each (row, modality) is
 missing with probability 0.2, and a few rows have no modality at all. The
@@ -51,7 +69,8 @@ eval sets of the conv protocols are complete, as PolyMNIST's test set is;
 the MMVAE+ eval split is cut from the same incomplete data.
 
 All: Adam 1e-3, float32, seed 0; batch 256 unless stated. Only depth is
-cut (rows, epochs).
+cut (rows, epochs). ``Workload.trainer_cls`` names the trainer a workload
+needs (the ``MultistageTrainer`` for ``telbo_conv``).
 """
 
 from __future__ import annotations
@@ -63,8 +82,10 @@ import numpy as np
 import torch
 
 NAMES = ("mmvae", "mvtcae_mlp", "mvtcae_conv", "mmvae_conv", "mmvaeplus_partial",
-         "mmvaeplus_k10", "cmvae_polymnist", "mvae_conv", "mopoe_conv", "crmvae_resnet")
-BATCH = {name: 32 if name.startswith(("mmvaeplus", "cmvae")) else 256 for name in NAMES}
+         "mmvaeplus_k10", "cmvae_polymnist", "mvae_conv", "mopoe_conv", "crmvae_resnet",
+         "dmvae_mnist_svhn", "jmvae_conv", "telbo_conv", "cvae_tutorial")
+BATCH = {name: (32 if name.startswith(("mmvaeplus", "cmvae"))
+                else 64 if name == "cvae_tutorial" else 256) for name in NAMES}
 CLUSTERS = 40   # CMVAE's clusters
 POLYMNIST = (3, 28, 28)
 LATENT = 512
@@ -79,6 +100,7 @@ class Workload:
     train: object                 # a MultimodalBaseDataset
     eval: Optional[object]        # None: no eval set
     trainer_kwargs: dict          # BaseTrainerConfig fields besides epochs/seed
+    trainer_cls: Optional[type] = None   # None: BaseTrainer
 
 
 def _images(rng, n, dims):
@@ -126,11 +148,18 @@ def build(name: str, n: int = 2048, n_eval: Optional[int] = None,
     from ..models import (
         CMVAE,
         CRMVAE,
+        CVAE,
+        DMVAE,
+        JMVAE,
         MMVAE,
         MVAE,
         MVTCAE,
+        TELBO,
         CMVAEConfig,
         CRMVAEConfig,
+        CVAEConfig,
+        DMVAEConfig,
+        JMVAEConfig,
         MMVAEConfig,
         MMVAEPlus,
         MMVAEPlusConfig,
@@ -138,14 +167,18 @@ def build(name: str, n: int = 2048, n_eval: Optional[int] = None,
         MoPoEConfig,
         MVAEConfig,
         MVTCAEConfig,
+        TELBOConfig,
     )
     from ..nn import (
         BaseAEConfig,
+        BaseDictEncoders,
         DecoderConvMMNIST,
         DecoderResnetMMNIST,
         EncoderConvMMNIST_adapted,
         EncoderResnetMMNIST,
+        MultipleHeadJointEncoder,
     )
+    from ..trainers import MultistageTrainer
 
     if name not in NAMES:
         raise ValueError(f"unknown workload {name!r}; expected one of {NAMES}")
@@ -208,6 +241,27 @@ def build(name: str, n: int = 2048, n_eval: Optional[int] = None,
             encoders=encoders, decoders=decoders, seed=SEED, device=device)
         return Workload(model, MultimodalBaseDataset(_images(rng, n, poly)), None,
                         _trainer_kwargs(name, optimizer_params={"amsgrad": True}))
+    if name == "dmvae_mnist_svhn":
+        dims = {"mnist": (1, 28, 28), "svhn": (3, 32, 32)}
+        model = DMVAE(DMVAEConfig(
+            n_modalities=2, latent_dim=10, input_dims=dims,
+            modalities_specific_dim={"mnist": 1, "svhn": 4},
+            rescale_factors={"mnist": 50, "svhn": 1}, uses_likelihood_rescaling=True),
+            seed=SEED, device=device)
+        return Workload(model, MultimodalBaseDataset(_images(rng, n, dims)), None,
+                        _trainer_kwargs(name))
+    if name == "cvae_tutorial":
+        dims = {"target": (12,), "cond_a": (6,), "cond_b": (1, 4, 4)}
+        cond = {m: dims[m] for m in ("cond_a", "cond_b")}
+        prior = MultipleHeadJointEncoder(BaseDictEncoders(cond, 8), BaseAEConfig(latent_dim=8))
+        prior.reset_parameters(torch.Generator().manual_seed(SEED))
+        model = CVAE(CVAEConfig(main_modality="target", conditioning_modalities=list(cond),
+                                input_dims=dims, latent_dim=8, beta=1.0),
+                     prior_network=prior, seed=SEED, device=device)
+        data = {"target": rng.normal(size=(n, 12)).astype(np.float32),
+                "cond_a": rng.normal(size=(n, 6)).astype(np.float32),
+                "cond_b": rng.random((n, 1, 4, 4), dtype=np.float32)}
+        return Workload(model, MultimodalBaseDataset(data), None, _trainer_kwargs(name))
     if name == "crmvae_resnet":
         encoders, decoders = _seeded(
             {m: EncoderResnetMMNIST(0, LATENT) for m in poly},
@@ -221,7 +275,7 @@ def build(name: str, n: int = 2048, n_eval: Optional[int] = None,
                         _trainer_kwargs(name, learning_rate=5e-4, drop_last=True))
 
     # the partial-PolyMNIST conv protocol: mvtcae_conv, mmvae_conv, mvae_conv,
-    # mopoe_conv
+    # mopoe_conv, jmvae_conv, telbo_conv
     cfg = BaseAEConfig(latent_dim=LATENT, input_dim=POLYMNIST)
     encoders, decoders = _seeded({m: EncoderConvMMNIST_adapted(cfg) for m in poly},
                                  {m: DecoderConvMMNIST(cfg) for m in poly})
@@ -236,18 +290,26 @@ def build(name: str, n: int = 2048, n_eval: Optional[int] = None,
     elif name == "mvae_conv":
         model = MVAE(MVAEConfig(use_subsampling=True, k=0, warmup=0, beta=2.5, **base),
                      **nets)
+    elif name == "jmvae_conv":
+        model = JMVAE(JMVAEConfig(alpha=0.1, warmup=200, **base), **nets)
+    elif name == "telbo_conv":
+        model = TELBO(TELBOConfig(warmup=2, **base), **nets)
+        extra["trainer_cls"] = MultistageTrainer
     else:
         model = MoPoE(MoPoEConfig(beta=2.5, **base), **nets)
         extra["drop_last"] = True
-    if name == "mvae_conv":   # --missing_ratio 0: complete data
+    # complete data: --missing_ratio 0 (MVAE), masks refused (JMVAE, TELBO)
+    if name in ("mvae_conv", "jmvae_conv", "telbo_conv"):
         train = MultimodalBaseDataset(_images(rng, n, poly))
     else:
         train = IncompleteDataset(*_incomplete(rng, n, poly))
     n_eval = 512 if n_eval is None else n_eval
     eval_set = MultimodalBaseDataset(_images(rng, n_eval, poly)) if n_eval else None
+    trainer_cls = extra.pop("trainer_cls", None)
     return Workload(model, train, eval_set,
                     _trainer_kwargs(name, scheduler_cls="ReduceLROnPlateau",
-                                    scheduler_params={"patience": 30}, **extra))
+                                    scheduler_params={"patience": 30}, **extra),
+                    trainer_cls)
 
 
 def dead_rows(n: int) -> np.ndarray:

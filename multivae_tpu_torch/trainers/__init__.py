@@ -1,3 +1,5 @@
 from .base import BaseTrainer, BaseTrainerConfig
+from .multistage import MultistageTrainer, MultistageTrainerConfig
 
-__all__ = ["BaseTrainer", "BaseTrainerConfig"]
+__all__ = ["BaseTrainer", "BaseTrainerConfig", "MultistageTrainer",
+           "MultistageTrainerConfig"]

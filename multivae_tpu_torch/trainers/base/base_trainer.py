@@ -2,12 +2,18 @@
 ``multivae_tpu/trainers/base/base_trainer.py``: ``train_step``,
 ``eval_step`` and ``train``).
 
-Per epoch: the loader's seeded permutation, one optimizer step per batch,
-the epoch loss as the sum of the batches' ``loss_sum`` over the dataset
-size, a NaN guard, the scheduler step, best-model tracking on the eval
-loss. At the end the best weights (the last ones without an eval set) are
+Per epoch: the ``prepare_train_step`` hook (the ``MultistageTrainer``'s
+optimizer reset), the loader's seeded permutation, one optimizer step per
+batch, the epoch loss as the sum of the batches' ``loss_sum`` over the
+dataset size, a NaN guard, the scheduler step, best-model tracking. Up to
+the model's ``start_keep_best_epoch`` (0 unless the model sets it, as
+MVAE's and JMVAE's warm-ups do) every epoch's weights are kept; after it,
+those of the best eval loss, where an epoch without an eval set counts as
+no better than the best so far, so the last warm-up epoch's weights stay.
+At the end the kept weights (the live ones when none were kept) are
 saved with the training config in
-``<output_dir>/<model>_training_<time>/final_model``.
+``<output_dir>/<model>_training_<time>/final_model``; ``best_model`` loads
+them into the model.
 
 Sampling noise comes from one ``torch.Generator`` on the device, seeded
 with ``training_config.seed`` and advanced step after step; each eval pass
@@ -16,7 +22,7 @@ draws from a generator seeded with ``seed + 1000 + epoch``.
 The JAX trainer's fused epoch blocks, device cache, prefetch, pipelined
 finalization and microbatching exist to amortize TPU launch costs and are
 not part of the port; nor are checkpoint/resume, prediction grids,
-callbacks, ``keep_best_on_train`` and the multistage trainer yet.
+callbacks and ``keep_best_on_train`` yet.
 ``history`` holds each epoch's logged metrics.
 """
 
@@ -54,11 +60,15 @@ class BaseTrainer:
         training_config: BaseTrainerConfig.
         device: where training runs (default "cuda"; raises when CUDA is
             absent).
+
+    A model that defines ``reset_optimizer_epochs`` (TELBO) needs the
+    ``MultistageTrainer`` and is refused here.
     """
 
     def __init__(self, model: BaseModel, train_dataset, eval_dataset=None,
                  training_config: Optional[BaseTrainerConfig] = None,
                  device="cuda"):
+        self.checktrainer(model)
         if training_config is None:
             training_config = BaseTrainerConfig()
         if training_config.output_dir is None:
@@ -84,8 +94,10 @@ class BaseTrainer:
                                         cfg.scheduler_params)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
 
+        self.best_train_loss = math.inf
         self.best_eval_loss = math.inf
         self._best_state = None
+        self.start_keep_best_epoch = getattr(model, "start_keep_best_epoch", 0)
         self.history = []
 
         signature = (str(datetime.datetime.now())[:19]
@@ -95,6 +107,22 @@ class BaseTrainer:
             f"{getattr(model, 'model_name', type(model).__name__)}"
             f"_training_{signature}")
         os.makedirs(self.training_dir, exist_ok=True)
+
+    def checktrainer(self, model):
+        """Refuse models that need multistage training."""
+        if getattr(model, "reset_optimizer_epochs", None):
+            raise AttributeError(
+                f"The model {type(model).__name__} requires the "
+                "MultistageTrainer for training (it defines "
+                "reset_optimizer_epochs). Please use "
+                "multivae_tpu_torch.trainers.MultistageTrainer instead of "
+                "BaseTrainer.")
+
+    def prepare_train_step(self, epoch, best_train_loss, best_eval_loss):
+        """Hook for changes between epochs (the ``MultistageTrainer``'s
+        optimizer reset); returns the best train and eval losses to go on
+        with."""
+        return best_train_loss, best_eval_loss
 
     # ------------------------------------------------------------- stepping
     def _run_epoch(self, loader, epoch: int, generator, train: bool):
@@ -141,6 +169,9 @@ class BaseTrainer:
             raise ArithmeticError("NaN detected in eval loss")
         return epoch_loss, metrics
 
+    def _snapshot(self) -> dict:
+        return {k: v.detach().clone() for k, v in self.model.state_dict().items()}
+
     def _finalize_epoch(self, epoch, train_loss, train_metrics, eval_loss,
                         eval_metrics):
         """Scheduler step, best-model tracking and logging of one epoch."""
@@ -155,10 +186,14 @@ class BaseTrainer:
             else:
                 self.scheduler.step()
 
-        if eval_loss is not None and eval_loss < self.best_eval_loss:
+        if eval_loss is None:
+            eval_loss = self.best_eval_loss
+        if epoch <= self.start_keep_best_epoch:
+            self._best_state = self._snapshot()
+            logger.info("New model saved!")
+        elif eval_loss < self.best_eval_loss:
             self.best_eval_loss = eval_loss
-            self._best_state = {k: v.detach().clone()
-                                for k, v in self.model.state_dict().items()}
+            self._best_state = self._snapshot()
             logger.info("New best model on eval saved!")
 
         self.history.append(metrics)
@@ -171,6 +206,8 @@ class BaseTrainer:
                     self.device, cfg.num_epochs, cfg.per_device_train_batch_size,
                     cfg.optimizer_cls, cfg.learning_rate)
         for epoch in range(1, cfg.num_epochs + 1):
+            self.best_train_loss, self.best_eval_loss = self.prepare_train_step(
+                epoch, self.best_train_loss, self.best_eval_loss)
             train_loss, train_metrics = self.train_step(epoch)
             eval_loss = eval_metrics = None
             if self.eval_dataset is not None:
@@ -180,6 +217,18 @@ class BaseTrainer:
         final_dir = os.path.join(self.training_dir, "final_model")
         self.save_model(final_dir)
         logger.info("Training ended! Saved final model in %s", final_dir)
+
+    def _restore_best(self):
+        """Load the kept weights into the model (none kept: keep the live
+        ones)."""
+        if self._best_state is not None:
+            self.model.load_state_dict(self._best_state)
+
+    @property
+    def best_model(self):
+        """The model with the kept weights loaded."""
+        self._restore_best()
+        return self.model
 
     def save_model(self, dir_path: str):
         """Save the best model and the training config."""

@@ -1,0 +1,49 @@
+"""MultistageTrainer: optimizer resets at stage boundaries.
+
+Counterpart of ``multivae_tpu/trainers/multistage/multistage_trainer.py``.
+Before each epoch the model's stage is set from ``stage_for_epoch`` (where
+the model has stages). At each epoch of ``model.reset_optimizer_epochs``
+the kept weights (the live ones when none were kept) are loaded into the
+model, a fresh optimizer and scheduler are built over its parameters, the
+kept weights are dropped and both best losses restart at 1e12, as in the
+JAX package. For TELBO (``reset_optimizer_epochs = [warmup]``) the reset
+comes at the start of epoch ``warmup``, still in stage 1, and the stage
+flips at ``warmup + 1``.
+
+The optimizer is a new object after a reset: hooks registered on the old
+one do not carry over. The JAX trainer's checkpoint at the boundary is not
+part of the port (it has no checkpoint/resume yet).
+"""
+
+from __future__ import annotations
+
+import logging
+
+from ..base.base_trainer import BaseTrainer
+from ..base.optim import make_optimizer, make_scheduler
+
+logger = logging.getLogger(__name__)
+
+
+class MultistageTrainer(BaseTrainer):
+    """Trainer for two-stage models (TELBO)."""
+
+    def checktrainer(self, model):
+        return
+
+    def prepare_train_step(self, epoch, best_train_loss, best_eval_loss):
+        model = self.model
+        if hasattr(model, "stage_for_epoch"):
+            model.set_stage(model.stage_for_epoch(epoch))
+        if epoch not in getattr(model, "reset_optimizer_epochs", []):
+            return best_train_loss, best_eval_loss
+        logger.info("Epoch %s: reset the optimizer and the best losses, going on "
+                    "from the best model so far.", epoch)
+        cfg = self.training_config
+        self._restore_best()
+        self.optimizer = make_optimizer(cfg.optimizer_cls, model.parameters(),
+                                        cfg.learning_rate, cfg.optimizer_params)
+        self.scheduler = make_scheduler(cfg.scheduler_cls, self.optimizer,
+                                        cfg.scheduler_params)
+        self._best_state = None
+        return 1e12, 1e12

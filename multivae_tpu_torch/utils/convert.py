@@ -28,7 +28,13 @@ in the order Flax creates them, so ``<group>/<m>/Dense_i``, ``Conv_i``,
   reshapes its Dense output channels-first, as the port's does: no
   permutation there;
 - ``model/<name>`` (e.g. ``prior_log_var``) becomes the top-level
-  parameter ``<name>``.
+  parameter ``<name>``;
+- a single net's group (``joint_encoder``; CVAE's ``encoder``,
+  ``decoder`` and ``prior_network``) maps as one net: ``<group>/Dense_i``
+  becomes ``<group>.dense.<i>``. Inside it, a joint encoder's copies of the
+  unimodal encoders, ``dict_encoders_<m>``, become ``.dict_encoders.<m>``
+  and take the encoder rules (the row permutation above), and a
+  conditional decoder's ``Decoder_AE_MLP_0`` becomes ``.network``.
 
 Only numpy goes in; the JAX side of the conversion is the caller's.
 """
@@ -41,7 +47,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-_NET_GROUPS = ("encoders", "decoders")
+_NET_GROUPS = ("encoders", "decoders")   # modality -> net
+_SINGLE_NETS = ("joint_encoder", "encoder", "decoder", "prior_network")
 _LAYER_LISTS = {"Dense": "dense", "Conv": "conv", "ConvTranspose": "deconv",
                 "ResnetBlock": "blocks"}
 
@@ -76,10 +83,26 @@ def _flat_map_channels(layers: dict, keys: dict) -> Dict[int, int]:
     return {}
 
 
+def _submodule(name: str):
+    """(torch attribute path, encoder?) of a nested Flax module, or None."""
+    if name.startswith("dict_encoders_"):
+        return f"dict_encoders.{name[len('dict_encoders_'):]}", True
+    if name == "Decoder_AE_MLP_0":
+        return "network", False
+    return None
+
+
 def _net_state(prefix: str, layers: dict, encoder: bool) -> Dict[str, torch.Tensor]:
+    state, own = {}, {}
+    for name, leaf in layers.items():
+        sub = _submodule(name)
+        if sub is None:
+            own[name] = leaf
+        else:
+            state.update(_net_state(f"{prefix}.{sub[0]}", leaf, encoder=sub[1]))
+    layers = own
     keys = {name: _layer_key(name) for name in layers}
     flat = _flat_map_channels(layers, keys) if encoder else {}
-    state = {}
     for name, leaf in layers.items():
         kind, i = keys[name]
         key = f"{prefix}.{_LAYER_LISTS[kind]}.{i}"
@@ -103,7 +126,7 @@ def _net_state(prefix: str, layers: dict, encoder: bool) -> Dict[str, torch.Tens
 
 def params_from_jax(params: dict) -> Dict[str, torch.Tensor]:
     """Nested numpy parameter tree -> torch ``state_dict``."""
-    unknown = set(params) - set(_NET_GROUPS) - {"model"}
+    unknown = set(params) - set(_NET_GROUPS) - set(_SINGLE_NETS) - {"model"}
     if unknown:
         raise KeyError(f"Unsupported parameter groups: {sorted(unknown)}")
     state = {}
@@ -111,6 +134,9 @@ def params_from_jax(params: dict) -> Dict[str, torch.Tensor]:
         for mod, layers in params.get(group, {}).items():
             state.update(_net_state(f"{group}.{mod}", layers,
                                     encoder=group == "encoders"))
+    for group in _SINGLE_NETS:
+        if group in params:
+            state.update(_net_state(group, params[group], encoder=group != "decoder"))
     for name, leaf in params.get("model", {}).items():
         state[name] = torch.tensor(np.asarray(leaf))
     return state

@@ -91,6 +91,9 @@ DEVICE_CASES = {
     "mvae": ("MVAE", {}, "mvae_conv"),
     "mopoe": ("MoPoE", {}, "mopoe_conv"),
     "crmvae": ("CRMVAE", {}, "crmvae_resnet"),
+    "dmvae": ("DMVAE", {"modalities_specific_dim": {"a": 1}}, "dmvae_mnist_svhn"),
+    "jmvae": ("JMVAE", {}, "jmvae_conv"),
+    "telbo": ("TELBO", {}, "telbo_conv"),
 }
 
 
@@ -109,3 +112,22 @@ def test_model_default_device_raises_without_cuda(monkeypatch, case):
         with pytest.raises(RuntimeError, match="cuda"):
             workloads.build(workload, n=8)
     assert model_cls(config_cls(**cfg), device="cpu").device == torch.device("cpu")
+
+
+def test_cvae_and_multistage_trainer_default_to_cuda(monkeypatch):
+    from multivae_tpu_torch.models import CVAE, TELBO, CVAEConfig, TELBOConfig
+    from multivae_tpu_torch.tools import workloads
+    from multivae_tpu_torch.trainers import MultistageTrainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = dict(main_modality="a", conditioning_modalities=["b"],
+               input_dims={"a": (3,), "b": (2,)}, latent_dim=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        CVAE(CVAEConfig(**cfg))
+    with pytest.raises(RuntimeError, match="cuda"):
+        workloads.build("cvae_tutorial", n=8)
+    assert CVAE(CVAEConfig(**cfg), device="cpu").device == torch.device("cpu")
+    telbo = TELBO(TELBOConfig(n_modalities=1, latent_dim=2, input_dims={"a": (3,)}),
+                  device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        MultistageTrainer(telbo, None)

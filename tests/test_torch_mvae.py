@@ -10,7 +10,8 @@ are ``jax.random.choice`` of the JAX code, handed to the port through
 every metric and every parameter gradient with and without sub-sampling,
 with k random subsets and during the KL warm-up; the eval-mode objective
 (no random subsets) against the JAX package's ``eval_loss_function``; a
-3-epoch ``BaseTrainer`` curve with an eval set; encode / predict /
+3-epoch ``BaseTrainer`` curve with an eval set, and a 4-epoch one without,
+with the kept weights of the keep-best window; encode / predict /
 generate_from_prior; the joint NLL; the config JSON round-trip.
 """
 
@@ -35,7 +36,6 @@ from multivae_tpu.nn import Encoder_VAE_MLP as JEncoder
 from multivae_tpu.ops import subsets as jsubsets
 from multivae_tpu.trainers import BaseTrainer as JTrainer
 from multivae_tpu.trainers import BaseTrainerConfig as JTrainerConfig
-from multivae_tpu.trainers.base.callbacks import TrainingCallback
 from multivae_tpu_torch.data import IncompleteDataset, MultimodalBaseDataset, batch_from_arrays
 from multivae_tpu_torch.models import MVAE, MVAEConfig
 from multivae_tpu_torch.models.base.step import StepInfo
@@ -43,6 +43,7 @@ from multivae_tpu_torch.nn import BaseAEConfig, Decoder_AE_MLP, Encoder_VAE_MLP
 from multivae_tpu_torch.ops import subsets
 from multivae_tpu_torch.trainers import BaseTrainer, BaseTrainerConfig
 from multivae_tpu_torch.utils.convert import params_from_jax
+from torch_parity import Recorder, assert_same_moves, state_of
 
 torch.set_num_threads(2)
 
@@ -220,36 +221,11 @@ def test_eval_mode_draws_no_random_subsets_like_jax_eval_loss_function():
     assert {"random_subset_0", "random_subset_1"} <= set(out.metrics)
 
 
-class _Recorder(TrainingCallback):
-    def __init__(self):
-        self.logs = []
-
-    def on_log(self, training_config, logs, **kwargs):
-        self.logs.append(dict(logs))
-
-
-def test_trainer_curve_matches_jax_trainer(tmp_path):
-    """3 epochs of BaseTrainer (Adam 1e-3, a 2-epoch warm-up, one random
-    subset a train step) on 20 incomplete rows in batches of 8 (the last one
-    padded), with a 16-row eval set, against the JAX trainer: same weights
-    and batch order, the port's draws patched to the JAX trainer's (train:
+def _feed_jax_trainer_draws(trainer, tmodel):
+    """Patch the port's draws to the JAX trainer's (train:
     ``fold_in(key(seed), step)``; eval, without random subsets:
-    ``key(seed + 1000 + epoch)``)."""
-    data, masks, _ = _arrays(True, seed=5, n=20)
-    eval_data, _, _ = _arrays(False, seed=6, n=16)
-    common = dict(num_epochs=3, learning_rate=1e-3, per_device_train_batch_size=8,
-                  per_device_eval_batch_size=8, seed=SEED, optimizer_cls="Adam")
-    jmodel, tmodel = _models(k=1, warmup=2)
-    rec = _Recorder()
-    JTrainer(jmodel, JIncompleteDataset(data, masks), JDataset(eval_data),
-             training_config=JTrainerConfig(output_dir=str(tmp_path / "jax"),
-                                            n_devices=1, **common),
-             callbacks=[rec]).train()
-
-    trainer = BaseTrainer(tmodel, IncompleteDataset(data, masks),
-                          MultimodalBaseDataset(eval_data), device="cpu",
-                          training_config=BaseTrainerConfig(
-                              output_dir=str(tmp_path / "torch"), **common))
+    ``key(seed + 1000 + epoch)``); returns the step counter and the log of
+    draw calls."""
     steps, calls = itertools.count(), []
 
     def draws_for(generator):
@@ -271,6 +247,46 @@ def test_trainer_curve_matches_jax_trainer(tmp_path):
         return current["draws"].noise(shape)
 
     tmodel.draw_noise, tmodel.draw_subsets = noise_hook, subsets_hook
+    return steps, calls
+
+
+def _trainer_pair(tmp_path, data, masks, eval_data, num_epochs):
+    """The JAX trainer (trained, with its logged epochs) and the port's, on
+    the same weights: Adam 1e-3, a 2-epoch warm-up, one random subset a
+    train step, batches of 8."""
+    common = dict(num_epochs=num_epochs, learning_rate=1e-3,
+                  per_device_train_batch_size=8, per_device_eval_batch_size=8,
+                  seed=SEED, optimizer_cls="Adam")
+    jmodel, tmodel = _models(k=1, warmup=2)
+    rec = Recorder()
+    jtrainer = JTrainer(jmodel, JIncompleteDataset(data, masks),
+                        None if eval_data is None else JDataset(eval_data),
+                        training_config=JTrainerConfig(output_dir=str(tmp_path / "jax"),
+                                                       n_devices=1, **common),
+                        callbacks=[rec])
+    jtrainer.train()
+    start = {k: v.clone() for k, v in tmodel.state_dict().items()}
+    trainer = BaseTrainer(tmodel, IncompleteDataset(data, masks),
+                          None if eval_data is None else MultimodalBaseDataset(eval_data),
+                          device="cpu", training_config=BaseTrainerConfig(
+                              output_dir=str(tmp_path / "torch"), **common))
+    return jtrainer, rec, trainer, tmodel, start
+
+
+def test_trainer_curve_matches_jax_trainer(tmp_path):
+    """3 epochs of BaseTrainer (Adam 1e-3, a 2-epoch warm-up, one random
+    subset a train step) on 20 incomplete rows in batches of 8 (the last one
+    padded), with a 16-row eval set, against the JAX trainer: same weights
+    and batch order, the port's draws patched to the JAX trainer's (train:
+    ``fold_in(key(seed), step)``; eval, without random subsets:
+    ``key(seed + 1000 + epoch)``). Every epoch is in the keep-best window
+    (``start_keep_best_epoch`` 3): both keep the last epoch's weights and
+    leave the best eval loss at inf."""
+    data, masks, _ = _arrays(True, seed=5, n=20)
+    eval_data, _, _ = _arrays(False, seed=6, n=16)
+    jtrainer, rec, trainer, tmodel, start = _trainer_pair(tmp_path, data, masks,
+                                                          eval_data, 3)
+    steps, calls = _feed_jax_trainer_draws(trainer, tmodel)
     trainer.train()
     assert next(steps) == 3 * 3                 # 3 epochs x 3 steps
     # each train step draws its subset, then its noise; eval steps draw noise only
@@ -282,6 +298,38 @@ def test_trainer_curve_matches_jax_trainer(tmp_path):
         np.testing.assert_allclose(ours, ref, rtol=1e-4, err_msg=key)
     assert "train_random_subset_0" in trainer.history[0]
     assert "eval_random_subset_0" not in trainer.history[0]
+    assert trainer.best_eval_loss == jtrainer.best_eval_loss == np.inf
+    assert_same_moves(trainer._best_state, state_of(jtrainer.best_params), start, 1e-3)
+    for name, v in tmodel.state_dict().items():
+        assert torch.equal(trainer._best_state[name], v), name
+
+
+def test_trainer_without_eval_set_keeps_the_first_epoch_after_warmup(tmp_path):
+    """Without an eval set an epoch after the keep-best window counts as no
+    better than the best so far (inf): the JAX trainer and the port keep
+    epoch ``warmup + 1`` = 3 of 4, not the last one."""
+    data, masks, _ = _arrays(True, seed=5, n=20)
+    jtrainer, rec, trainer, tmodel, start = _trainer_pair(tmp_path, data, masks, None, 4)
+    _feed_jax_trainer_draws(trainer, tmodel)
+    snapshots = []
+    finalize = trainer._finalize_epoch
+
+    def finalize_and_record(*args):
+        finalize(*args)
+        snapshots.append({k: v.clone() for k, v in tmodel.state_dict().items()})
+
+    trainer._finalize_epoch = finalize_and_record
+    trainer.train()
+    np.testing.assert_allclose([h["train_epoch_loss"] for h in trainer.history],
+                               [h["train_epoch_loss"] for h in rec.logs], rtol=1e-4)
+    assert trainer.best_eval_loss == jtrainer.best_eval_loss == np.inf
+    assert_same_moves(trainer._best_state, state_of(jtrainer.best_params), start, 1e-3)
+    for name, v in trainer._best_state.items():
+        assert torch.equal(v, snapshots[2][name]), name
+    assert any(not torch.equal(v, snapshots[3][k]) for k, v in trainer._best_state.items())
+    assert trainer.best_model is tmodel
+    for name, v in tmodel.state_dict().items():
+        assert torch.equal(v, snapshots[2][name]), name
 
 
 def test_encode_predict_generate_match_jax():

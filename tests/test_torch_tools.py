@@ -10,6 +10,7 @@ import torch
 
 from multivae_tpu_torch.nn import mmnist
 from multivae_tpu_torch.tools import profile_mmvae, workloads
+from multivae_tpu_torch.trainers import MultistageTrainer
 
 CUDA, CPU = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
 
@@ -48,10 +49,37 @@ def test_device_times_leave_out_annotations_and_host_events():
     assert launches["multi_tensor_apply_kernel"] == 2
 
 
+def _check_small_published_workload(name, w):
+    """DMVAE's MNIST-SVHN run and the CVAE tutorial: their own shapes, no
+    eval set."""
+    model = w.model
+    assert w.eval is None and w.trainer_cls is None
+    assert w.trainer_kwargs["learning_rate"] == 1e-3
+    if name == "dmvae_mnist_svhn":
+        assert {k: tuple(v) for k, v in model.input_dims.items()} == {
+            "mnist": (1, 28, 28), "svhn": (3, 32, 32)}
+        assert (model.latent_dim, model.style_dims) == (10, {"mnist": 1, "svhn": 4})
+        assert model.rescale_factors == {"mnist": 50, "svhn": 1}
+        assert model.decoders["svhn"].latent_dim == 14
+        assert model.encoders["mnist"].dense[0].out_features == 512
+        assert w.trainer_kwargs["per_device_train_batch_size"] == 256
+        return
+    assert (model.main_modality, model.conditioning_modalities) == ("target",
+                                                                    ["cond_a", "cond_b"])
+    assert model.latent_dim == 8 and model.prior_network is not None
+    assert model.decoder.network.dense[0].in_features == 8 + 6 + 16
+    assert w.trainer_kwargs["per_device_train_batch_size"] == 64
+    assert model.model_config.custom_architectures == ["prior_network"]
+
+
 @pytest.mark.parametrize("name", workloads.NAMES)
 def test_workloads_have_the_published_widths(name):
     w = workloads.build(name, n=8, n_eval=4, device="cpu")
     model = w.model
+    if name in ("dmvae_mnist_svhn", "cvae_tutorial"):
+        _check_small_published_workload(name, w)
+        return
+    assert (w.trainer_cls is MultistageTrainer) == (name == "telbo_conv")
     plus = name.startswith("mmvaeplus")
     small = name.startswith(("mmvaeplus", "cmvae"))
     assert model.latent_dim == (32 if small else 512)
@@ -111,6 +139,17 @@ def test_workloads_have_the_published_widths(name):
     elif name == "mopoe_conv":
         assert model.beta == 2.5 and len(model.subsets) == 31
         assert w.trainer_kwargs["drop_last"] and hasattr(w.train, "masks")
+    elif name in ("jmvae_conv", "telbo_conv"):
+        # complete data; the joint encoder fuses copies of the 5 conv encoders
+        assert not hasattr(w.train, "masks")
+        assert isinstance(model.joint_encoder.dict_encoders["m0"],
+                          mmnist.EncoderConvMMNIST_adapted)
+        assert model.joint_encoder.dense[0].in_features == 5 * 512
+        assert model.model_config.custom_architectures == ["encoders", "decoders"]
+        if name == "jmvae_conv":
+            assert (model.alpha, model.warmup, model.start_keep_best_epoch) == (0.1, 200, 201)
+        else:
+            assert (model.warmup, model.reset_optimizer_epochs) == (2, [2])
     else:
         assert (model.alpha, model.beta) == (5.0 / 6.0, 2.5)
     assert w.trainer_kwargs["scheduler_cls"] == "ReduceLROnPlateau"

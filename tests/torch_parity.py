@@ -1,0 +1,91 @@
+"""Helpers of the tests that hold a port model to its JAX counterpart: the
+JAX package's noise as torch tensors, the port's trainer fed the JAX
+trainer's noise, and parameter trees as port ``state_dict``s."""
+
+import itertools
+
+import numpy as np
+import torch
+
+import jax
+
+from multivae_tpu.trainers.base.callbacks import TrainingCallback
+from multivae_tpu_torch.utils.convert import params_from_jax
+
+
+def normal(key, shape):
+    """``jax.random.normal(key, shape)`` as a torch tensor."""
+    return torch.tensor(np.asarray(jax.random.normal(key, tuple(shape))))
+
+
+def chain(key, n):
+    """The keys ``iwae_log_marginal`` hands its chunks: the carry split once
+    per chunk."""
+    subs = []
+    for _ in range(n):
+        key, sub = jax.random.split(key)
+        subs.append(sub)
+    return subs
+
+
+def state_of(params):
+    """A JAX parameter tree as the port's ``state_dict``."""
+    return params_from_jax(jax.tree.map(np.asarray, params))
+
+
+def port_model(jmodel, tmodel):
+    """``tmodel`` with ``jmodel``'s weights."""
+    tmodel.load_state_dict(state_of(jmodel.params))
+    return tmodel
+
+
+class Recorder(TrainingCallback):
+    """The JAX trainer's logged epoch metrics."""
+
+    def __init__(self):
+        self.logs = []
+
+    def on_log(self, training_config, logs, **kwargs):
+        self.logs.append(dict(logs))
+
+
+def feed_trainer_noise(trainer, model, draws_of_key, seed):
+    """Make the port's ``trainer`` draw the JAX trainer's noise: a train
+    step's loss gets ``draws_of_key(fold_in(key(seed), step))``, an eval
+    step's ``draws_of_key(key(seed + 1000 + epoch))`` (the eval generator's
+    seed), where ``draws_of_key(key)`` returns the ``draw_noise`` hook of
+    one loss call. Returns the counter of train steps, which goes on across
+    an optimizer reset as the JAX trainer's step does."""
+    steps = itertools.count()
+    current = {}
+
+    def noise(shape, generator=None):
+        return current["hook"](shape, generator)
+
+    def loss_function(batch, step=None, generator=None):
+        if generator is trainer.generator:
+            key = jax.random.fold_in(jax.random.key(seed), next(steps))
+        else:
+            key = jax.random.key(generator.initial_seed())
+        current["hook"] = draws_of_key(key)
+        return type(model).loss_function(model, batch, step, generator)
+
+    model.loss_function = loss_function
+    model.draw_noise = noise
+    return steps
+
+
+def assert_same_moves(ours: dict, ref: dict, start: dict, lr: float):
+    """Weights ``ours`` and ``ref`` (``state_dict``s; ``ref`` the JAX
+    package's), both trained from ``start`` at ``lr``: each tensor's move
+    from ``start`` agrees with the JAX one to 1e-3 of its norm, and no entry
+    differs by more than a tenth of an Adam step. Adam divides each gradient
+    by its running RMS, so an entry whose gradient is ~0 moves in a
+    direction float32 noise sets: an elementwise relative test would
+    measure that noise."""
+    assert set(ref) == set(ours)
+    for name, v in ours.items():
+        move, ref_move = (v - start[name]).double(), (ref[name] - start[name]).double()
+        err = (move - ref_move).norm().item()
+        assert err <= 1e-3 * ref_move.norm().item() + 1e-7, (name, err)
+        assert (move - ref_move).abs().max().item() <= 0.1 * lr, name
