@@ -91,15 +91,41 @@ Phases (any failure exits non-zero and prints no result line):
     published MNIST-SVHN run, 16 steps), ``jmvae_conv`` (JMVAE on the conv
     protocol, complete data, 16 steps), ``telbo_conv`` (TELBO, warm-up 2,
     3 epochs of 4 steps through the ``MultistageTrainer``: the optimizer
-    reset at epoch 2 and the stage flip at epoch 3) and ``cvae_tutorial``
+    reset at epoch 2 and the stage flip at epoch 3; the 8-row loss in
+    stage 1 too) and ``cvae_tutorial``
     (the CVAE tutorial, 3 epochs of 4 steps); finite losses, the 8-row loss
     card vs CPU, no mixture launch; then ``joint_inference`` on the first
     three: encode, predict, prior, K=1000 NLL seconds and peak memory
     (DMVAE on 512 rows, JMVAE and TELBO on 256), 8-row K=20 NLLs card vs
     CPU; and CVAE's predict (from all modalities and from the prior of the
     conditioning ones) and generate_from_prior;
-12. a ``kernels`` JSON line (launches summed over every training and
-    inference phase that runs the kernels), then the last line
+12. ``jnf_conv``: JNF on the conv protocol (complete data, no eval set,
+    warm-up 1), 3 epochs of 8 steps through the ``MultistageTrainer``: the
+    optimizer reset and the stage flip both at epoch 2, exactly one reset,
+    steps/s for each stage, the 8-row loss card vs CPU in stage 1 and in
+    stage 2, no mixture launch;
+13. ``jnf_inference``: the K=1000 joint NLL on 256 rows (seconds, peak,
+    8 rows with K=20 card vs CPU), encode from one modality on 256 rows
+    (2 x 512 sequential MADE passes) and from two modalities by HMC at the
+    defaults (100 steps of 10 leapfrog steps) on 64 rows, timed, predict
+    from those two; card vs CPU on 8 rows with the same draws: the
+    one-modality encode, and HMC at 5 steps, whose accept decisions must
+    agree (the smallest |u - alpha| is printed);
+14. ``samplers``: on the trained JNF's latents of 20,480 random PolyMNIST
+    rows, ``MAFSampler`` (20 epochs, batch 256, lr 1e-3), ``IAFSampler``
+    (1 epoch on 2,048 rows: its density pass is sequential) and a
+    10-component full-covariance ``GaussianMixtureSampler``, each then
+    drawing 256 latents; ``MAFSampler`` and ``GaussianMixtureSampler`` on
+    the trained DMVAE (shared 10, private 1 and 4); fit and sample seconds,
+    EM iterations and lower bounds, peaks; the seconds of one EM iteration
+    on the JNF latents (20 iterations from fixed labels against one, so
+    that the fit's time scales to the iterations other latents need);
+    finite samples; card vs CPU:
+    one EM iteration from the same labels, one MAF fit step (loss and
+    gradients), the MAF's inverse of a fixed u;
+15. the seconds the whole run took, a ``kernels`` JSON line (launches
+    summed over every training and inference phase that runs the kernels),
+    then the last line
     ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -143,6 +169,11 @@ GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-3
 # different matmul and reduction order over ~10^4-sized log-weights.
 # The same holds for the MVTCAE losses and the 8-row joint NLL.
 LOSS_RTOL = 1e-4
+# JNF's encode (2 x 512 sequential MADE passes, or HMC's leapfrog through
+# the flows' gradients), a MAF's inverse and the GMM means, card vs CPU on
+# the same draws: float32 differences carried through many dependent
+# passes, compared to the output's largest entry.
+ENCODE_RTOL = 1e-4
 
 SLICE_SHAPE = dict(mz=5, k=10, b=256, d=512, mq=5)
 RAGGED_SHAPE = dict(mz=3, k=4, b=37, d=100, mq=3)
@@ -502,7 +533,9 @@ def workload_run(mx, name, n=2048, epochs=2, device="cuda", per_step=None):
     ``per_step`` times (forward, full and dz-only backward) on each train
     step and the forwards on each eval step: none on the MVTCAE workloads.
     The steps are counted by a hook on the optimizer, set again on the new
-    optimizer of a ``MultistageTrainer`` reset."""
+    optimizer of a ``MultistageTrainer`` reset; a two-stage model's steps/s
+    are also given for each stage, and its 8-row loss is checked card vs CPU
+    in stage 1 too."""
     from multivae_tpu_torch.tools import workloads
     from multivae_tpu_torch.trainers import BaseTrainer, BaseTrainerConfig
 
@@ -559,15 +592,21 @@ def workload_run(mx, name, n=2048, epochs=2, device="cuda", per_step=None):
           f"{name}: {len(optimizers) - 1} optimizer resets, expected {resets}")
     # time between consecutive steps of one epoch: the first step and the
     # epoch ends (eval pass, loss fetch) stay out
-    gaps = [a.elapsed_time(b) for (ea, a), (eb, b) in zip(step_ends, step_ends[1:])
+    gaps = [(ea, a.elapsed_time(b)) for (ea, a), (eb, b) in zip(step_ends, step_ends[1:])
             if ea == eb]
     record = {"phase": name, "steps": len(step_ends), "eval_steps": eval_steps,
-              "epoch_losses": losses, "steps_per_s": len(gaps) / (sum(gaps) / 1e3),
+              "epoch_losses": losses,
+              "steps_per_s": len(gaps) / (sum(g for _, g in gaps) / 1e3),
               "peak_mem_bytes": torch.cuda.max_memory_allocated(),
               "peak_above_held_bytes": torch.cuda.max_memory_allocated() - held,
               "wall_s": wall_s, "launches": launches}
     if resets:
         record.update(optimizer_resets=resets, final_stage=w.model.current_stage)
+        by_stage = {}
+        for epoch, gap in gaps:   # epoch: 0-based
+            by_stage.setdefault(w.model.stage_for_epoch(epoch + 1), []).append(gap)
+        record["steps_per_s_by_stage"] = {
+            stage: len(g) / (sum(g) / 1e3) for stage, g in sorted(by_stage.items())}
     if w.eval is not None:
         record["eval_losses"] = [h["eval_epoch_loss"] for h in trainer.history]
         record["lr"] = trainer.optimizer.param_groups[0]["lr"]
@@ -579,6 +618,14 @@ def workload_run(mx, name, n=2048, epochs=2, device="cuda", per_step=None):
 
     loss = card_vs_cpu(w.model, small_loss, recorded_draws(w.model, small_loss, 1))
     record.update({f"small_loss_{k}": v for k, v in loss.items()})
+    if resets:
+        final = w.model.current_stage
+        w.model.set_stage(1)
+        try:
+            loss = card_vs_cpu(w.model, small_loss, recorded_draws(w.model, small_loss, 1))
+        finally:
+            w.model.set_stage(final)
+        record.update({f"small_loss_stage1_{k}": v for k, v in loss.items()})
     return record, w, launches
 
 
@@ -757,7 +804,265 @@ def cvae_surface(w):
     return {"rows": 64, "seconds": time.perf_counter() - t0}
 
 
+def _hmc_hooks(net, expert, noise, uniform):
+    """Feed ``net`` (JNF) the given draws in order."""
+    queues = {"noise": list(noise), "uniform": list(uniform)}
+
+    def draw(kind, shape):
+        u = queues[kind].pop(0)
+        check(tuple(u.shape) == tuple(shape), f"{kind} {tuple(u.shape)} != {shape}")
+        return u.to(net.device)
+
+    hooks = {"draw_noise": lambda shape, generator=None: draw("noise", shape),
+             "draw_uniform": lambda shape, generator=None: draw("uniform", shape),
+             "draw_experts": lambda n, rows, generator=None: expert.to(net.device)}
+    for k, v in hooks.items():
+        setattr(net, k, v)
+    return hooks, queues
+
+
+def jnf_encode_card_vs_cpu(model, batch, cond, mcmc_steps=0):
+    """JNF's encode of ``batch`` from ``cond`` on the card and on a float32
+    CPU copy, fed the same draws (the expert per row, the start's noise,
+    each HMC step's momentum and uniforms): the largest difference of z
+    beside max|z|, and for HMC both runs' accept decisions, which must
+    agree, and the smallest |u - alpha| of the CPU run (alpha: the chain's
+    Metropolis ratios, ``last_hmc_ratios``)."""
+    gen = torch.Generator().manual_seed(3)
+    n, d = batch.n_samples, model.latent_dim
+    expert = torch.randint(len(cond), (n,), generator=gen)
+    noise = [torch.randn(n, d, generator=gen) for _ in range(1 + mcmc_steps)]
+    uniform = [torch.rand(n, generator=gen) for _ in range(mcmc_steps)]
+    out = {}
+    for key, net in (("card", model), ("cpu", copy.deepcopy(model).to("cpu"))):
+        hooks, queues = _hmc_hooks(net, expert, noise, uniform)
+        try:
+            z = net.encode(batch, cond_mod=list(cond), mcmc_steps=mcmc_steps).z.cpu()
+        finally:
+            for k in hooks:
+                delattr(net, k)
+        check(not any(queues.values()), f"draws left unused: {queues}")
+        tests = list(zip(uniform, net.last_hmc_ratios.cpu())) if mcmc_steps else []
+        out[key] = (z, tests)
+    (z_card, t_card), (z_cpu, t_cpu) = out["card"], out["cpu"]
+    err, scale = (z_card - z_cpu).abs().max().item(), z_cpu.abs().max().item()
+    record = {"rows": n, "cond_mod": list(cond), "max_abs_err": err, "max_abs_z": scale}
+    check(bool(torch.isfinite(z_card).all()), "jnf encode: non-finite z")
+    check(err <= ENCODE_RTOL * scale, f"jnf encode {cond}: card vs cpu {err} (max|z| {scale})")
+    if mcmc_steps:
+        accepts = [torch.equal(uc < ac, up < ap) for (uc, ac), (up, ap) in zip(t_card, t_cpu)]
+        check(len(t_card) == len(t_cpu) == mcmc_steps and all(accepts),
+              "jnf HMC: the card and the CPU decided an accept test differently")
+        record.update(mcmc_steps=mcmc_steps,
+                      accepted=int(sum((u < a).sum().item() for u, a in t_cpu)),
+                      tests=mcmc_steps * n,
+                      min_margin=min((u - a).abs().min().item() for u, a in t_cpu))
+    return record
+
+
+def jnf_inference(mx, w, rows=256, hmc_rows=64, repeats=3):
+    """The trained JNF: the K=1000 joint NLL on ``rows`` rows (seconds,
+    peak, and 8 rows with K=20 card vs CPU); encode from one modality on
+    ``rows`` rows (2 x 512 sequential MADE passes) and from two modalities
+    by HMC at the defaults (100 steps of 10 leapfrog steps) on
+    ``hmc_rows`` rows, timed, and predict from those two; card vs CPU on
+    8 rows with the draws injected: the one-modality encode, and the HMC at
+    5 steps, whose accept decisions must agree. No mixture launch."""
+    model, data = w.model, w.train
+    mods = list(model.input_dims)
+    record = {"phase": "jnf_inference"}
+    record["joint_nll"], _ = nll_phase(mx, "jnf_conv", model, data, "joint_nll", rows, 0,
+                                       NLL_K, NLL_CHUNK, repeats)
+    mx.reset_launches()
+    batch = rows_batch(data, np.arange(rows))
+    sub = rows_batch(data, np.arange(hmc_rows))
+    for label, rows_, cond, reps in (("encode_one", batch, mods[:1], repeats),
+                                     ("encode_hmc", sub, mods[:2], 1)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        _, seconds, warmup = timed(lambda: model.encode(rows_, cond_mod=cond).z, reps)
+        record[label] = {"rows": rows_.n_samples, "cond_mod": cond, "seconds": seconds,
+                         "warmup_s": warmup,
+                         "peak_above_held_bytes": torch.cuda.max_memory_allocated() - held}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred = model.predict(sub, cond_mod=mods[:2], gen_mod="all")
+    torch.cuda.synchronize()
+    record["predict_hmc"] = {"rows": hmc_rows, "seconds": time.perf_counter() - t0}
+    for m, d in model.input_dims.items():
+        check(pred[m].shape == (hmc_rows, *d) and bool(torch.isfinite(pred[m]).all()),
+              f"jnf predict {m}: {tuple(pred[m].shape)}")
+    eight = rows_batch(data, np.arange(8))
+    record["encode_one_card_vs_cpu"] = jnf_encode_card_vs_cpu(model, eight, mods[:1])
+    record["hmc_card_vs_cpu"] = jnf_encode_card_vs_cpu(model, eight, mods[:2], mcmc_steps=5)
+    check(not any(mx.launches.values()), f"jnf inference launched {mx.launches}")
+    return record
+
+
+def _sampler_stub(dim, device):
+    """What a flow sampler reads of a model: one latent space of ``dim``."""
+    import types
+
+    return types.SimpleNamespace(model_config=types.SimpleNamespace(latent_dim=dim),
+                                 multiple_latent_spaces=False, device=torch.device(device))
+
+
+def sampler_run(mx, sampler, dataset, n_samples, **fit_kwargs):
+    """Fit ``sampler`` on ``dataset`` (the fit encodes it), then draw
+    ``n_samples``: seconds of each, the peak above what was held, finite
+    samples of the shapes of ``model.encode``'s, no mixture launch."""
+    model = sampler.model
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    mx.reset_launches()
+    t0 = time.perf_counter()
+    sampler.fit(dataset, **fit_kwargs)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = sampler.sample(n_samples)
+    torch.cuda.synchronize()
+    record = {"rows": len(dataset), "fit_s": fit_s, "sample_s": time.perf_counter() - t0,
+              "n_samples": n_samples,
+              "peak_above_held_bytes": torch.cuda.max_memory_allocated() - held}
+    shapes = {"z": (out.z, model.latent_dim)}
+    if model.multiple_latent_spaces:
+        shapes.update({m: (out.modalities_z[m], d) for m, d in model.style_dims.items()})
+    for key, (z, d) in shapes.items():
+        check(tuple(z.shape) == (n_samples, d) and bool(torch.isfinite(z).all()),
+              f"{sampler.name} {key}: {tuple(z.shape)}, finite {bool(torch.isfinite(z).all())}")
+    check(out.one_latent_space is not model.multiple_latent_spaces, "one_latent_space")
+    if hasattr(sampler, "last_loss"):
+        record["last_loss"] = dict(sampler.last_loss)
+    if hasattr(sampler, "gmm"):
+        gmms = {"shared": sampler.gmm, **getattr(sampler, "mod_gmms", {})}
+        record["gmm"] = {k: {"n_iter": g.n_iter, "lower_bound": g.lower_bound.item()}
+                         for k, g in gmms.items()}
+    check(not any(mx.launches.values()), f"{sampler.name} launched {mx.launches}")
+    return record
+
+
+def samplers_card_vs_cpu(maf, z, n_components=10):
+    """On the latents ``z`` (card): one EM iteration from the same labels,
+    one MAF fit step (the first 256 latents, one batch of the plan) from the
+    fitted MAF's weights (its loss, and its gradients normwise), and that
+    MAF's inverse of a fixed u, each on the card and on the CPU."""
+    from multivae_tpu_torch.ops import gmm
+    from multivae_tpu_torch.samplers import MAFSampler
+
+    devices = {"card": z.device, "cpu": torch.device("cpu")}
+    record = {}
+    labels = torch.arange(z.shape[0]) % n_components
+    fits = {k: gmm.fit_gmm(z.to(dev), n_components, labels=labels, max_iter=1)
+            for k, dev in devices.items()}
+    lb = {k: f.lower_bound.item() for k, f in fits.items()}
+    means_err = (fits["card"].means.cpu() - fits["cpu"].means).abs().max().item()
+    means_scale = fits["cpu"].means.abs().max().item()
+    record["em_iteration"] = {"rows": z.shape[0], "lower_bound_card": lb["card"],
+                              "lower_bound_cpu": lb["cpu"], "means_max_abs_err": means_err}
+    check(abs(lb["card"] - lb["cpu"]) <= LOSS_RTOL * abs(lb["cpu"]),
+          f"EM lower bound card {lb['card']} vs cpu {lb['cpu']}")
+    check(means_err <= ENCODE_RTOL * means_scale, f"EM means card vs cpu {means_err}")
+
+    flow = maf.flows_models["shared"]
+    start = {k: v.detach().cpu().clone() for k, v in flow.state_dict().items()}
+    grads, losses = {}, {}
+    for k, dev in devices.items():
+        stub = MAFSampler(_sampler_stub(z.shape[1], dev), maf.sampler_config)
+        stub.flows_models["shared"].load_state_dict(start)
+        stub._fit_one_flow("shared", z[:256].to(dev), 1, 256, 1e-3)
+        losses[k] = stub.last_loss["shared"]
+        # the gradients of the step (the sign of an Adam step on a gradient
+        # within float32 noise of 0 is noise itself)
+        grads[k] = {name: p.grad.cpu()
+                    for name, p in stub.flows_models["shared"].named_parameters()}
+    grad_err = max((grads["card"][name] - g).norm().item() / g.norm().item()
+                   for name, g in grads["cpu"].items() if g.any())
+    record["maf_fit_step"] = {"loss_card": losses["card"], "loss_cpu": losses["cpu"],
+                              "max_relative_grad_err": grad_err}
+    check(abs(losses["card"] - losses["cpu"]) <= LOSS_RTOL * abs(losses["cpu"]),
+          f"MAF fit step loss card {losses['card']} vs cpu {losses['cpu']}")
+    check(grad_err <= GRAD_RTOL, f"MAF fit step gradients card vs cpu {grad_err}")
+
+    u = torch.randn(8, z.shape[1], generator=torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        x_card = flow.inverse(u.to(z.device))["out"].cpu()
+        x_cpu = copy.deepcopy(flow).cpu().inverse(u)["out"]
+    err, scale = (x_card - x_cpu).abs().max().item(), x_cpu.abs().max().item()
+    record["maf_inverse"] = {"rows": 8, "max_abs_err": err, "max_abs_x": scale}
+    check(err <= ENCODE_RTOL * scale, f"MAF inverse card vs cpu {err} (max|x| {scale})")
+    return record
+
+
+def em_iterations(z, n_components, n_iter=20):
+    """EM on the latents ``z`` from fixed labels, run to ``n_iter``
+    iterations whatever its convergence (tol 0), against one iteration:
+    the seconds of an EM iteration, which scale the converged fit's time to
+    the iterations other latents need."""
+    from multivae_tpu_torch.ops import gmm
+
+    labels = torch.arange(z.shape[0]) % n_components
+    seconds = {}
+    for iters in (1, 1 + n_iter):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit = gmm.fit_gmm(z, n_components, labels=labels, max_iter=iters, tol=0.0)
+        torch.cuda.synchronize()
+        seconds[iters] = time.perf_counter() - t0
+        check(fit.n_iter == iters and bool(torch.isfinite(fit.means).all()),
+              f"EM ran {fit.n_iter} of {iters} iterations")
+    return {"rows": z.shape[0], "n_components": n_components, "one_iteration_fit_s":
+            seconds[1], f"fit_{1 + n_iter}_iterations_s": seconds[1 + n_iter],
+            "s_per_iteration": (seconds[1 + n_iter] - seconds[1]) / n_iter}
+
+
+def samplers_phase(mx, jnf, dmvae, n_rows=20480, iaf_rows=2048, n_samples=256,
+                   n_components=10):
+    """The three samplers on the trained JNF's latents of ``n_rows`` random
+    PolyMNIST rows (the case study's settings: MAF 20 epochs of batch 256
+    at lr 1e-3, a 10-component full-covariance GMM; IAF 1 epoch on
+    ``iaf_rows``), then MAF and GMM on the trained DMVAE (shared 10, private
+    1 and 4); then the card-vs-CPU checks of ``samplers_card_vs_cpu``.
+    ``n_components`` (10) is the GMMs' and the EM check's."""
+    from multivae_tpu_torch.data import MultimodalBaseDataset
+    from multivae_tpu_torch.samplers import (
+        GaussianMixtureSampler,
+        GaussianMixtureSamplerConfig,
+        IAFSampler,
+        MAFSampler,
+    )
+
+    rng = np.random.default_rng(1)
+    data = MultimodalBaseDataset({m: rng.random((n_rows, *d), dtype=np.float32)
+                                  for m, d in jnf.model.input_dims.items()})
+    small = MultimodalBaseDataset(data.get_batch(np.arange(iaf_rows))["data"])
+    record = {"phase": "samplers"}
+    maf = MAFSampler(jnf.model)
+    flow_fit = dict(num_epochs=20, batch_size=256, learning_rate=1e-3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    z, _ = maf._collect_latents(data, batch_size=256)
+    torch.cuda.synchronize()
+    record["jnf_collect_latents"] = {"rows": n_rows, "seconds": time.perf_counter() - t0}
+    record["jnf_maf"] = sampler_run(mx, maf, data, n_samples, **flow_fit)
+    record["jnf_iaf"] = sampler_run(mx, IAFSampler(jnf.model), small, n_samples,
+                                    **{**flow_fit, "num_epochs": 1})
+    gmm_config = GaussianMixtureSamplerConfig(n_components=n_components)
+    record["jnf_gmm"] = sampler_run(mx, GaussianMixtureSampler(jnf.model, gmm_config), data,
+                                    n_samples)
+    record["jnf_em_iterations"] = em_iterations(z, n_components)
+    record["dmvae_maf"] = sampler_run(mx, MAFSampler(dmvae.model), dmvae.train, n_samples,
+                                      **flow_fit)
+    record["dmvae_gmm"] = sampler_run(mx, GaussianMixtureSampler(dmvae.model, gmm_config),
+                                      dmvae.train, n_samples)
+    record["card_vs_cpu"] = samplers_card_vs_cpu(maf, z, n_components)
+    return record
+
+
 def main():
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU.", file=sys.stderr)
@@ -887,6 +1192,11 @@ def main():
             "telbo_conv": [("joint_nll", 256, 0)]})
         record["cvae_tutorial"] = cvae
         print(json.dumps(record))
+
+        record, jnf, _ = workload_run(mx, "jnf_conv", n=2048, epochs=3)
+        print(json.dumps(record))
+        print(json.dumps(jnf_inference(mx, jnf)))
+        print(json.dumps(samplers_phase(mx, jnf, joint["dmvae_mnist_svhn"])))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -902,6 +1212,7 @@ def main():
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None,
         })
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -4,6 +4,7 @@ from .crmvae import CRMVAE, CRMVAEConfig
 from .cvae import CVAE, CVAEConfig
 from .dmvae import DMVAE, DMVAEConfig
 from .jmvae import JMVAE, JMVAEConfig
+from .jnf import JNF, JNFConfig
 from .joint_models import BaseJointModel, BaseJointModelConfig
 from .mmvae import MMVAE, MMVAEConfig
 from .mmvaePlus import MMVAEPlus, MMVAEPlusConfig
@@ -14,6 +15,7 @@ from .telbo import TELBO, TELBOConfig
 
 __all__ = ["BaseJointModel", "BaseJointModelConfig", "BaseModel", "BaseMultiVAE",
            "BaseMultiVAEConfig", "CMVAE", "CMVAEConfig", "CRMVAE", "CRMVAEConfig", "CVAE",
-           "CVAEConfig", "DMVAE", "DMVAEConfig", "JMVAE", "JMVAEConfig", "MMVAE",
-           "MMVAEConfig", "MMVAEPlus", "MMVAEPlusConfig", "MoPoE", "MoPoEConfig", "MVAE",
-           "MVAEConfig", "MVTCAE", "MVTCAEConfig", "TELBO", "TELBOConfig"]
+           "CVAEConfig", "DMVAE", "DMVAEConfig", "JMVAE", "JMVAEConfig", "JNF",
+           "JNFConfig", "MMVAE", "MMVAEConfig", "MMVAEPlus", "MMVAEPlusConfig", "MoPoE",
+           "MoPoEConfig", "MVAE", "MVAEConfig", "MVTCAE", "MVTCAEConfig", "TELBO",
+           "TELBOConfig"]

@@ -285,15 +285,17 @@ class BaseMultiVAE(BaseModel):
     def encode(self, inputs, cond_mod: Union[list, str] = "all", N: int = 1,
                return_mean: bool = False, flatten: bool = False,
                generator: Optional[torch.Generator] = None,
-               ignore_incomplete: bool = False) -> ModelOutput:
+               ignore_incomplete: bool = False, **kwargs) -> ModelOutput:
         """Sample the posterior conditioned on a subset of modalities.
-        Returns ModelOutput(z, one_latent_space, cond_mod[, modalities_z])."""
+        Returns ModelOutput(z, one_latent_space, cond_mod[, modalities_z]).
+        Other keyword arguments go to the model's ``_encode_subset`` (JNF's
+        HMC settings)."""
         batch = as_batch(inputs).to(self.device)
         cond = self._normalize_cond_mod(cond_mod)
         self._check_availability(inputs, cond, ignore_incomplete)
         out = self._encode_subset(batch, cond_mod=cond, N=N,
                                   return_mean=bool(return_mean),
-                                  flatten=bool(flatten), generator=generator)
+                                  flatten=bool(flatten), generator=generator, **kwargs)
         result = ModelOutput(z=out["z"],
                              one_latent_space=not self.multiple_latent_spaces)
         result["cond_mod"] = list(cond)

@@ -6,10 +6,10 @@ beside ``model_config.json`` and ``environment.json`` (the JAX package
 writes ``model.msgpack`` in the same layout). Custom architectures are
 pickled per entry of ``model_config.custom_architectures``, as the JAX
 package does with cloudpickle: a network group held in an ``nn.ModuleDict``
-(``encoders``, ``decoders``) as a dict of modules, a single module
-(``joint_encoder``, CVAE's ``encoder``) whole, and each is given back to
-the constructor in that form. Loading them runs code from the pickle, so
-load only folders you wrote.
+(``encoders``, ``decoders``, JNF's ``flows``) as a dict of modules, a
+single module (``joint_encoder``, CVAE's ``encoder``) whole, and each is
+given back to the constructor in that form. Loading them runs code from
+the pickle, so load only folders you wrote.
 """
 
 from __future__ import annotations
@@ -43,6 +43,11 @@ class BaseModel(nn.Module):
         sample the model draws comes from here, so a test can feed another
         package's noise."""
         return torch.randn(shape, generator=generator, device=self.device)
+
+    def draw_uniform(self, shape, generator: Optional[torch.Generator] = None):
+        """U[0, 1) draws of ``shape`` on the model's device (JNF's HMC
+        accept tests), a hook like ``draw_noise``."""
+        return torch.rand(shape, generator=generator, device=self.device)
 
     def _sample(self, mu, log_var, N: int = 1, return_mean: bool = False,
                 flatten: bool = False, generator: Optional[torch.Generator] = None):

@@ -5,11 +5,12 @@ Builds one full-width workload of ``tools/workloads.py`` (``--model``:
 ``mvtcae_mlp``; ``mvtcae_conv``; ``mmvae_conv``; ``mmvaeplus_partial``;
 ``mmvaeplus_k10``; ``cmvae_polymnist``; ``mvae_conv``; ``mopoe_conv``;
 ``crmvae_resnet``; ``dmvae_mnist_svhn``; ``jmvae_conv``; ``telbo_conv``;
-``cvae_tutorial``; each at its own batch, float32 without TF32), trains
-one warm-up epoch of ``--steps`` steps with the workload's trainer
-(``BaseTrainer``; the ``MultistageTrainer`` for ``telbo_conv``, whose
-epochs here are stage 1: the profile calls ``train_step`` alone), then
-profiles a second epoch with ``torch.profiler`` and prints:
+``jnf_conv``; ``cvae_tutorial``; each at its own batch, float32 without
+TF32), trains one warm-up epoch of ``--steps`` steps with the workload's
+trainer (``BaseTrainer``; the ``MultistageTrainer`` for ``telbo_conv`` and
+``jnf_conv``, whose epochs here are in the stage ``--stage``, 1 by
+default: the profile calls ``train_step`` alone), then profiles a second
+epoch with ``torch.profiler`` and prints:
 
 - the host wall time per step and the device's busy and idle shares over
   the profiled epoch (busy = the sum of kernel and copy durations on the
@@ -20,6 +21,7 @@ profiles a second epoch with ``torch.profiler`` and prints:
 Run from the root of a checkout:
 
     python3 -m multivae_tpu_torch.tools.profile_mmvae [--steps 8] [--model mvtcae_conv]
+        [--stage 2]
 """
 
 from __future__ import annotations
@@ -69,6 +71,8 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--steps", type=int, default=8)
     parser.add_argument("--model", choices=workloads.NAMES, default="mmvae")
+    parser.add_argument("--stage", type=int, default=1,
+                        help="the stage of a two-stage model (telbo_conv, jnf_conv)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_mmvae needs a CUDA device")
@@ -82,6 +86,8 @@ def main():
         w.model, w.train, training_config=BaseTrainerConfig(
             output_dir=os.path.join("build", "profile_mmvae"), num_epochs=2,
             **w.trainer_kwargs))
+    if hasattr(w.model, "set_stage"):
+        w.model.set_stage(args.stage)
     trainer.train_step(1)  # warm-up: kernel builds, cuBLAS heuristics, allocator
     torch.cuda.synchronize()
 
@@ -104,6 +110,7 @@ def main():
     summary = {
         "device": torch.cuda.get_device_name(0),
         **({} if args.model == "mmvae" else {"model": args.model}),
+        **({"stage": args.stage} if hasattr(w.model, "set_stage") else {}),
         "steps": args.steps,
         "wall_ms_per_step": wall_us / args.steps / 1e3,
         "device_busy_ms_per_step": busy_us / args.steps / 1e3,

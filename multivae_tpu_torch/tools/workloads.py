@@ -57,6 +57,14 @@ random data in the real datasets' shapes, made from a seed.
   published TELBO run: the case study's base config), trained by the
   ``MultistageTrainer`` with warm-up 2 instead of the config's 10, so that
   a 3-epoch run crosses the optimizer reset and the stage flip.
+- ``jnf_conv``: JNF on the same protocol and nets
+  (``examples/case_studies/partial_polymnist/jnf.py``): the default joint
+  encoder over copies of the conv encoders and the default MAF flows (2
+  MADE blocks of 3 hidden layers of 128), trained by the
+  ``MultistageTrainer`` on complete data (JNF refuses masks) with no eval
+  set, as the script passes none; warm-up 1 instead of the script's
+  ``num_epochs // 2``, so that a 3-epoch run resets the optimizer and flips
+  to stage 2 at epoch 2.
 - ``cvae_tutorial``: the repo's only CVAE configuration
   (``examples/tutorials/training_a_cvae_model.py:24-54``): a target of 12
   conditioned on 6 and 1x4x4, latent 8, the default nets and a
@@ -70,7 +78,7 @@ the MMVAE+ eval split is cut from the same incomplete data.
 
 All: Adam 1e-3, float32, seed 0; batch 256 unless stated. Only depth is
 cut (rows, epochs). ``Workload.trainer_cls`` names the trainer a workload
-needs (the ``MultistageTrainer`` for ``telbo_conv``).
+needs (the ``MultistageTrainer`` for ``telbo_conv`` and ``jnf_conv``).
 """
 
 from __future__ import annotations
@@ -83,7 +91,7 @@ import torch
 
 NAMES = ("mmvae", "mvtcae_mlp", "mvtcae_conv", "mmvae_conv", "mmvaeplus_partial",
          "mmvaeplus_k10", "cmvae_polymnist", "mvae_conv", "mopoe_conv", "crmvae_resnet",
-         "dmvae_mnist_svhn", "jmvae_conv", "telbo_conv", "cvae_tutorial")
+         "dmvae_mnist_svhn", "jmvae_conv", "telbo_conv", "jnf_conv", "cvae_tutorial")
 BATCH = {name: (32 if name.startswith(("mmvaeplus", "cmvae"))
                 else 64 if name == "cvae_tutorial" else 256) for name in NAMES}
 CLUSTERS = 40   # CMVAE's clusters
@@ -141,9 +149,9 @@ def _incomplete(rng, n, dims):
 def build(name: str, n: int = 2048, n_eval: Optional[int] = None,
           device="cuda") -> Workload:
     """The workload ``name`` (one of ``NAMES``) with ``n`` train rows and
-    ``n_eval`` eval rows (default: 512 for the conv protocols, a tenth of
-    ``n`` for MMVAE+, 15% of ``n`` for CRMVAE, none for the others; 0 for
-    none)."""
+    ``n_eval`` eval rows (default: 512 for the conv protocols but
+    ``jnf_conv``, a tenth of ``n`` for MMVAE+, 15% of ``n`` for CRMVAE, none
+    for the others; 0 for none)."""
     from ..data import IncompleteDataset, MultimodalBaseDataset
     from ..models import (
         CMVAE,
@@ -151,6 +159,7 @@ def build(name: str, n: int = 2048, n_eval: Optional[int] = None,
         CVAE,
         DMVAE,
         JMVAE,
+        JNF,
         MMVAE,
         MVAE,
         MVTCAE,
@@ -160,6 +169,7 @@ def build(name: str, n: int = 2048, n_eval: Optional[int] = None,
         CVAEConfig,
         DMVAEConfig,
         JMVAEConfig,
+        JNFConfig,
         MMVAEConfig,
         MMVAEPlus,
         MMVAEPlusConfig,
@@ -275,7 +285,7 @@ def build(name: str, n: int = 2048, n_eval: Optional[int] = None,
                         _trainer_kwargs(name, learning_rate=5e-4, drop_last=True))
 
     # the partial-PolyMNIST conv protocol: mvtcae_conv, mmvae_conv, mvae_conv,
-    # mopoe_conv, jmvae_conv, telbo_conv
+    # mopoe_conv, jmvae_conv, telbo_conv, jnf_conv
     cfg = BaseAEConfig(latent_dim=LATENT, input_dim=POLYMNIST)
     encoders, decoders = _seeded({m: EncoderConvMMNIST_adapted(cfg) for m in poly},
                                  {m: DecoderConvMMNIST(cfg) for m in poly})
@@ -295,15 +305,19 @@ def build(name: str, n: int = 2048, n_eval: Optional[int] = None,
     elif name == "telbo_conv":
         model = TELBO(TELBOConfig(warmup=2, **base), **nets)
         extra["trainer_cls"] = MultistageTrainer
+    elif name == "jnf_conv":
+        model = JNF(JNFConfig(warmup=1, **base), **nets)
+        extra["trainer_cls"] = MultistageTrainer
     else:
         model = MoPoE(MoPoEConfig(beta=2.5, **base), **nets)
         extra["drop_last"] = True
-    # complete data: --missing_ratio 0 (MVAE), masks refused (JMVAE, TELBO)
-    if name in ("mvae_conv", "jmvae_conv", "telbo_conv"):
+    # complete data: --missing_ratio 0 (MVAE), masks refused (JMVAE, TELBO, JNF)
+    if name in ("mvae_conv", "jmvae_conv", "telbo_conv", "jnf_conv"):
         train = MultimodalBaseDataset(_images(rng, n, poly))
     else:
         train = IncompleteDataset(*_incomplete(rng, n, poly))
-    n_eval = 512 if n_eval is None else n_eval
+    if n_eval is None:
+        n_eval = 0 if name == "jnf_conv" else 512
     eval_set = MultimodalBaseDataset(_images(rng, n_eval, poly)) if n_eval else None
     trainer_cls = extra.pop("trainer_cls", None)
     return Workload(model, train, eval_set,

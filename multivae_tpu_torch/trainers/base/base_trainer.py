@@ -61,7 +61,7 @@ class BaseTrainer:
         device: where training runs (default "cuda"; raises when CUDA is
             absent).
 
-    A model that defines ``reset_optimizer_epochs`` (TELBO) needs the
+    A model that defines ``reset_optimizer_epochs`` (TELBO, JNF) needs the
     ``MultistageTrainer`` and is refused here.
     """
 

@@ -8,7 +8,8 @@ model, a fresh optimizer and scheduler are built over its parameters, the
 kept weights are dropped and both best losses restart at 1e12, as in the
 JAX package. For TELBO (``reset_optimizer_epochs = [warmup]``) the reset
 comes at the start of epoch ``warmup``, still in stage 1, and the stage
-flips at ``warmup + 1``.
+flips at ``warmup + 1``; for JNF (``[warmup + 1]``) the reset and the flip
+come at the start of the same epoch, the stage set first.
 
 The optimizer is a new object after a reset: hooks registered on the old
 one do not carry over. The JAX trainer's checkpoint at the boundary is not
@@ -26,7 +27,7 @@ logger = logging.getLogger(__name__)
 
 
 class MultistageTrainer(BaseTrainer):
-    """Trainer for two-stage models (TELBO)."""
+    """Trainer for two-stage models (TELBO, JNF)."""
 
     def checktrainer(self, model):
         return

@@ -34,7 +34,11 @@ in the order Flax creates them, so ``<group>/<m>/Dense_i``, ``Conv_i``,
   becomes ``<group>.dense.<i>``. Inside it, a joint encoder's copies of the
   unimodal encoders, ``dict_encoders_<m>``, become ``.dict_encoders.<m>``
   and take the encoder rules (the row permutation above), and a
-  conditional decoder's ``Decoder_AE_MLP_0`` becomes ``.network``.
+  conditional decoder's ``Decoder_AE_MLP_0`` becomes ``.network``;
+- a flow (``flows/<m>``, JNF's; or one of a sampler's ``flow_params``,
+  through ``flow_from_jax``): ``blocks_<i>/{hidden_<j>,mu,alpha}`` becomes
+  ``.blocks.<i>.{hidden.<j>,mu,alpha}``, kernels transposed like a Dense's.
+  The MADE masks are buffers built from the flow's shape, not weights.
 
 Only numpy goes in; the JAX side of the conversion is the caller's.
 """
@@ -49,6 +53,7 @@ import torch
 
 _NET_GROUPS = ("encoders", "decoders")   # modality -> net
 _SINGLE_NETS = ("joint_encoder", "encoder", "decoder", "prior_network")
+_MADE_LAYERS = ("mu", "alpha")
 _LAYER_LISTS = {"Dense": "dense", "Conv": "conv", "ConvTranspose": "deconv",
                 "ResnetBlock": "blocks"}
 
@@ -124,9 +129,33 @@ def _net_state(prefix: str, layers: dict, encoder: bool) -> Dict[str, torch.Tens
     return state
 
 
+def flow_from_jax(params: dict) -> Dict[str, torch.Tensor]:
+    """One flow's numpy parameter tree (``{"params": ...}`` as ``init``
+    returns it, or its content) -> the ``state_dict`` of the port's MAF or
+    IAF."""
+    params = params.get("params", params)
+    state = {}
+    for block, layers in params.items():
+        kind, _, i = block.rpartition("_")
+        if kind != "blocks" or not i.isdigit():
+            raise KeyError(f"Unsupported flow module {block!r}")
+        for name, leaf in layers.items():
+            kind, _, j = name.rpartition("_")
+            if name in _MADE_LAYERS:
+                key = f"blocks.{i}.{name}"
+            elif kind == "hidden" and j.isdigit():
+                key = f"blocks.{i}.hidden.{j}"
+            else:
+                raise KeyError(f"Unsupported MADE layer {name!r}")
+            state[key + ".weight"] = torch.tensor(np.asarray(leaf["kernel"]).T.copy())
+            state[key + ".bias"] = torch.tensor(np.asarray(leaf["bias"]))
+    return state
+
+
 def params_from_jax(params: dict) -> Dict[str, torch.Tensor]:
     """Nested numpy parameter tree -> torch ``state_dict``."""
-    unknown = set(params) - set(_NET_GROUPS) - set(_SINGLE_NETS) - {"model"}
+    unknown = (set(params) - set(_NET_GROUPS) - set(_SINGLE_NETS)
+               - {"model", "flows"})
     if unknown:
         raise KeyError(f"Unsupported parameter groups: {sorted(unknown)}")
     state = {}
@@ -137,6 +166,8 @@ def params_from_jax(params: dict) -> Dict[str, torch.Tensor]:
     for group in _SINGLE_NETS:
         if group in params:
             state.update(_net_state(group, params[group], encoder=group != "decoder"))
+    for mod, flow in params.get("flows", {}).items():
+        state.update({f"flows.{mod}.{k}": v for k, v in flow_from_jax(flow).items()})
     for name, leaf in params.get("model", {}).items():
         state[name] = torch.tensor(np.asarray(leaf))
     return state

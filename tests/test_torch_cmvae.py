@@ -42,13 +42,13 @@ from multivae_tpu_torch.nn import BaseAEConfig
 from multivae_tpu_torch.nn import default_architectures as default
 from multivae_tpu_torch.trainers import BaseTrainer, BaseTrainerConfig
 from multivae_tpu_torch.utils.convert import params_from_jax
+from torch_parity import LAPLACE_LOW, uniform
 
 torch.set_num_threads(2)
 
 DIMS = {"m0": (7,), "m1": (5,), "m2": (6,)}
 LATENT, STYLE, HID, C, B, SEED = 8, 4, 16, 5, 8, 11
 M = len(DIMS)
-EPS = float(jnp.finfo(jnp.float32).eps)
 # Losses are sums of 10^2-10^3 float32 terms taken in another order by XLA
 # and by PyTorch: 1e-5 relative. Gradients add the IWAE/DReG weights and
 # q(c|z), softmaxes whose relative error is the absolute error of their
@@ -94,11 +94,31 @@ def _models(pruned=(), **kw):
     pc = np.asarray(jmodel.params["model"]["pc_params"]).copy()
     pc[list(pruned)] = -np.inf
     jmodel.params["model"]["pc_params"] = jnp.asarray(pc)
+    return jmodel, _port_model(jmodel, **kw)
+
+
+def _port_model(jmodel, **kw):
     enc, dec = _nets("torch")
     tmodel = CMVAE(CMVAEConfig(**_config_kwargs(**kw)), encoders=enc, decoders=dec,
                    device="cpu")
     tmodel.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jmodel.params)))
-    return jmodel, tmodel
+    return tmodel
+
+
+@pytest.fixture(scope="module")
+def shared_models():
+    """``_models(**kw)`` with its JAX model made once per configuration for
+    the tests that only read it, which then share its compiles (a fresh
+    port model each time)."""
+    jax_models = {}
+
+    def get(**kw):
+        key = tuple(sorted(kw.items()))
+        if key not in jax_models:
+            jax_models[key] = _models(**kw)[0]
+        return jax_models[key], _port_model(jax_models[key], **kw)
+
+    return get
 
 
 def _arrays(seed=0, n=B, incomplete=True):
@@ -119,8 +139,7 @@ def _arrays(seed=0, n=B, incomplete=True):
 
 
 def _laplace_noise(key, shape):
-    return torch.tensor(np.asarray(jax.random.uniform(
-        key, tuple(shape), jnp.float32, -0.5 + EPS, 0.5)))
+    return uniform(key, shape, LAPLACE_LOW, 0.5)
 
 
 class _JaxDraws:
@@ -188,11 +207,11 @@ def _port_loss(tmodel, arrays, key):
     return out.loss
 
 
-def test_cluster_parameters_cross_from_jax():
+def test_cluster_parameters_cross_from_jax(shared_models):
     """``params_from_jax`` maps ``model/pc_params`` and
     ``model/mean_clusters`` to the port's parameters of the same names and
     shapes, and the JAX model's extra parameters are exactly the port's."""
-    jmodel, tmodel = _models()
+    jmodel, tmodel = shared_models()
     state = params_from_jax(jax.tree.map(np.asarray, jmodel.params))
     assert state["pc_params"].shape == (C,)
     assert state["mean_clusters"].shape == (C, LATENT)
@@ -209,8 +228,8 @@ def test_cluster_parameters_cross_from_jax():
 # second pass as well
 @pytest.mark.parametrize("loss, K", [("dreg_looser", 1), ("dreg_looser", 3),
                                      ("iwae_looser", 1)])
-def test_loss_and_every_gradient_match_jax(loss, K):
-    jmodel, tmodel = _models(K=K, loss=loss)
+def test_loss_and_every_gradient_match_jax(shared_models, loss, K):
+    jmodel, tmodel = shared_models(K=K, loss=loss)
     arrays, key = _arrays(), jax.random.key(2)
     ref_loss, ref_grads = _jax_loss(jmodel, arrays, key)
     value = _port_loss(tmodel, arrays, key)
@@ -286,8 +305,8 @@ def _assert_close_codes(out, ref):
 
 
 @pytest.mark.parametrize("option", ["joint_prior", "single_prior"])
-def test_encode_predict_generate_match_jax(option):
-    jmodel, tmodel = _models(option=option)
+def test_encode_predict_generate_match_jax(shared_models, option):
+    jmodel, tmodel = shared_models(option=option)
     data, _, _ = _arrays(seed=6, incomplete=False)
     key = jax.random.key(7)
     rest, choice, sample = jax.random.split(key, 3)
@@ -335,8 +354,8 @@ def test_encode_predict_generate_match_jax(option):
                                            err_msg=m, **VALUE_TOL)
 
 
-def test_joint_nll_matches_jax():
-    jmodel, tmodel = _models()
+def test_joint_nll_matches_jax(shared_models):
+    jmodel, tmodel = shared_models()
     data, _, _ = _arrays(seed=8, incomplete=False)
     key = jax.random.key(9)
     K, chunk = 9, 2            # 3 samples per expert: chunks of 2 and 1
@@ -358,8 +377,8 @@ def _predict_keys(key):
     return list(jax.random.split(key, M))
 
 
-def test_predict_clusters_matches_jax():
-    jmodel, tmodel = _models()
+def test_predict_clusters_matches_jax(shared_models):
+    jmodel, tmodel = shared_models()
     data, _, _ = _arrays(seed=10, incomplete=False)
     key = jax.random.key(11)
     ref = jmodel.predict_clusters(data, rng=key, compute_lliks=True)
@@ -376,10 +395,10 @@ def test_predict_clusters_matches_jax():
     assert "norm_lliks" not in tmodel.predict_clusters(data)
 
 
-def test_majority_vote_breaks_ties_toward_the_lowest_cluster():
+def test_majority_vote_breaks_ties_toward_the_lowest_cluster(shared_models):
     """``np.bincount(row).argmax()`` of the JAX package: among the clusters
     with the most votes, the lowest index wins."""
-    _, tmodel = _models()
+    _, tmodel = shared_models()
     votes = {"m0": [3, 1, 4, 0], "m1": [1, 1, 2, 2], "m2": [2, 3, 0, 4]}
 
     def fixed_posteriors(mod, x):

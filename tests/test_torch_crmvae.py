@@ -39,6 +39,7 @@ from multivae_tpu_torch.models import CRMVAE, CRMVAEConfig
 from multivae_tpu_torch.nn import BaseAEConfig, Decoder_AE_MLP, Encoder_VAE_MLP, mmnist
 from multivae_tpu_torch.trainers import BaseTrainer, BaseTrainerConfig
 from multivae_tpu_torch.utils.convert import params_from_jax
+from torch_parity import normal
 
 torch.set_num_threads(2)
 
@@ -108,7 +109,7 @@ def _arrays(incomplete, seed=0, n=B, dims=MLP_DIMS):
 
 
 def _normal(key, shape):
-    return torch.tensor(np.asarray(jax.random.normal(key, tuple(shape))))
+    return normal(key, shape)
 
 
 def _loss_noise(rng):

@@ -94,6 +94,7 @@ DEVICE_CASES = {
     "dmvae": ("DMVAE", {"modalities_specific_dim": {"a": 1}}, "dmvae_mnist_svhn"),
     "jmvae": ("JMVAE", {}, "jmvae_conv"),
     "telbo": ("TELBO", {}, "telbo_conv"),
+    "jnf": ("JNF", {}, "jnf_conv"),
 }
 
 

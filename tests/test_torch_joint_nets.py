@@ -132,5 +132,6 @@ def test_conditional_decoder_matches_flax(cond_dims):
 
 
 def test_params_from_jax_refuses_unknown_groups():
+    # MHVAE's ladder blocks are not ported (JNF's "flows" are mapped now)
     with pytest.raises(KeyError, match="Unsupported parameter groups"):
-        params_from_jax({"flows": {}})
+        params_from_jax({"bottom_up": {}})

@@ -36,6 +36,7 @@ from multivae_tpu_torch.nn import BaseAEConfig, Decoder_AE_MLP, Encoder_VAE_MLP
 from multivae_tpu_torch.ops.kdist import dist_rsample_k
 from multivae_tpu_torch.trainers import BaseTrainer, BaseTrainerConfig
 from multivae_tpu_torch.utils.convert import params_from_jax
+from torch_parity import LAPLACE_LOW, normal, uniform
 
 torch.set_num_threads(2)
 
@@ -101,20 +102,33 @@ def _noise(dist, seed=0):
     out = {}
     for i, m in enumerate(DIMS):
         k = jax.random.fold_in(key, i)
-        if dist == "laplace_with_softmax":
-            eps = float(jnp.finfo(jnp.float32).eps)
-            u = jax.random.uniform(k, shape, jnp.float32, -0.5 + eps, 0.5)
-        else:
-            u = jax.random.normal(k, shape, jnp.float32)
-        out[m] = np.asarray(u)
+        u = uniform(k, shape, LAPLACE_LOW, 0.5) if dist == "laplace_with_softmax" \
+            else normal(k, shape)
+        out[m] = u.numpy()
     return out
 
 
-def _jax_loss_and_grads(jmodel, objective, arrays, u, dist):
+@pytest.fixture(scope="module")
+def jax_models():
+    """``_jax_model(dist, loss)`` made once for the tests that only read it,
+    which then share its compiles."""
+    models = {}
+
+    def get(dist="laplace_with_softmax", loss="dreg_looser"):
+        if (dist, loss) not in models:
+            models[dist, loss] = _jax_model(dist, loss)
+        return models[dist, loss]
+
+    return get
+
+
+def _jax_loss_and_grads(jmodel, objective, arrays, u, dist, params=None):
+    """The JAX loss and every gradient at ``params`` (default the model's),
+    compiled once per model and objective in the model's own jit cache."""
     data, masks, weights = arrays
     batch = j_batch_from_arrays(data=data, masks=masks, weights=weights)
 
-    def loss(params):
+    def loss(params, batch, u):
         post = jmodel._posterior_params(params, batch)
         zs = {}
         for m, (mu, sigma) in post.items():
@@ -124,7 +138,8 @@ def _jax_loss_and_grads(jmodel, objective, arrays, u, dist):
                 zs[m] = mu + sigma * u[m]
         return getattr(jmodel, objective)(params, batch, post, zs).loss
 
-    value, grads = jax.value_and_grad(loss)(jmodel.params)
+    fn = jmodel._jit(("test_value_and_grad", objective, dist), jax.value_and_grad(loss))
+    value, grads = fn(jmodel.params if params is None else params, batch, u)
     return float(value), params_from_jax(jax.tree.map(np.asarray, grads))
 
 
@@ -139,9 +154,9 @@ def _port_loss(tmodel, objective, arrays, u):
 
 @pytest.mark.parametrize("objective", ["_dreg_looser", "_iwae_looser"])
 @pytest.mark.parametrize("dist", ["laplace_with_softmax", "normal"])
-def test_loss_and_every_gradient_match_jax(objective, dist):
+def test_loss_and_every_gradient_match_jax(jax_models, objective, dist):
     loss_name = objective.strip("_")
-    jmodel = _jax_model(dist, loss_name)
+    jmodel = jax_models(dist, loss_name)
     tmodel = _port_model(jmodel, dist, loss_name)
     arrays, u = _batch_arrays(), _noise(dist)
     ref_loss, ref_grads = _jax_loss_and_grads(jmodel, objective, arrays, u, dist)
@@ -156,8 +171,8 @@ def test_loss_and_every_gradient_match_jax(objective, dist):
                                    err_msg=name, **GRAD_TOL)
 
 
-def test_one_adam_step_matches_jax():
-    jmodel = _jax_model()
+def test_one_adam_step_matches_jax(jax_models):
+    jmodel = jax_models()
     tmodel = _port_model(jmodel)
     arrays, u = _batch_arrays(seed=1), _noise("laplace_with_softmax", seed=1)
     lr = 1e-2
@@ -166,15 +181,15 @@ def test_one_adam_step_matches_jax():
                                    "laplace_with_softmax")
     opt = optax.adam(lr)
     jgrads = jax.tree.map(jnp.asarray, _unflatten_like(jmodel.params, grads))
-    updates, _ = opt.update(jgrads, opt.init(jmodel.params), jmodel.params)
-    jmodel.params = optax.apply_updates(jmodel.params, updates)
+    updates, _ = jax.jit(opt.update)(jgrads, opt.init(jmodel.params), jmodel.params)
+    stepped = optax.apply_updates(jmodel.params, updates)
     ref_after, _ = _jax_loss_and_grads(jmodel, "_dreg_looser", arrays, u,
-                                       "laplace_with_softmax")
+                                       "laplace_with_softmax", params=stepped)
 
     optim = torch.optim.Adam(tmodel.parameters(), lr=lr)
     _port_loss(tmodel, "_dreg_looser", arrays, u).backward()
     optim.step()
-    expected = params_from_jax(jax.tree.map(np.asarray, jmodel.params))
+    expected = params_from_jax(jax.tree.map(np.asarray, stepped))
     for name, p in tmodel.named_parameters():
         # one Adam step moves each weight by ~lr * g/|g|; g's 1e-4 relative
         # error moves that by < 1e-6 except where |g| ~ eps (1e-8)
@@ -231,14 +246,12 @@ def test_trainer_curve_matches_jax_trainer(tmp_path):
                           training_config=BaseTrainerConfig(
                               output_dir=str(tmp_path / "torch"), **common))
     calls = itertools.count()
-    eps = float(jnp.finfo(jnp.float32).eps)
 
     def jax_trainer_noise(shape, generator=None):
         step, i = divmod(next(calls), len(DIMS))
         key = jax.random.fold_in(jax.random.key(SEED), step)
         key = jax.random.split(key, len(DIMS))[i]
-        return torch.tensor(np.asarray(
-            jax.random.uniform(key, shape, jnp.float32, -0.5 + eps, 0.5)))
+        return uniform(key, shape, LAPLACE_LOW, 0.5)
 
     tmodel.draw_noise = jax_trainer_noise
     trainer.train()
@@ -372,7 +385,6 @@ class _Masked:
 # Inference: latent samples and decoder outputs are elementwise functions of
 # the same noise (a few ulps of O(1)); the NLLs are sums like the losses.
 VALUE_TOL = dict(rtol=1e-5, atol=1e-5)
-EPS = float(jnp.finfo(jnp.float32).eps)
 
 
 class _JaxDraws:
@@ -387,8 +399,7 @@ class _JaxDraws:
     def noise(self, shape, generator=None):
         self.shapes.append(tuple(shape))
         key = self.keys.pop(0)
-        return torch.tensor(np.asarray(
-            jax.random.uniform(key, tuple(shape), jnp.float32, -0.5 + EPS, 0.5)))
+        return uniform(key, shape, LAPLACE_LOW, 0.5)
 
     def expert(self, n, generator=None):
         return int(jax.random.randint(self.expert_key, (), 0, n))
@@ -407,8 +418,8 @@ def _chain(key, n):
     return subs
 
 
-def test_encode_predict_generate_match_jax():
-    jmodel = _jax_model()
+def test_encode_predict_generate_match_jax(jax_models):
+    jmodel = jax_models()
     tmodel = _port_model(jmodel)
     data, _, _ = _batch_arrays(seed=5)
     key = jax.random.key(6)
@@ -446,8 +457,8 @@ def test_encode_predict_generate_match_jax():
                                        **VALUE_TOL)
 
 
-def test_joint_nll_matches_jax():
-    jmodel = _jax_model()
+def test_joint_nll_matches_jax(jax_models):
+    jmodel = jax_models()
     tmodel = _port_model(jmodel)
     data, _, _ = _batch_arrays(seed=7)
     key = jax.random.key(8)
@@ -461,8 +472,8 @@ def test_joint_nll_matches_jax():
     np.testing.assert_allclose(out.item(), ref, **LOSS_TOL)
 
 
-def test_joint_nll_paper_matches_jax():
-    jmodel = _jax_model()
+def test_joint_nll_paper_matches_jax(jax_models):
+    jmodel = jax_models()
     tmodel = _port_model(jmodel)
     data, _, _ = _batch_arrays(seed=9)
     key = jax.random.key(10)

@@ -41,13 +41,13 @@ from multivae_tpu_torch.nn import default_architectures as default
 from multivae_tpu_torch.nn import mmnist
 from multivae_tpu_torch.trainers import BaseTrainer, BaseTrainerConfig
 from multivae_tpu_torch.utils.convert import params_from_jax
+from torch_parity import LAPLACE_LOW, uniform
 
 torch.set_num_threads(2)
 
 DIMS = {"m0": (3, 28, 28), "m1": (5,), "m2": (6,)}
 LATENT, STYLE, HID, NF, NF_MAX, B, SEED = 8, 4, 16, 8, 16, 8, 11
 M = len(DIMS)
-EPS = float(jnp.finfo(jnp.float32).eps)
 # Losses are sums of 10^3-10^4 float32 terms taken in another order by XLA
 # and by PyTorch: 1e-5 relative. Gradients add the DReG/IWAE weights
 # exp(lw - logsumexp lw), whose relative error is the absolute error of lw
@@ -96,11 +96,31 @@ def _models(**kw):
     for name, value in jmodel.params["model"].items():
         jmodel.params["model"][name] = jnp.asarray(
             rng.normal(size=value.shape).astype(np.float32) * 0.3)
+    return jmodel, _port_model(jmodel, **kw)
+
+
+def _port_model(jmodel, **kw):
     enc, dec = _nets("torch")
     tmodel = MMVAEPlus(MMVAEPlusConfig(**_config_kwargs(**kw)), encoders=enc,
                        decoders=dec, device="cpu")
     tmodel.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jmodel.params)))
-    return jmodel, tmodel
+    return tmodel
+
+
+@pytest.fixture(scope="module")
+def shared_models():
+    """``_models(**kw)`` with its JAX model made once per configuration for
+    the tests that only read it, which then share its compiles (a fresh
+    port model each time)."""
+    jax_models = {}
+
+    def get(**kw):
+        key = tuple(sorted(kw.items()))
+        if key not in jax_models:
+            jax_models[key] = _models(**kw)[0]
+        return jax_models[key], _port_model(jax_models[key], **kw)
+
+    return get
 
 
 def _arrays(seed=0, n=B, incomplete=True):
@@ -129,8 +149,7 @@ class _JaxDraws:
 
     def noise(self, shape, generator=None):
         self.shapes.append(tuple(shape))
-        return torch.tensor(np.asarray(jax.random.uniform(
-            self.keys.pop(0), tuple(shape), jnp.float32, -0.5 + EPS, 0.5)))
+        return uniform(self.keys.pop(0), shape, LAPLACE_LOW, 0.5)
 
     def expert(self, n, generator=None):
         return self.expert_fn(n)
@@ -179,8 +198,8 @@ def _port_loss(tmodel, arrays, key):
 
 @pytest.mark.parametrize("K", [1, 3])
 @pytest.mark.parametrize("loss", ["dreg_looser", "iwae_looser"])
-def test_loss_and_every_gradient_match_jax(loss, K):
-    jmodel, tmodel = _models(K=K, loss=loss)
+def test_loss_and_every_gradient_match_jax(shared_models, loss, K):
+    jmodel, tmodel = shared_models(K=K, loss=loss)
     arrays, key = _arrays(), jax.random.key(2)
     ref_loss, ref_grads = _jax_loss_and_grads(jmodel, arrays, key)
     value, draws = _port_loss(tmodel, arrays, key)
@@ -198,11 +217,11 @@ def test_loss_and_every_gradient_match_jax(loss, K):
                                    atol=GRAD_FLOOR * np.abs(ref).max())
 
 
-def test_use_remat_gives_the_same_gradients():
+def test_use_remat_gives_the_same_gradients(shared_models):
     """Rematerialization recomputes each decoder's forward in the backward
     (its first layer runs twice) and changes no number (1e-7 relative: the
     recomputation repeats the same kernels)."""
-    _, tmodel = _models(K=3, loss="iwae_looser")
+    _, tmodel = shared_models(K=3, loss="iwae_looser")
     arrays, key = _arrays(seed=3), jax.random.key(4)
     calls = []
     tmodel.decoders["m0"].dense[0].register_forward_hook(lambda *_: calls.append(1))
@@ -253,8 +272,7 @@ def test_trainer_curve_with_amsgrad_matches_jax_trainer(tmp_path):
     def jax_trainer_noise(shape, generator=None):
         step, i = divmod(next(calls), 3 * M)
         key = _loss_keys(jax.random.fold_in(jax.random.key(SEED), step))[i]
-        return torch.tensor(np.asarray(
-            jax.random.uniform(key, tuple(shape), jnp.float32, -0.5 + EPS, 0.5)))
+        return uniform(key, shape, LAPLACE_LOW, 0.5)
 
     tmodel.draw_noise = jax_trainer_noise
     trainer.train()
@@ -273,8 +291,8 @@ def _subset_expert(cond, subset_key):
 
 
 @pytest.mark.parametrize("option", ["joint_prior", "single_prior"])
-def test_encode_predict_generate_match_jax(option):
-    jmodel, tmodel = _models(option=option)
+def test_encode_predict_generate_match_jax(shared_models, option):
+    jmodel, tmodel = shared_models(option=option)
     data, _, _ = _arrays(seed=6, incomplete=False)
     key = jax.random.key(7)
     rest, choice, sample = jax.random.split(key, 3)
@@ -320,8 +338,8 @@ def test_encode_predict_generate_match_jax(option):
                                            err_msg=m, **VALUE_TOL)
 
 
-def test_joint_nll_matches_jax():
-    jmodel, tmodel = _models()
+def test_joint_nll_matches_jax(shared_models):
+    jmodel, tmodel = shared_models()
     data, _, _ = _arrays(seed=8, incomplete=False)
     key = jax.random.key(9)
     K, chunk = 9, 2            # 3 samples per expert: chunks of 2 and 1

@@ -41,6 +41,7 @@ from multivae_tpu_torch.nn import BaseAEConfig
 from multivae_tpu_torch.nn import default_architectures as default
 from multivae_tpu_torch.trainers import BaseTrainer, BaseTrainerConfig
 from multivae_tpu_torch.utils.convert import params_from_jax
+from torch_parity import normal
 
 torch.set_num_threads(2)
 
@@ -110,7 +111,7 @@ def _arrays(incomplete, seed=0, n=B):
 
 
 def _normal(key, shape):
-    return torch.tensor(np.asarray(jax.random.normal(key, tuple(shape))))
+    return normal(key, shape)
 
 
 class _JaxDraws:

@@ -43,7 +43,7 @@ from multivae_tpu_torch.nn import BaseAEConfig, Decoder_AE_MLP, Encoder_VAE_MLP
 from multivae_tpu_torch.ops import subsets
 from multivae_tpu_torch.trainers import BaseTrainer, BaseTrainerConfig
 from multivae_tpu_torch.utils.convert import params_from_jax
-from torch_parity import Recorder, assert_same_moves, state_of
+from torch_parity import Recorder, assert_same_moves, normal, state_of
 
 torch.set_num_threads(2)
 
@@ -102,7 +102,7 @@ def _arrays(incomplete, seed=0, n=B):
 
 
 def _normal(key, shape):
-    return torch.tensor(np.asarray(jax.random.normal(key, tuple(shape))))
+    return normal(key, shape)
 
 
 class _JaxDraws:

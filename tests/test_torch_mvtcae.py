@@ -45,6 +45,7 @@ from multivae_tpu_torch.nn import BaseAEConfig, Decoder_AE_MLP, Encoder_VAE_MLP
 from multivae_tpu_torch.nn import mmnist
 from multivae_tpu_torch.trainers import BaseTrainer, BaseTrainerConfig
 from multivae_tpu_torch.utils.convert import params_from_jax
+from torch_parity import normal
 
 torch.set_num_threads(2)
 
@@ -133,7 +134,7 @@ class _JaxNoise:
         key = self.key
         if self.chain:
             self.key, key = jax.random.split(self.key)
-        return torch.tensor(np.asarray(jax.random.normal(key, tuple(shape))))
+        return normal(key, shape)
 
 
 def _jax_loss_fn(jmodel, arrays, key):
@@ -254,7 +255,7 @@ def test_trainer_curve_matches_jax_trainer(tmp_path):
             key = jax.random.fold_in(jax.random.key(SEED), next(steps))
         else:
             key = jax.random.key(generator.initial_seed())
-        return torch.tensor(np.asarray(jax.random.normal(key, tuple(shape))))
+        return normal(key, shape)
 
     tmodel.draw_noise = jax_trainer_noise
     trainer.train()

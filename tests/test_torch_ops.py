@@ -14,6 +14,7 @@ import multivae_tpu.ops.kdist as jk
 from multivae_tpu_torch.ops import dists as td
 from multivae_tpu_torch.ops import kdist as tk
 from multivae_tpu_torch.ops.dreg import scale_grad
+from torch_parity import LAPLACE_LOW, normal, uniform
 
 torch.set_num_threads(2)
 
@@ -64,6 +65,21 @@ def test_dist_rsample_with_the_jax_noise(dist, K):
     out = tk.dist_rsample(dist, torch.tensor(loc), torch.tensor(scale), K=K,
                           u=torch.tensor(np.asarray(u)))
     np.testing.assert_allclose(out.numpy(), ref, **TOL)
+
+
+@pytest.mark.parametrize("shape", [(), (1,), (3, 5), (2, 1, 3, 7), (1025,)])
+@pytest.mark.parametrize("draw", ["normal", "laplace"])
+def test_parity_draws_are_jax_random(draw, shape):
+    """The tests' JAX noise (``torch_parity``), drawn as the head of a longer
+    draw, is bit for bit ``jax.random``'s draw of the shape itself."""
+    key = jax.random.split(jax.random.key(4))[1]
+    if draw == "normal":
+        ours, ref = normal(key, shape), jax.random.normal(key, shape)
+    else:
+        ours = uniform(key, shape, LAPLACE_LOW, 0.5)
+        ref = jax.random.uniform(key, shape, jnp.float32, LAPLACE_LOW, 0.5)
+    assert ours.shape == shape and ours.dtype == torch.float32
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
 
 
 def test_dist_rsample_k_keeps_the_k_axis():

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from multivae_tpu_torch.nn import mmnist
+from multivae_tpu_torch.ops.flows import MAF
 from multivae_tpu_torch.tools import profile_mmvae, workloads
 from multivae_tpu_torch.trainers import MultistageTrainer
 
@@ -79,7 +80,7 @@ def test_workloads_have_the_published_widths(name):
     if name in ("dmvae_mnist_svhn", "cvae_tutorial"):
         _check_small_published_workload(name, w)
         return
-    assert (w.trainer_cls is MultistageTrainer) == (name == "telbo_conv")
+    assert (w.trainer_cls is MultistageTrainer) == (name in ("telbo_conv", "jnf_conv"))
     plus = name.startswith("mmvaeplus")
     small = name.startswith(("mmvaeplus", "cmvae"))
     assert model.latent_dim == (32 if small else 512)
@@ -139,7 +140,7 @@ def test_workloads_have_the_published_widths(name):
     elif name == "mopoe_conv":
         assert model.beta == 2.5 and len(model.subsets) == 31
         assert w.trainer_kwargs["drop_last"] and hasattr(w.train, "masks")
-    elif name in ("jmvae_conv", "telbo_conv"):
+    elif name in ("jmvae_conv", "telbo_conv", "jnf_conv"):
         # complete data; the joint encoder fuses copies of the 5 conv encoders
         assert not hasattr(w.train, "masks")
         assert isinstance(model.joint_encoder.dict_encoders["m0"],
@@ -148,6 +149,15 @@ def test_workloads_have_the_published_widths(name):
         assert model.model_config.custom_architectures == ["encoders", "decoders"]
         if name == "jmvae_conv":
             assert (model.alpha, model.warmup, model.start_keep_best_epoch) == (0.1, 200, 201)
+        elif name == "jnf_conv":
+            # the optimizer reset and the stage flip at epoch 2; default MAF
+            # flows over the 512 latents; no eval set unless one is asked for
+            assert (model.warmup, model.reset_optimizer_epochs) == (1, [2])
+            flow = model.flows["m0"]
+            assert isinstance(flow, MAF) and flow.input_dim == 512
+            assert len(flow.blocks) == 2 and len(flow.blocks[0].hidden) == 3
+            assert flow.blocks[0].hidden[1].in_features == 128
+            assert workloads.build(name, n=8, device="cpu").eval is None
         else:
             assert (model.warmup, model.reset_optimizer_epochs) == (2, [2])
     else:

@@ -3,19 +3,45 @@ JAX package's noise as torch tensors, the port's trainer fed the JAX
 trainer's noise, and parameter trees as port ``state_dict``s."""
 
 import itertools
+import math
 
 import numpy as np
 import torch
 
 import jax
+import jax.numpy as jnp
 
 from multivae_tpu.trainers.base.callbacks import TrainingCallback
 from multivae_tpu_torch.utils.convert import params_from_jax
 
 
+LAPLACE_LOW = -0.5 + float(jnp.finfo(jnp.float32).eps)
+
+
+def _draw(fn, key, shape, *args):
+    """``fn(key, shape, *args)`` as a torch tensor. Under JAX's partitionable
+    threefry (its default), entry i of a draw depends only on the key and
+    on i, so the draw is the head of one of a longer flat shape: rounded up
+    to a power of two (at least 1024), the many small shapes of the tests
+    share a few compiles instead of one each."""
+    shape = tuple(shape)
+    if not jax.config.jax_threefry_partitionable:
+        return torch.tensor(np.asarray(fn(key, shape, *args)))
+    n = math.prod(shape)
+    size = max(1024, 1 << (n - 1).bit_length())
+    return torch.tensor(np.asarray(fn(key, (size,), *args))[:n].reshape(shape))
+
+
 def normal(key, shape):
     """``jax.random.normal(key, shape)`` as a torch tensor."""
-    return torch.tensor(np.asarray(jax.random.normal(key, tuple(shape))))
+    return _draw(jax.random.normal, key, shape)
+
+
+def uniform(key, shape, minval=0.0, maxval=1.0):
+    """``jax.random.uniform(key, shape, float32, minval, maxval)`` as a torch
+    tensor; the Laplace noise of the JAX package is ``uniform(key, shape,
+    LAPLACE_LOW, 0.5)``."""
+    return _draw(jax.random.uniform, key, shape, jnp.float32, minval, maxval)
 
 
 def chain(key, n):
