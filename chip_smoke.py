@@ -123,7 +123,25 @@ Phases (any failure exits non-zero and prints no result line):
     finite samples; card vs CPU:
     one EM iteration from the same labels, one MAF fit step (loss and
     gradients), the MAF's inverse of a fixed u;
-15. the seconds the whole run took, a ``kernels`` JSON line (launches
+15. ``mhvae_polymnist``: MHVAE at the PolyMNIST example's widths (5
+    modalities of 3x28x28, 3 latent levels: z_3 a vector of 64, z_2 a
+    64x7x7 map, z_1 a 32x14x14 map, shared posterior heads, Laplace
+    decoders of scale 0.75), 2 epochs of 16 steps of batch 128; finite
+    losses, steps/s, peak memory, the 8-row loss card vs CPU, no mixture
+    launch;
+16. ``nexus_e2e``: the repo's Nexus configuration (``a`` 8 and ``b`` 12
+    features, warm-up 5, forced dropout 0.5), 2 epochs of 6 steps; the
+    8-row loss card vs CPU on the dropout branch (a fixed dropout injected);
+17. ``hierarchical_inference``: MHVAE's encode (N=10, every level),
+    predict from one modality and the per-row encode of an incomplete batch
+    (and ``encode``'s refusal of it), timed, the per-row encode of 8 rows
+    card vs CPU; Nexus's encode, predict and decode both ways, and its
+    8-row loss on the incomplete branch card vs CPU;
+18. ``samplers_incomplete``: the GMM (2 components) and MAF samplers fitted
+    on ``mvtcae_conv``'s incomplete train set through the per-row encode:
+    the collection's, fits' and samples' seconds, the collected latents of
+    64 rows card vs CPU, and ``mmvae_conv``'s refusal;
+19. the seconds the whole run took, a ``kernels`` JSON line (launches
     summed over every training and inference phase that runs the kernels),
     then the last line
     ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -462,8 +480,18 @@ def injected_noise(model, draws, dtype=torch.float32):
 
     # the other random choices, made the same on both sides: the last
     # expert, the most likely subset of each row (MoPoE), the first
-    # candidate subsets (MVAE) and clusters in turn (CMVAE)
+    # candidate subsets (MVAE), clusters in turn (CMVAE) and a fixed forced
+    # dropout (Nexus)
+    def dropout(n_mods, n_rows, generator=None):
+        # Nexus's forced dropout: every other row drops out and keeps
+        # 1 .. M-1 messages, chosen by fixed scores
+        rows, mods = torch.arange(n_rows), torch.arange(n_mods)
+        scores = ((mods[:, None] * 7 + rows[None]) % n_mods).float() / n_mods
+        return ((rows % 2 == 0).to(model.device), (1 + rows % max(n_mods - 1, 1)).to(
+            model.device), scores.to(model.device, dtype))
+
     hooks = {"draw_noise": draw, "draw_expert": lambda n, generator=None: n - 1,
+             "draw_dropout": dropout,
              "draw_components": lambda logits, generator=None: logits.argmax(-1),
              "draw_subsets": lambda n, k, generator=None: torch.arange(k, device=model.device),
              "draw_clusters": lambda logits, n, generator=None: (
@@ -1061,6 +1089,163 @@ def samplers_phase(mx, jnf, dmvae, n_rows=20480, iaf_rows=2048, n_samples=256,
     return record
 
 
+def _incomplete_rows(data, n, seed):
+    """The first ``n`` rows of ``data`` (a complete dataset) as an
+    ``IncompleteDataset``: each (row, modality) missing with probability
+    0.2, row 1 with no modality, missing entries zeroed."""
+    from multivae_tpu_torch.data import IncompleteDataset
+
+    raw = data.get_batch(np.arange(n))["data"]
+    rng = np.random.default_rng(seed)
+    masks = {m: rng.random(n) >= 0.2 for m in raw}
+    for m in raw:
+        masks[m][1] = False
+    return IncompleteDataset({m: np.where(masks[m].reshape(-1, *(1,) * (v.ndim - 1)), v,
+                                          0.0).astype(np.float32) for m, v in raw.items()},
+                             masks)
+
+
+def hierarchical_inference(mx, mhvae, nexus, rows=256, repeats=3):
+    """The trained MHVAE: encode from every modality (N=10, flatten;
+    every level's latent), predict from one modality (N=10), the per-row
+    encode of an incomplete batch (20% of the (row, modality) pairs
+    missing, a row with none) and ``encode``'s refusal of it, each timed
+    (median of ``repeats`` after a warm-up); the per-row encode of 8 of
+    those rows card vs CPU on the same noise (the sum of z_1 squared). The
+    trained Nexus: encode from one modality (N=10), predict, decode from
+    the bottom codes and through the top decoders; its loss on 8 rows of
+    the incomplete branch card vs CPU. All finite, of the right shapes, no
+    mixture launch."""
+    record = {"phase": "hierarchical_inference"}
+    mx.reset_launches()
+    model, mods = mhvae.model, list(mhvae.model.input_dims)
+    batch = rows_batch(mhvae.train, np.arange(rows))
+    incomplete = _incomplete_rows(mhvae.train, rows, seed=5)
+    inc_batch = rows_batch(incomplete, np.arange(rows))
+    n = 10 * rows
+    shapes = {"z_3": (n, model.latent_dim), "z_2": (n, 64, 7, 7), "z_1": (n, 32, 14, 14)}
+    calls = {"encode_all": lambda: model.encode(batch, N=10, flatten=True),
+             "predict_one": lambda: model.predict(batch, cond_mod=mods[0], N=10),
+             "encode_per_sample": lambda: model.encode_per_sample(inc_batch)}
+    for label, call in calls.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        with torch.no_grad():
+            _, seconds, warmup = timed(lambda: next(iter(call().values())), repeats)
+            out = call()
+        record[label] = {"rows": rows, "seconds": seconds, "warmup_s": warmup,
+                         "peak_above_held_bytes": torch.cuda.max_memory_allocated() - held}
+        if label == "encode_all":
+            got = {k: tuple(v.shape) for k, v in out.all_z.items()}
+            tensors = list(out.all_z.values())
+            check(got == shapes, f"mhvae encode levels {got}")
+        elif label == "predict_one":
+            tensors = [out[m] for m in mods]
+            check(all(tuple(t.shape) == (10, rows, 3, 28, 28) for t in tensors),
+                  f"mhvae predict {[tuple(t.shape) for t in tensors]}")
+        else:
+            tensors = [out.z]
+            check(tuple(out.z.shape) == (rows, 32, 14, 14), f"per-sample z {out.z.shape}")
+        check(all(bool(torch.isfinite(t).all()) for t in tensors), f"mhvae {label}: non-finite")
+    try:
+        model.encode(inc_batch)
+        check(False, "mhvae encode accepted an incomplete batch")
+    except AttributeError:
+        pass
+
+    def per_sample(net, dtype):
+        return (net.encode_per_sample(rows_batch(incomplete, np.arange(8), dtype)
+                                      .to(net.device)).z ** 2).sum()
+
+    record["encode_per_sample_card_vs_cpu"] = card_vs_cpu(
+        model, per_sample, recorded_draws(model, per_sample, 4))
+
+    model, data = nexus.model, nexus.train
+    b = rows_batch(data, np.arange(rows))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        enc = model.encode(b, cond_mod="a", N=10)
+        pred = model.predict(b, cond_mod="a", gen_mod="all", N=10)
+        decoded = {k: model.decode(enc, use_bottom_z_for_recon=k == "bottom")
+                   for k in ("bottom", "top")}
+    torch.cuda.synchronize()
+    tensors = [enc.z, enc.modalities_z["a"], *pred.values(),
+               *(v for d in decoded.values() for v in d.values())]
+    check(tuple(enc.z.shape) == (10, rows, 8) and all(
+        tuple(pred[m].shape) == (10, rows, *d) for m, d in model.input_dims.items()),
+        f"nexus shapes {tuple(enc.z.shape)}")
+    check(all(bool(torch.isfinite(t).all()) for t in tensors), "nexus inference: non-finite")
+    nexus_incomplete = _incomplete_rows(data, 8, seed=6)
+
+    def masked_loss(net, dtype):
+        return net.loss_function(rows_batch(nexus_incomplete, np.arange(8), dtype)
+                                 .to(net.device))["loss"]
+
+    record["nexus"] = {"rows": rows, "encode_predict_decode_s": time.perf_counter() - t0,
+                       **{f"masked_loss_{k}": v for k, v in card_vs_cpu(
+                           model, masked_loss, recorded_draws(model, masked_loss, 5)).items()}}
+    check(not any(mx.launches.values()), f"hierarchical inference launched {mx.launches}")
+    return record
+
+
+def samplers_incomplete(mx, mvtcae, mmvae, n_components=2, check_rows=64):
+    """The GMM and MAF samplers fitted on ``mvtcae_conv``'s incomplete
+    train set (each row encoded from the modalities it has): the
+    collection's seconds, each fit's and sample's (``sampler_run``); the
+    collected latents of ``check_rows`` rows card vs CPU on the same noise;
+    the refusal of a mixture model (``mmvae_conv``). ``n_components`` is 2:
+    a component needs more rows than the 512 latent dimensions for a full
+    covariance that factors (2,048 rows here)."""
+    from multivae_tpu_torch.data import IncompleteDataset
+    from multivae_tpu_torch.samplers import (
+        GaussianMixtureSampler,
+        GaussianMixtureSamplerConfig,
+        MAFSampler,
+    )
+
+    model, data = mvtcae.model, mvtcae.train
+    avail = np.stack([np.asarray(v) for v in data.masks.values()])
+    check(not avail.all(), "mvtcae_conv's train set is complete")
+    record = {"phase": "samplers_incomplete", "rows": len(data),
+              "missing_share": float(1 - avail.mean()),
+              "rows_with_no_modality": int((~avail.any(0)).sum())}
+    mx.reset_launches()
+    sampler = GaussianMixtureSampler(model, GaussianMixtureSamplerConfig(
+        n_components=n_components))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    z, _ = sampler._collect_latents(data, batch_size=256)
+    torch.cuda.synchronize()
+    record["collect_latents"] = {"seconds": time.perf_counter() - t0,
+                                 "shape": list(z.shape)}
+    check(bool(torch.isfinite(z).all()), "collected latents not finite")
+    record["gmm"] = sampler_run(mx, sampler, data, 256)
+    record["maf"] = sampler_run(mx, MAFSampler(model), data, 256, num_epochs=20,
+                                batch_size=256, learning_rate=1e-3)
+    raw = data.get_batch(np.arange(check_rows))
+    sub = IncompleteDataset(raw["data"], raw["masks"])
+    draws = [torch.randn(check_rows, model.latent_dim,
+                         generator=torch.Generator().manual_seed(7))]
+    got = {}
+    for key, net in (("card", model), ("cpu", copy.deepcopy(model).to("cpu"))):
+        with injected_noise(net, draws), torch.no_grad():
+            got[key] = GaussianMixtureSampler(net)._collect_latents(
+                sub, batch_size=check_rows)[0].cpu()
+    err, scale = (got["card"] - got["cpu"]).abs().max().item(), got["cpu"].abs().max().item()
+    record["collect_card_vs_cpu"] = {"rows": check_rows, "max_abs_err": err,
+                                     "max_abs_z": scale}
+    check(err <= ENCODE_RTOL * scale, f"collected latents card vs cpu {err} (max|z| {scale})")
+    try:
+        GaussianMixtureSampler(mmvae.model).fit(data)
+        check(False, "mmvae_conv fitted a sampler on incomplete data")
+    except AttributeError as e:
+        record["mmvae_conv_refusal"] = str(e)
+    check(not any(mx.launches.values()), f"samplers_incomplete launched {mx.launches}")
+    return record
+
+
 def main():
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1197,6 +1382,13 @@ def main():
         print(json.dumps(record))
         print(json.dumps(jnf_inference(mx, jnf)))
         print(json.dumps(samplers_phase(mx, jnf, joint["dmvae_mnist_svhn"])))
+
+        record, mhvae, _ = workload_run(mx, "mhvae_polymnist", n=2048, epochs=2)
+        print(json.dumps(record))
+        record, nexus, _ = workload_run(mx, "nexus_e2e", n=600, epochs=2)
+        print(json.dumps(record))
+        print(json.dumps(hierarchical_inference(mx, mhvae, nexus)))
+        print(json.dumps(samplers_incomplete(mx, trained["mvtcae_conv"], moe["mmvae_conv"])))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

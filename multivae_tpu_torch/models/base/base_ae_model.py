@@ -9,7 +9,9 @@ inference surface: ``encode`` / ``decode`` / ``predict`` /
 (``_gaussian_iwae_joint_nll``) and ``compute_cond_nll``. Models with
 private latent spaces set ``multiple_latent_spaces``: their ``encode``
 returns ``modalities_z`` beside ``z``, and ``decode`` concatenates each
-modality's private code to ``z``.
+modality's private code to ``z``. The PoE families
+(``supports_per_sample_conditioning``) also encode an incomplete batch row
+by row from the modalities each row has (``encode_per_sample``).
 
 Every random draw goes through ``draw_noise(shape, generator)`` (standard
 normal, from ``BaseModel``; MMVAE overrides it), so a test can feed another
@@ -281,6 +283,31 @@ class BaseMultiVAE(BaseModel):
                        generator: Optional[torch.Generator]) -> dict:
         """Model-specific encoding; returns {'z': ...}."""
         raise NotImplementedError
+
+    # True on the models whose posterior of a subset is a product of the
+    # experts weighed by the rows' masks (the PoE families): an encode from
+    # every modality then conditions each row on the modalities it has, and
+    # ``encode_per_sample`` serves it. The mixture models draw one expert
+    # for the whole batch and stay False.
+    supports_per_sample_conditioning = False
+    # True on the models whose ``_encode_subset`` takes ``per_sample``: a
+    # row's private code of a modality it lacks then comes from N(0, I)
+    # instead of the posterior (DMVAE).
+    masked_encode_per_sample_flag = False
+
+    def encode_per_sample(self, inputs, N: int = 1, return_mean: bool = False,
+                          flatten: bool = False,
+                          generator: Optional[torch.Generator] = None) -> ModelOutput:
+        """Encode every row from the modalities it has (its mask), without
+        ``encode``'s availability error; a row with none falls back to the
+        prior. Only for ``supports_per_sample_conditioning`` models."""
+        if not self.supports_per_sample_conditioning:
+            raise AttributeError(
+                f"{self.model_name} cannot condition each row on its own "
+                "modalities: its encode takes one subset for the whole batch.")
+        kwargs = {"per_sample": True} if self.masked_encode_per_sample_flag else {}
+        return self.encode(inputs, "all", N=N, return_mean=return_mean, flatten=flatten,
+                           generator=generator, ignore_incomplete=True, **kwargs)
 
     def encode(self, inputs, cond_mod: Union[list, str] = "all", N: int = 1,
                return_mean: bool = False, flatten: bool = False,

@@ -32,6 +32,7 @@ class CRMVAE(BaseMultiVAE):
     """CRMVAE model."""
 
     model_name = "CRMVAE"
+    supports_per_sample_conditioning = True
 
     def __init__(self, model_config: CRMVAEConfig, encoders: dict = None,
                  decoders: dict = None, seed: int = 0, device="cuda"):

@@ -15,7 +15,8 @@ Counterpart of ``multivae_tpu/models/dmvae/dmvae_model.py``:
   each private KL by its modality's mask and ``private_betas``;
 - encode: the conditioning modalities' shared PoE (with the prior expert);
   private codes from the posterior for conditioning modalities, from
-  N(0, I) for the others;
+  N(0, I) for the others; ``encode_per_sample`` draws a row's private code
+  of a modality it lacks from N(0, I) too;
 - the K-sample joint NLL weighs samples of the joint shared posterior and of
   every private posterior by p(X|z) p(z) / q(z|X). The JAX package resets
   the ln-prior and ln-posterior terms each chunk (its module docstring says
@@ -56,6 +57,8 @@ class DMVAE(BaseMultiVAE):
     """DMVAE: a shared latent space and a private one per modality."""
 
     model_name = "DMVAE"
+    supports_per_sample_conditioning = True
+    masked_encode_per_sample_flag = True
 
     def __init__(self, model_config: DMVAEConfig, encoders: dict = None,
                  decoders: dict = None, seed: int = 0, device="cuda"):
@@ -140,13 +143,21 @@ class DMVAE(BaseMultiVAE):
     # ------------------------------------------------------------ inference
     def _encode_subset(self, batch: MultimodalBatch, *, cond_mod: tuple, N: int,
                        return_mean: bool, flatten: bool,
-                       generator: Optional[torch.Generator]) -> dict:
+                       generator: Optional[torch.Generator],
+                       per_sample: bool = False) -> dict:
+        """With ``per_sample`` a row's private code of a conditioning
+        modality it lacks comes from N(0, I) (the posterior's parameters
+        times the row's mask), as the JAX package's ``per_sample=True``
+        masked encode does."""
         joint_mu, joint_lv, _, private = self._infer_latent_parameters(batch, cond_mod)
         z = self._sample(joint_mu, joint_lv, N, return_mean, flatten, generator)
         modalities_z = {}
         for m in self.encoders:
             if m in cond_mod:
                 mu_p, lv_p = private[m]
+                if per_sample:
+                    sel = batch.masks[m][:, None]
+                    mu_p, lv_p = sel * mu_p, sel * lv_p
             else:
                 mu_p = lv_p = torch.zeros(joint_mu.shape[0], self.style_dims[m],
                                           device=joint_mu.device)

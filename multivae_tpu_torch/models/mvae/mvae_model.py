@@ -42,6 +42,7 @@ class MVAE(BaseMultiVAE):
     """The multimodal VAE (product of experts)."""
 
     model_name = "MVAE"
+    supports_per_sample_conditioning = True
 
     def __init__(self, model_config: MVAEConfig, encoders: dict = None,
                  decoders: dict = None, seed: int = 0, device="cuda"):

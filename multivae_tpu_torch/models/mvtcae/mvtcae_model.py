@@ -28,6 +28,7 @@ class MVTCAE(BaseMultiVAE):
     """MVTCAE model. See the config for the hyperparameters."""
 
     model_name = "MVTCAE"
+    supports_per_sample_conditioning = True
 
     def __init__(self, model_config: MVTCAEConfig, encoders: dict = None,
                  decoders: dict = None, seed: int = 0, device="cuda"):

@@ -8,9 +8,16 @@ latents come from ``_collect_latents``: one ``model.encode`` per batch of
 the dataset in order, padding rows dropped, the private codes collected for
 a model with several latent spaces; they stay on the model's device.
 
-Not ported: the fit on incomplete data (the JAX package's per-sample masked
-encode of the PoE families) and the device-resident collection; an
-incomplete dataset is refused.
+On an incomplete dataset a model with
+``supports_per_sample_conditioning`` (the PoE families: MVTCAE, MVAE,
+CRMVAE, DMVAE, MHVAE) encodes each incomplete batch through
+``encode_per_sample``: every row is conditioned on the modalities it has,
+and DMVAE draws the private code of a modality a row lacks from N(0, I).
+Every other model keeps ``model.encode``'s availability error, as in the
+JAX package.
+
+Not ported: the JAX package's device-resident collection (one compiled
+scan over a cached dataset); the port runs the host loop.
 """
 
 from __future__ import annotations
@@ -19,7 +26,6 @@ import logging
 import os
 from typing import Optional
 
-import numpy as np
 import torch
 
 from ...data.loader import DataLoader
@@ -67,20 +73,20 @@ class BaseSampler:
     def _collect_latents(self, dataset, batch_size: int = 100,
                          generator: Optional[torch.Generator] = None):
         """Encode the whole dataset (all modalities) in order; returns (z,
-        modalities_z or None) on the model's device, padding rows removed."""
-        masks = getattr(dataset, "masks", None)
-        if masks is not None and not all(np.all(np.asarray(v)) for v in masks.values()):
-            raise AttributeError(
-                "The dataset is incomplete: fitting a sampler on incomplete data "
-                "needs the per-sample masked encode, which the port does not have "
-                "yet (ROADMAP Queue A, 'samplers on incomplete data').")
+        modalities_z or None) on the model's device, padding rows removed.
+        An incomplete batch goes through the per-sample encode where the
+        model has one, else through ``encode``, which refuses it."""
+        per_sample = getattr(self.model, "supports_per_sample_conditioning", False)
         loader = DataLoader(dataset, batch_size=batch_size, shuffle=False,
                             drop_last=False)
         multi = self.model.multiple_latent_spaces
         zs, mod_zs = [], {m: [] for m in self.model.encoders} if multi else None
         with torch.no_grad():
             for batch in loader:
-                out = self.model.encode(batch, generator=generator)
+                if batch.incomplete and per_sample:
+                    out = self.model.encode_per_sample(batch, generator=generator)
+                else:
+                    out = self.model.encode(batch, generator=generator)
                 valid = (batch.weights > 0).to(out.z.device)
                 zs.append(out.z[valid])
                 if multi:

@@ -5,8 +5,8 @@ Builds one full-width workload of ``tools/workloads.py`` (``--model``:
 ``mvtcae_mlp``; ``mvtcae_conv``; ``mmvae_conv``; ``mmvaeplus_partial``;
 ``mmvaeplus_k10``; ``cmvae_polymnist``; ``mvae_conv``; ``mopoe_conv``;
 ``crmvae_resnet``; ``dmvae_mnist_svhn``; ``jmvae_conv``; ``telbo_conv``;
-``jnf_conv``; ``cvae_tutorial``; each at its own batch, float32 without
-TF32), trains one warm-up epoch of ``--steps`` steps with the workload's
+``jnf_conv``; ``cvae_tutorial``; ``mhvae_polymnist``; ``nexus_e2e``; each
+at its own batch, float32 without TF32), trains one warm-up epoch of ``--steps`` steps with the workload's
 trainer (``BaseTrainer``; the ``MultistageTrainer`` for ``telbo_conv`` and
 ``jnf_conv``, whose epochs here are in the stage ``--stage``, 1 by
 default: the profile calls ``train_step`` alone), then profiles a second

@@ -69,6 +69,19 @@ random data in the real datasets' shapes, made from a seed.
   (``examples/tutorials/training_a_cvae_model.py:24-54``): a target of 12
   conditioned on 6 and 1x4x4, latent 8, the default nets and a
   ``MultipleHeadJointEncoder`` prior network; batch 64, no eval set.
+- ``mhvae_polymnist``: the MHVAE PolyMNIST example
+  (``examples/mhvae_polymnist.py:102-131``): 5 modalities of 3x28x28, 3
+  latent levels (z_3 a vector of 64, z_2 a 64x7x7 map, z_1 a 32x14x14
+  map) on the example's nets (``tools/mhvae_nets.py``) with shared
+  posterior heads, Laplace decoders of scale 0.75, beta 1; batch 128,
+  complete data, no eval set.
+- ``nexus_e2e``: the one Nexus configuration the repo trains
+  (``tests/test_end_to_end_learning.py:244-253``): features ``a`` (8) and
+  ``b`` (12), top latent 8, bottom codes of 8, messages of 8, warm-up 5,
+  dropout rate 0.5, top beta 0.1, bottom betas 0.1, gammas 10, Normal
+  decoders of scale 0.05, the default MLP nets; batch 100 at lr 2e-3 as
+  that test trains it, on its synthetic data (3 classes: fixed centres in
+  [0.1, 0.9] plus noise of 0.03).
 
 The train sets of ``mvtcae_conv``, ``mmvae_conv``, ``mmvaeplus_partial``
 and ``mopoe_conv`` are ``IncompleteDataset``s: each (row, modality) is
@@ -91,9 +104,11 @@ import torch
 
 NAMES = ("mmvae", "mvtcae_mlp", "mvtcae_conv", "mmvae_conv", "mmvaeplus_partial",
          "mmvaeplus_k10", "cmvae_polymnist", "mvae_conv", "mopoe_conv", "crmvae_resnet",
-         "dmvae_mnist_svhn", "jmvae_conv", "telbo_conv", "jnf_conv", "cvae_tutorial")
+         "dmvae_mnist_svhn", "jmvae_conv", "telbo_conv", "jnf_conv", "cvae_tutorial",
+         "mhvae_polymnist", "nexus_e2e")
 BATCH = {name: (32 if name.startswith(("mmvaeplus", "cmvae"))
-                else 64 if name == "cvae_tutorial" else 256) for name in NAMES}
+                else {"cvae_tutorial": 64, "mhvae_polymnist": 128, "nexus_e2e": 100}.get(
+                    name, 256)) for name in NAMES}
 CLUSTERS = 40   # CMVAE's clusters
 POLYMNIST = (3, 28, 28)
 LATENT = 512
@@ -160,6 +175,7 @@ def build(name: str, n: int = 2048, n_eval: Optional[int] = None,
         DMVAE,
         JMVAE,
         JNF,
+        MHVAE,
         MMVAE,
         MVAE,
         MVTCAE,
@@ -170,6 +186,7 @@ def build(name: str, n: int = 2048, n_eval: Optional[int] = None,
         DMVAEConfig,
         JMVAEConfig,
         JNFConfig,
+        MHVAEConfig,
         MMVAEConfig,
         MMVAEPlus,
         MMVAEPlusConfig,
@@ -177,6 +194,8 @@ def build(name: str, n: int = 2048, n_eval: Optional[int] = None,
         MoPoEConfig,
         MVAEConfig,
         MVTCAEConfig,
+        Nexus,
+        NexusConfig,
         TELBOConfig,
     )
     from ..nn import (
@@ -272,6 +291,33 @@ def build(name: str, n: int = 2048, n_eval: Optional[int] = None,
                 "cond_a": rng.normal(size=(n, 6)).astype(np.float32),
                 "cond_b": rng.random((n, 1, 4, 4), dtype=np.float32)}
         return Workload(model, MultimodalBaseDataset(data), None, _trainer_kwargs(name))
+    if name == "mhvae_polymnist":
+        from .mhvae_nets import build_blocks, reset_blocks
+
+        blocks = build_blocks(list(poly), latent=64)
+        reset_blocks(blocks, torch.Generator().manual_seed(SEED))
+        names = ("encoders", "decoders", "bottom_up_blocks", "top_down_blocks",
+                 "posterior_blocks", "prior_blocks")
+        model = MHVAE(MHVAEConfig(n_modalities=5, latent_dim=64, input_dims=poly, n_latent=3,
+                                  beta=1.0, **laplace),
+                      **dict(zip(names, blocks)), seed=SEED, device=device)
+        return Workload(model, MultimodalBaseDataset(_images(rng, n, poly)), None,
+                        _trainer_kwargs(name))
+    if name == "nexus_e2e":
+        dims = {"a": (8,), "b": (12,)}
+        model = Nexus(NexusConfig(
+            n_modalities=2, latent_dim=8, modalities_specific_dim={"a": 8, "b": 8}, msg_dim=8,
+            warmup=5, dropout_rate=0.5, top_beta=0.1, bottom_betas={"a": 0.1, "b": 0.1},
+            gammas={"a": 10.0, "b": 10.0}, input_dims=dims,
+            decoders_dist={m: "normal" for m in dims},
+            decoder_dist_params={m: {"scale": 0.05} for m in dims}), seed=SEED, device=device)
+        labels = rng.integers(0, 3, n)
+        centres = np.random.default_rng(42)
+        data = {m: (centres.uniform(0.1, 0.9, size=(3, d[0]))[labels]
+                    + rng.normal(size=(n, d[0])) * 0.03).astype(np.float32)
+                for m, d in dims.items()}
+        return Workload(model, MultimodalBaseDataset(data), None,
+                        _trainer_kwargs(name, learning_rate=2e-3))
     if name == "crmvae_resnet":
         encoders, decoders = _seeded(
             {m: EncoderResnetMMNIST(0, LATENT) for m in poly},

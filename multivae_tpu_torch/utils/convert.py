@@ -35,6 +35,16 @@ in the order Flax creates them, so ``<group>/<m>/Dense_i``, ``Conv_i``,
   unimodal encoders, ``dict_encoders_<m>``, become ``.dict_encoders.<m>``
   and take the encoder rules (the row permutation above), and a
   conditional decoder's ``Decoder_AE_MLP_0`` becomes ``.network``;
+- Nexus's ``top_encoders/<m>`` and ``top_decoders/<m>`` map like
+  ``encoders`` and ``decoders``;
+- MHVAE's blocks: ``bottom_up/<m>/<i>`` becomes ``bottom_up_blocks.<m>.<i>``,
+  ``top_down/<i>`` and ``prior/<i>`` become ``top_down_blocks.<i>`` and
+  ``prior_blocks.<i>``, and ``posterior/<i>`` becomes
+  ``posterior_blocks.<i>`` (shared) or, holding a net per modality,
+  ``posterior/<i>/<m>`` becomes ``posterior_blocks.<m>.<i>``. Each block
+  maps as a decoder (no row permutation): the port's MHVAE nets flatten and
+  unflatten their maps in Flax's (h, w, c) order themselves
+  (``tools/mhvae_nets.py``);
 - a flow (``flows/<m>``, JNF's; or one of a sampler's ``flow_params``,
   through ``flow_from_jax``): ``blocks_<i>/{hidden_<j>,mu,alpha}`` becomes
   ``.blocks.<i>.{hidden.<j>,mu,alpha}``, kernels transposed like a Dense's.
@@ -51,18 +61,26 @@ from typing import Dict
 import numpy as np
 import torch
 
-_NET_GROUPS = ("encoders", "decoders")   # modality -> net
+# modality -> net, and whether it is an encoder
+_NET_GROUPS = {"encoders": True, "decoders": False, "top_encoders": True,
+               "top_decoders": False}
+_BLOCK_LISTS = {"top_down": "top_down_blocks", "prior": "prior_blocks"}
 _SINGLE_NETS = ("joint_encoder", "encoder", "decoder", "prior_network")
 _MADE_LAYERS = ("mu", "alpha")
 _LAYER_LISTS = {"Dense": "dense", "Conv": "conv", "ConvTranspose": "deconv",
                 "ResnetBlock": "blocks"}
 
 
-def _layer_key(name: str):
+def _is_layer(name: str) -> bool:
     kind, _, idx = name.rpartition("_")
-    if kind not in _LAYER_LISTS or not idx.isdigit():
+    return kind in _LAYER_LISTS and idx.isdigit()
+
+
+def _layer_key(name: str):
+    if not _is_layer(name):
         raise KeyError(f"Unsupported Flax layer {name!r}: only Dense_i, Conv_i, "
                        "ConvTranspose_i and ResnetBlock_i are mapped.")
+    kind, _, idx = name.rpartition("_")
     return kind, int(idx)
 
 
@@ -154,15 +172,27 @@ def flow_from_jax(params: dict) -> Dict[str, torch.Tensor]:
 
 def params_from_jax(params: dict) -> Dict[str, torch.Tensor]:
     """Nested numpy parameter tree -> torch ``state_dict``."""
-    unknown = (set(params) - set(_NET_GROUPS) - set(_SINGLE_NETS)
-               - {"model", "flows"})
+    unknown = (set(params) - set(_NET_GROUPS) - set(_SINGLE_NETS) - set(_BLOCK_LISTS)
+               - {"model", "flows", "bottom_up", "posterior"})
     if unknown:
         raise KeyError(f"Unsupported parameter groups: {sorted(unknown)}")
     state = {}
-    for group in _NET_GROUPS:
+    for group, encoder in _NET_GROUPS.items():
         for mod, layers in params.get(group, {}).items():
-            state.update(_net_state(f"{group}.{mod}", layers,
-                                    encoder=group == "encoders"))
+            state.update(_net_state(f"{group}.{mod}", layers, encoder=encoder))
+    for mod, blocks in params.get("bottom_up", {}).items():
+        for i, layers in blocks.items():
+            state.update(_net_state(f"bottom_up_blocks.{mod}.{i}", layers, encoder=False))
+    for group, attr in _BLOCK_LISTS.items():
+        for i, layers in params.get(group, {}).items():
+            state.update(_net_state(f"{attr}.{i}", layers, encoder=False))
+    for i, layers in params.get("posterior", {}).items():
+        if all(_is_layer(k) for k in layers):
+            state.update(_net_state(f"posterior_blocks.{i}", layers, encoder=False))
+        else:
+            for mod, mod_layers in layers.items():
+                state.update(_net_state(f"posterior_blocks.{mod}.{i}", mod_layers,
+                                        encoder=False))
     for group in _SINGLE_NETS:
         if group in params:
             state.update(_net_state(group, params[group], encoder=group != "decoder"))

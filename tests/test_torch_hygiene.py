@@ -95,6 +95,7 @@ DEVICE_CASES = {
     "jmvae": ("JMVAE", {}, "jmvae_conv"),
     "telbo": ("TELBO", {}, "telbo_conv"),
     "jnf": ("JNF", {}, "jnf_conv"),
+    "nexus": ("Nexus", {"modalities_specific_dim": {"a": 2}}, "nexus_e2e"),
 }
 
 
@@ -132,3 +133,19 @@ def test_cvae_and_multistage_trainer_default_to_cuda(monkeypatch):
                   device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         MultistageTrainer(telbo, None)
+
+
+def test_mhvae_defaults_to_cuda(monkeypatch):
+    from multivae_tpu_torch.models import MHVAE, MHVAEConfig
+    from multivae_tpu_torch.tools import mhvae_nets, workloads
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    names = ("encoders", "decoders", "bottom_up_blocks", "top_down_blocks",
+             "posterior_blocks", "prior_blocks")
+    cfg = MHVAEConfig(n_modalities=1, latent_dim=2, input_dims={"a": (3, 28, 28)})
+    blocks = dict(zip(names, mhvae_nets.build_blocks(["a"], 2, 2, 2, 4, 2)))
+    with pytest.raises(RuntimeError, match="cuda"):
+        MHVAE(cfg, **blocks)
+    with pytest.raises(RuntimeError, match="cuda"):
+        workloads.build("mhvae_polymnist", n=8)
+    assert MHVAE(cfg, **blocks, device="cpu").device == torch.device("cpu")

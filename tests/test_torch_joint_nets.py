@@ -132,6 +132,7 @@ def test_conditional_decoder_matches_flax(cond_dims):
 
 
 def test_params_from_jax_refuses_unknown_groups():
-    # MHVAE's ladder blocks are not ported (JNF's "flows" are mapped now)
+    # every group of the JAX package's models is mapped now (MHVAE's blocks
+    # and Nexus's top nets since the last two families were ported)
     with pytest.raises(KeyError, match="Unsupported parameter groups"):
-        params_from_jax({"bottom_up": {}})
+        params_from_jax({"ladder": {}})

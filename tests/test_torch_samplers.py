@@ -10,6 +10,10 @@ CPU at a small size.
   ``one_latent_space``, the private codes of a multi-latent model, the cut
   of ``n_components``, the refusals, fresh draws on each call, save and
   load, and the latents as ``model.encode`` gives them batch by batch;
+- on incomplete data: the latents of MVTCAE, MVAE, CRMVAE, DMVAE and MHVAE
+  (each row encoded from the modalities it has) against the JAX host
+  loop's on the same draws, then the GMM and MAF fits on them; a mixture
+  model (MMVAE) refuses, in both packages;
 - the MAF and IAF fits against the JAX fit on the same plan (the final
   weights and the last loss), and ``sample`` with the JAX sampler's weights
   and the same u.
@@ -20,6 +24,7 @@ iterations (rtol 1e-4, atol 1e-5); a flow fit is 6 Adam steps, compared by
 each tensor's move (``assert_same_moves``) and the last loss (rtol 1e-5).
 """
 
+import itertools
 import logging
 import types
 
@@ -31,13 +36,42 @@ import jax
 import jax.numpy as jnp
 import optax
 
+from mhvae_test_architectures import build_mhvae_blocks
+from multivae_tpu.data import IncompleteDataset as JIncompleteDataset
+from multivae_tpu.data.batch import batch_from_arrays as j_batch_from_arrays
+from multivae_tpu.models import CRMVAE as JCRMVAE
+from multivae_tpu.models import DMVAE as JDMVAE
+from multivae_tpu.models import MHVAE as JMHVAE
+from multivae_tpu.models import MMVAE as JMMVAE
+from multivae_tpu.models import MVAE as JMVAE
+from multivae_tpu.models import MVTCAE as JMVTCAE
+from multivae_tpu.models import CRMVAEConfig as JCRMVAEConfig
+from multivae_tpu.models import DMVAEConfig as JDMVAEConfig
+from multivae_tpu.models import MHVAEConfig as JMHVAEConfig
+from multivae_tpu.models import MMVAEConfig as JMMVAEConfig
+from multivae_tpu.models import MVAEConfig as JMVAEConfig
+from multivae_tpu.models import MVTCAEConfig as JMVTCAEConfig
 from multivae_tpu.ops import flows as jflows
 from multivae_tpu.ops import gmm as jgmm
+from multivae_tpu.samplers import GaussianMixtureSampler as JGaussianMixtureSampler
 from multivae_tpu.samplers import IAFSampler as JIAFSampler
 from multivae_tpu.samplers import MAFSampler as JMAFSampler
 from multivae_tpu.samplers import MAFSamplerConfig as JMAFSamplerConfig
 from multivae_tpu_torch.data import IncompleteDataset, MultimodalBaseDataset
-from multivae_tpu_torch.models import DMVAE, MVTCAE, DMVAEConfig, MVTCAEConfig
+from multivae_tpu_torch.models import (
+    CRMVAE,
+    DMVAE,
+    MHVAE,
+    MMVAE,
+    MVAE,
+    MVTCAE,
+    CRMVAEConfig,
+    DMVAEConfig,
+    MHVAEConfig,
+    MMVAEConfig,
+    MVAEConfig,
+    MVTCAEConfig,
+)
 from multivae_tpu_torch.ops import gmm
 from multivae_tpu_torch.samplers import (
     GaussianMixtureSampler,
@@ -49,7 +83,7 @@ from multivae_tpu_torch.samplers import (
 )
 from multivae_tpu_torch.samplers.maf_sampler.maf_sampler import fit_plan
 from multivae_tpu_torch.utils.convert import flow_from_jax
-from torch_parity import assert_same_moves, normal
+from torch_parity import assert_same_moves, mhvae_mlp_blocks, normal, port_model
 
 torch.set_num_threads(2)
 
@@ -57,6 +91,10 @@ OP_TOL = dict(rtol=1e-5, atol=1e-5)
 EM_TOL = dict(rtol=1e-4, atol=1e-5)
 DIMS = {"a": (5,), "b": (2, 3)}
 LATENT = 3
+PER_SAMPLE = {"MVTCAE": (JMVTCAE, JMVTCAEConfig, MVTCAE, MVTCAEConfig),
+              "MVAE": (JMVAE, JMVAEConfig, MVAE, MVAEConfig),
+              "CRMVAE": (JCRMVAE, JCRMVAEConfig, CRMVAE, CRMVAEConfig),
+              "DMVAE": (JDMVAE, JDMVAEConfig, DMVAE, DMVAEConfig)}
 
 
 def _blobs(n_per=20, k=3, d=3, seed=0):
@@ -265,17 +303,110 @@ def test_gmm_sampler_cuts_components_and_backends(models, caplog):
         GaussianMixtureSamplerConfig(fit_backend="numpy")
 
 
+def _incomplete(dataset, n=20):
+    """``dataset``'s rows with 'a' missing in rows 3 and 9, 'b' in 4 and 9
+    (row 9 has no modality), missing entries zeroed."""
+    masks = {m: np.ones(n, bool) for m in DIMS}
+    masks["a"][[3, 9]] = False
+    masks["b"][[4, 9]] = False
+    data = {m: np.where(masks[m].reshape(-1, *(1,) * (v.ndim - 1)), v, 0.0).astype(np.float32)
+            for m, v in dataset.data.items()}
+    return data, masks
+
+
 def test_samplers_refuse_incomplete_data(models):
-    model, dataset = models[0], models[2]
-    masks = {m: np.ones(20, bool) for m in DIMS}
-    masks["a"][3] = False
-    incomplete = IncompleteDataset(dataset.data, masks)
+    """A mixture model (MMVAE: one expert drawn for the whole batch) keeps
+    ``encode``'s availability error on an incomplete dataset, in both
+    packages; complete masks are fine."""
+    dataset = models[2]
+    common = dict(n_modalities=2, latent_dim=LATENT, input_dims=DIMS)
+    model = MMVAE(MMVAEConfig(**common), device="cpu")
+    assert not model.supports_per_sample_conditioning
+    incomplete = IncompleteDataset(*_incomplete(dataset))
     for sampler in _samplers(model):
-        with pytest.raises(AttributeError, match="Queue A"):
+        with pytest.raises(AttributeError, match="incomplete dataset"):
             _fit(sampler, incomplete)
-    # complete masks are fine
+    with pytest.raises(AttributeError, match="cannot condition each row"):
+        model.encode_per_sample(incomplete[:])
+    with pytest.raises(AttributeError, match="incomplete dataset"):
+        JGaussianMixtureSampler(JMMVAE(JMMVAEConfig(**common)))._collect_latents(
+            JIncompleteDataset(*_incomplete(dataset)), batch_size=8)
     full = IncompleteDataset(dataset.data, {m: np.ones(20, bool) for m in DIMS})
     assert _fit(_samplers(model)[0], full).is_fitted
+
+
+def _per_sample_models(name):
+    """(JAX model, the port's with its weights) of a per-sample family."""
+    common = dict(n_modalities=2, latent_dim=LATENT, input_dims=DIMS)
+    if name == "MHVAE":
+        jblocks = build_mhvae_blocks(DIMS, n_latent=3, latent_dim=LATENT,
+                                     shared_posteriors=False)
+        names = ("encoders", "decoders", "bottom_up_blocks", "top_down_blocks",
+                 "posterior_blocks", "prior_blocks")
+        jmodel = JMHVAE(JMHVAEConfig(**common), **dict(zip(names, jblocks)))
+        jmodel.init_params_with_batch(j_batch_from_arrays(
+            data={m: np.zeros((2, *d), np.float32) for m, d in DIMS.items()}))
+        tmodel = MHVAE(MHVAEConfig(**common), **dict(zip(
+            names, mhvae_mlp_blocks(DIMS, LATENT, shared=False))), device="cpu")
+        return jmodel, port_model(jmodel, tmodel)
+    if name == "DMVAE":
+        common["modalities_specific_dim"] = {"a": 1, "b": 2}
+    jcls, jcfg, cls, cfg = PER_SAMPLE[name]
+    return jcls(jcfg(**common)), port_model(jcls(jcfg(**common)), cls(cfg(**common),
+                                                                       device="cpu"))
+
+
+def _collect_noise(name, key):
+    """The ``draw_noise`` hook of the JAX host loop's per-batch masked
+    encode: every batch draws from ``key`` again. MVTCAE, MVAE and CRMVAE
+    draw z from ``key``; DMVAE z from ``split(key)[1]``, then each private
+    code from ``split(split(key)[0], 2)``; MHVAE each level from the chain
+    ``rng, z_rng = split(rng)``, the deepest first."""
+    if name == "MHVAE":
+        keys, rng = [], key
+        for _ in range(3):
+            rng, sub = jax.random.split(rng)
+            keys.append(sub)
+    elif name == "DMVAE":
+        rng, z_rng = jax.random.split(key)
+        keys = [z_rng, *jax.random.split(rng, 2)]
+    else:
+        keys = [key]
+    draws = itertools.cycle(keys)
+    return lambda shape, generator=None: normal(next(draws), shape)
+
+
+@pytest.mark.parametrize("name", ["MVTCAE", "MVAE", "CRMVAE", "DMVAE", "MHVAE"])
+def test_latents_collected_on_incomplete_data_match_jax(models, name):
+    """20 rows in batches of 8 (the last one padded), rows missing 'a',
+    'b' or both: each row is encoded from the modalities it has (DMVAE's
+    private code of a missing modality from N(0, I)), as the JAX host loop
+    does; then the GMM and MAF samplers fit on them."""
+    jmodel, tmodel = _per_sample_models(name)
+    assert tmodel.supports_per_sample_conditioning and jmodel.supports_per_sample_conditioning
+    data, masks = _incomplete(models[2])
+    key = jax.random.key(4)
+    ref_z, ref_mods = JGaussianMixtureSampler(jmodel)._collect_latents(
+        JIncompleteDataset(data, masks), batch_size=8, rng=key)
+    dataset = IncompleteDataset(data, masks)
+    tmodel.draw_noise = _collect_noise(name, key)
+    z, mod_z = GaussianMixtureSampler(tmodel)._collect_latents(dataset, batch_size=8)
+    assert z.shape == (20, LATENT)
+    np.testing.assert_allclose(z.numpy(), ref_z, **OP_TOL)
+    assert (mod_z is None) == (ref_mods is None) == (name != "DMVAE")
+    if name == "DMVAE":
+        for m in DIMS:
+            np.testing.assert_allclose(mod_z[m].numpy(), ref_mods[m], err_msg=m, **OP_TOL)
+        with torch.no_grad():
+            prior = _collect_noise(name, key)
+            draws = [prior((8, LATENT)), prior((8, 1)), prior((8, 2))]
+        # row 9 (the second batch's row 1) lacks both: its private codes are the noise
+        assert torch.equal(mod_z["a"][9], draws[1][1]) and torch.equal(mod_z["b"][9],
+                                                                       draws[2][1])
+    del tmodel.draw_noise
+    for sampler in _samplers(tmodel)[:2]:
+        out = _fit(sampler, dataset).sample(5)
+        assert out.z.shape == (5, LATENT) and torch.isfinite(out.z).all()
 
 
 # ------------------------------------------------------ flow fits vs JAX

@@ -73,12 +73,54 @@ def _check_small_published_workload(name, w):
     assert model.model_config.custom_architectures == ["prior_network"]
 
 
+def _check_hierarchical_workload(name, w):
+    """MHVAE at the PolyMNIST example's widths and the repo's Nexus: their
+    own shapes, no eval set, a finite loss on 2 rows."""
+    model = w.model
+    assert w.eval is None and w.trainer_cls is None
+    if name == "mhvae_polymnist":
+        assert {k: tuple(v) for k, v in model.input_dims.items()} == {
+            f"m{i}": (3, 28, 28) for i in range(5)}
+        assert (model.n_latent, model.beta, model.latent_dim) == (3, 1.0, 64)
+        assert model.share_posterior_weights and len(model.subsets) == 31
+        assert model.model_config.decoder_dist_params["m0"] == {"scale": 0.75}
+        assert model.bottom_up_blocks["m0"][1].dense[0].in_features == 4 * 4 * 128
+        assert model.top_down_blocks[1].dense[1].out_features == 7 * 7 * 64
+        assert model.posterior_blocks[0].conv[0].in_channels == 64
+        assert model.posterior_blocks[1].conv[0].in_channels == 128
+        assert w.trainer_kwargs["per_device_train_batch_size"] == 128
+        assert w.trainer_kwargs["learning_rate"] == 1e-3
+        with torch.no_grad():
+            enc = model.encode(w.train.get_batch(np.arange(2)), N=3)
+        assert {k: tuple(v.shape) for k, v in enc.all_z.items()} == {
+            "z_3": (3, 2, 64), "z_2": (3, 2, 64, 7, 7), "z_1": (3, 2, 32, 14, 14)}
+    else:
+        cfg = model.model_config
+        assert {k: tuple(v) for k, v in model.input_dims.items()} == {"a": (8,), "b": (12,)}
+        assert (model.latent_dim, cfg.msg_dim, cfg.warmup, cfg.dropout_rate) == (8, 8, 5, 0.5)
+        assert cfg.modalities_specific_dim == {"a": 8, "b": 8}
+        assert (cfg.top_beta, model.bottom_betas, model.gammas) == (
+            0.1, {"a": 0.1, "b": 0.1}, {"a": 10.0, "b": 10.0})
+        assert cfg.decoder_dist_params["a"] == {"scale": 0.05}
+        assert model.start_keep_best_epoch == 6
+        assert w.trainer_kwargs["per_device_train_batch_size"] == 100
+        assert w.trainer_kwargs["learning_rate"] == 2e-3
+        # the synthetic classes: the features stay near their centres
+        assert 0.0 < w.train.data["a"].min() and w.train.data["b"].max() < 1.0
+    with torch.no_grad():
+        loss = model(w.train.get_batch(np.arange(2))).loss
+    assert torch.isfinite(loss)
+
+
 @pytest.mark.parametrize("name", workloads.NAMES)
 def test_workloads_have_the_published_widths(name):
     w = workloads.build(name, n=8, n_eval=4, device="cpu")
     model = w.model
     if name in ("dmvae_mnist_svhn", "cvae_tutorial"):
         _check_small_published_workload(name, w)
+        return
+    if name in ("mhvae_polymnist", "nexus_e2e"):
+        _check_hierarchical_workload(name, w)
         return
     assert (w.trainer_cls is MultistageTrainer) == (name in ("telbo_conv", "jnf_conv"))
     plus = name.startswith("mmvaeplus")
