@@ -141,7 +141,22 @@ Phases (any failure exits non-zero and prints no result line):
     on ``mvtcae_conv``'s incomplete train set through the per-row encode:
     the collection's, fits' and samples' seconds, the collected latents of
     64 rows card vs CPU, and ``mmvae_conv``'s refusal;
-19. the seconds the whole run took, a ``kernels`` JSON line (launches
+19. ``evaluation``: every evaluator of ``multivae_tpu_torch.metrics`` on
+    the trained ``mvtcae_conv`` and ``mmvae_conv``, on 2,048 labelled random
+    PolyMNIST test rows (and 2,048 train rows for the clustering), with five
+    random-init PolyMNIST classifiers: the K=1000 joint NLL (MVTCAE on 256
+    rows; MMVAE's paper estimator on 64, 10 mixture forwards), the
+    coherences at the case study's settings (batch 512, 10,000 joint
+    samples), SSIM and MSE reconstruction, the clustering (4 runs), the
+    grids (PNGs), the FIDs of ``m0`` from all 15 subsets embedded by a
+    classifier's 128 features and, on MVTCAE, the FID of ``m0`` from the
+    other four through a random-init InceptionV3 at 299x299 read from a
+    state-dict file (4,096 images; the embedding and the 2048x2048 Fréchet
+    step timed apart); each evaluator's seconds and peak; every evaluator
+    card vs CPU on 64 rows with the same noise (the classifiers'
+    predictions equal but on near-ties, whose count is printed), and the
+    Inception embeddings of 8 rows card vs CPU;
+20. the seconds the whole run took, a ``kernels`` JSON line (launches
     summed over every training and inference phase that runs the kernels),
     then the last line
     ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -156,6 +171,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -220,6 +236,11 @@ CHECK_SHAPES = (SLICE_SHAPE, RAGGED_SHAPE, ODD_D_SHAPE, MANY_EXPERTS_SHAPE,
 KERNELS = ("fwd", "bwd", "bwd_dz")
 # the joint NLLs' importance samples and chunk (the reference's K=1000)
 NLL_K, NLL_CHUNK = 1000, 100
+# the evaluation phase: labelled test and train rows (PolyMNIST's test set
+# has 10,000), the rows of its card-vs-CPU checks, and the top-two logit
+# margin under which a classifier's prediction may differ between the two
+EVAL_ROWS, EVAL_CHECK_ROWS = 2048, 64
+TIE_MARGIN = 1e-4
 
 
 class SmokeFailure(Exception):
@@ -1246,6 +1267,292 @@ def samplers_incomplete(mx, mvtcae, mmvae, n_components=2, check_rows=64):
     return record
 
 
+
+class _RecordedClassifier:
+    """A classifier that keeps each call's predicted classes and the margin
+    between its top two logits."""
+
+    def __init__(self, clf):
+        self.clf, self.preds, self.margins = clf, [], []
+
+    def __call__(self, x):
+        logits = self.clf(x)
+        top2 = logits.topk(2, dim=-1).values
+        self.preds.append(logits.argmax(-1).cpu())
+        self.margins.append((top2[:, 0] - top2[:, 1]).cpu())
+        return logits
+
+
+def random_classifiers(device, seed=0):
+    """Five random-init ``ClassifierPolyMNIST`` on ``device`` (the
+    pretrained weights are not in the repository)."""
+    from multivae_tpu_torch.metrics import ClassifierPolyMNIST
+
+    gen = torch.Generator().manual_seed(seed)
+    return {f"m{i}": ClassifierPolyMNIST().reset_parameters(gen).to(device)
+            for i in range(5)}
+
+
+def _head(dataset, n):
+    from multivae_tpu_torch.data import ResampleDataset
+
+    return ResampleDataset(dataset, np.arange(n))
+
+
+def evaluator_calls(model, clfs, test, train, out_dir, inception_path=None, small=False):
+    """The evaluators on ``model``, each a call returning its metrics:
+    ``LikelihoodsEvaluator`` (K=1000 in chunks of 100 on 256 rows; MMVAE's
+    paper estimator on 64, which runs the mixture forward kernel),
+    ``CoherenceEvaluator`` (the case study's settings: batch 512, 10
+    classes, 10,000 joint samples), ``Reconstruction`` (SSIM, then MSE),
+    ``Clustering`` (4 runs, k-means++ from a seeded CPU generator),
+    ``Visualization`` (unconditional and from ``m1``, PNGs in ``out_dir``),
+    the FIDs of ``m0`` from every subset of the others embedded by the
+    ``m0`` classifier's 128 features, and, with ``inception_path``, the FID
+    of ``m0`` from the other four through that InceptionV3 at 299x299 (its
+    embedding and Fréchet seconds apart). ``small``: the card-vs-CPU
+    settings (64 rows, K=20 in chunks of 10, 64 joint samples, one
+    clustering run, the FIDs embedded by the classifier's 10 logits: a
+    128-feature covariance of 64 rows would be singular)."""
+    from multivae_tpu_torch.metrics import (
+        Clustering,
+        ClusteringConfig,
+        CoherenceEvaluator,
+        CoherenceEvaluatorConfig,
+        FIDEvaluator,
+        FIDEvaluatorConfig,
+        LikelihoodsEvaluator,
+        LikelihoodsEvaluatorConfig,
+        Reconstruction,
+        ReconstructionConfig,
+        Visualization,
+    )
+
+    paper = model.model_name == "MMVAE"
+    if small:
+        test = _head(test, min(len(test), EVAL_CHECK_ROWS))
+        train = _head(train, min(len(train), EVAL_CHECK_ROWS))
+    nll_set = _head(test, min(len(test), EVAL_CHECK_ROWS if small or paper else 256))
+    K, chunk = (20, 10) if small else (NLL_K, NLL_CHUNK)
+    mods = list(model.encoders)
+
+    def finished(ev, value):
+        ev.finish()
+        return value
+
+    def likelihoods():
+        ev = LikelihoodsEvaluator(model, nll_set, eval_config=LikelihoodsEvaluatorConfig(
+            num_samples=K, batch_size_k=chunk, unified_implementation=not paper))
+        return finished(ev, dict(ev.eval(), rows=len(nll_set)))
+
+    def coherence():
+        ev = CoherenceEvaluator(model, clfs, test, eval_config=CoherenceEvaluatorConfig(
+            batch_size=512, num_classes=10, **({"nb_samples_for_joint": 64} if small else {})))
+        return finished(ev, dict(ev.eval()))
+
+    def reconstruction():
+        out = {}
+        for metric in ("SSIM", "MSE"):
+            ev = Reconstruction(model, test, eval_config=ReconstructionConfig(metric=metric))
+            out.update(finished(ev, ev.eval()))
+        return out
+
+    def clustering():
+        ev = Clustering(model, test, train, eval_config=ClusteringConfig(
+            number_of_runs=1 if small else 4), generator=torch.Generator().manual_seed(0))
+        return finished(ev, dict(ev.eval()))
+
+    def visualization():
+        ev = Visualization(model, test, output=out_dir)
+        return finished(ev, {"unconditional": ev.eval().unconditional_generation,
+                             "from_m1": ev.conditional_samples_subset(["m1"])})
+
+    def fid_subsets():
+        embed = {m: clfs[m] if small else clfs[m].features for m in mods}
+        ev = FIDEvaluator(model, test, custom_encoders=embed,
+                          eval_config=FIDEvaluatorConfig(batch_size=256))
+        return finished(ev, dict(ev.compute_all_conditional_fids("m0")))
+
+    def fid_inception():
+        ev = FIDEvaluator(model, test, eval_config=FIDEvaluatorConfig(
+            batch_size=256, inception_weights_path=inception_path))
+        frechet = ev.calculate_frechet_distance
+        spent = []
+
+        def timed_frechet(*args):
+            t0 = time.perf_counter()
+            value = frechet(*args)
+            spent.append(time.perf_counter() - t0)
+            return value
+
+        ev.calculate_frechet_distance = timed_frechet
+        t0 = time.perf_counter()
+        fd = ev.compute_fid_from_conditional_generation(mods[1:], "m0")
+        total = time.perf_counter() - t0
+        return finished(ev, {"fd": fd, "embedded_images": 2 * len(test),
+                             "embed_and_decode_s": total - sum(spent),
+                             "frechet_s": sum(spent)})
+
+    calls = {"likelihoods": likelihoods, "coherence": coherence,
+             "reconstruction": reconstruction, "clustering": clustering,
+             "visualization": visualization, "fid_subsets": fid_subsets}
+    if inception_path is not None:
+        calls["fid_inception"] = fid_inception
+    return calls
+
+
+def _check_metrics(name, label, value, test):
+    """Finite metrics in their ranges; grids of the right size."""
+    if label == "visualization":
+        for key, image in value.items():
+            check(image.dtype == np.uint8 and image.ndim == 3 and image.shape[2] == 3,
+                  f"{name} {key} grid {image.dtype} {image.shape}")
+        return
+    numbers = {k: float(v) for k, v in value.items()}
+    check(all(np.isfinite(list(numbers.values()))), f"{name} {label}: non-finite {numbers}")
+    if label in ("coherence", "clustering"):
+        check(all(0 <= v <= 1 for k, v in numbers.items() if not k.startswith("std")),
+              f"{name} {label} out of [0, 1]")
+    if label == "reconstruction":
+        check(all(-1 <= v <= 1 for k, v in numbers.items() if "SSIM" in k),
+              f"{name} SSIM out of [-1, 1]")
+
+
+def _summary(label, value):
+    """The printed part of an evaluator's metrics."""
+    if label == "visualization":
+        return {k: list(v.shape) for k, v in value.items()}
+    if label == "coherence":
+        return {k: v for k, v in value.items()
+                if k.startswith(("mean_coherence", "joint_coherence"))}
+    if label == "fid_subsets":
+        return {k: v for k, v in value.items() if k.startswith("Mean FD")}
+    return value
+
+
+def evaluators_card_vs_cpu(model, clfs, test, train, out_dir, seed):
+    """Every evaluator at the ``small`` settings of ``evaluator_calls`` on
+    the card and on a CPU copy of ``model`` and of the classifiers, both fed
+    the same noise (and the last expert for MMVAE): values within
+    ``LOSS_RTOL``; the classifiers' predictions equal but where the top two
+    logits are closer than ``TIE_MARGIN`` on either side, and the
+    coherences equal unless such a prediction differs; cluster accuracy
+    equal; grid pixels within one level. Returns the record."""
+    cpu_clfs = {m: copy.deepcopy(c).to("cpu") for m, c in clfs.items()}
+
+    def run(net):
+        recorded = {m: _RecordedClassifier(c) for m, c in
+                    (clfs if net.device.type == "cuda" else cpu_clfs).items()}
+        calls = evaluator_calls(net, recorded, test, train, out_dir, small=True)
+        return {label: call() for label, call in calls.items()}, recorded
+
+    draws = recorded_draws(model, lambda net, dtype: run(net), seed)
+    got, clf_calls = {}, {}
+    for key, net in (("card", model), ("cpu", copy.deepcopy(model).to("cpu"))):
+        with injected_noise(net, draws), torch.no_grad():
+            got[key], clf_calls[key] = run(net)
+    preds = {k: torch.cat([p for c in clf_calls[k].values() for p in c.preds])
+             for k in got}
+    margins = torch.minimum(*(torch.cat([q for c in clf_calls[k].values() for q in c.margins])
+                              for k in got))
+    differ = preds["card"] != preds["cpu"]
+    check(bool((margins[differ] < TIE_MARGIN).all()),
+          f"a prediction with margin >= {TIE_MARGIN} differs card vs cpu")
+    record = {"rows": min(len(test), EVAL_CHECK_ROWS), "predictions": len(margins),
+              "near_tie_predictions": int((margins < TIE_MARGIN).sum()),
+              "differing_predictions": int(differ.sum())}
+    for label in got["card"]:
+        card, cpu = got["card"][label], got["cpu"][label]
+        if label == "visualization":
+            diff = max(int(np.abs(card[k].astype(int) - cpu[k].astype(int)).max())
+                       for k in card)
+            check(diff <= 1, f"grids card vs cpu differ by {diff} levels")
+            record[label] = {"max_level_diff": diff}
+            continue
+        exact = label == "clustering" or (label == "coherence" and not differ.any())
+        for k, v in cpu.items():
+            ok = (card[k] == v) if exact else abs(card[k] - v) <= LOSS_RTOL * abs(v)
+            check(label == "coherence" and differ.any() or ok,
+                  f"{label} {k}: card {card[k]} vs cpu {v}")
+        record[label] = {"max_rel_err": max(abs(card[k] - v) / max(abs(v), 1e-30)
+                                            for k, v in cpu.items())}
+    return record
+
+
+def _measured(mx, fn):
+    """``fn()``'s value, its seconds (to a synchronised end) and peak
+    device memory above what was held before it, and the mixture launches
+    it made."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    mx.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        value = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return value, {"seconds": seconds,
+                   "peak_above_held_bytes": torch.cuda.max_memory_allocated() - held}, dict(
+                       mx.launches)
+
+
+def evaluation_phase(mx, models, rows=EVAL_ROWS, inception_model="mvtcae_conv"):
+    """Every evaluator of ``multivae_tpu_torch.metrics`` on each trained
+    model of ``models`` (``evaluator_calls``), on ``rows`` labelled random
+    PolyMNIST test rows and as many train rows (``workloads.labelled_polymnist``),
+    with five random-init classifiers on the card and, on
+    ``inception_model``, a random-init InceptionV3 read from a state-dict
+    file as a user's pytorch-fid weights would be: each evaluator's seconds
+    and peak, exact mixture launches (10 forwards for MMVAE's paper NLL, none
+    elsewhere); card vs CPU on 64 rows (``evaluators_card_vs_cpu``) and the
+    Inception embeddings of 8 rows within ``ENCODE_RTOL`` of their largest.
+    Returns (the record, the launches)."""
+    from multivae_tpu_torch.metrics import AdaptShapeFID, InceptionV3FID
+    from multivae_tpu_torch.tools.workloads import labelled_polymnist
+
+    device = next(iter(models.values())).device
+    test, train = labelled_polymnist(rows, 11), labelled_polymnist(rows, 12)
+    clfs = random_classifiers(device)
+    record = {"phase": "evaluation", "rows": rows, "train_rows": rows}
+    total = {k: 0 for k in KERNELS}
+    with tempfile.TemporaryDirectory() as tmp:
+        inception = InceptionV3FID().reset_parameters(torch.Generator().manual_seed(3))
+        inception_path = os.path.join(tmp, "pt_inception.pth")
+        torch.save(inception.state_dict(), inception_path)
+        for seed, (name, model) in enumerate(models.items()):
+            out_dir = os.path.join(tmp, name)
+            calls = evaluator_calls(model, clfs, test, train, out_dir,
+                                    inception_path if name == inception_model else None)
+            record[name] = {}
+            for label, call in calls.items():
+                value, stats, launches = _measured(mx, call)
+                paper_nll = label == "likelihoods" and model.model_name == "MMVAE"
+                expected = {"fwd": -(-NLL_K // NLL_CHUNK) if paper_nll else 0,
+                            "bwd": 0, "bwd_dz": 0}
+                check(launches == expected,
+                      f"{name} {label}: expected {expected} launches, got {launches}")
+                total = {k: total[k] + launches[k] for k in KERNELS}
+                _check_metrics(name, label, value, test)
+                record[name][label] = {**stats, **_summary(label, value)}
+            check(sorted(os.listdir(out_dir)) == [
+                "conditional_from_subset_['m1'].png", "metrics.log", "unconditional.png"],
+                f"{name}: wrote {os.listdir(out_dir)}")
+            t0 = time.perf_counter()
+            record[name]["card_vs_cpu"] = evaluators_card_vs_cpu(
+                model, clfs, test, train, os.path.join(tmp, "check"), seed=20 + seed)
+            record[name]["card_vs_cpu"]["seconds"] = time.perf_counter() - t0
+        x = AdaptShapeFID()(torch.tensor(test.get_batch(np.arange(8))["data"]["m0"]))
+        with torch.no_grad():
+            card = inception.to(device)(x.to(device)).embedding.cpu()
+            cpu = inception.to("cpu")(x).embedding
+        err, scale = (card - cpu).abs().max().item(), cpu.abs().max().item()
+        check(err <= ENCODE_RTOL * scale, f"inception card vs cpu {err} (max {scale})")
+        record["inception_card_vs_cpu"] = {"rows": 8, "max_abs_err": err,
+                                           "max_abs_embedding": scale}
+    return record, total
+
+
 def main():
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1389,6 +1696,10 @@ def main():
         print(json.dumps(record))
         print(json.dumps(hierarchical_inference(mx, mhvae, nexus)))
         print(json.dumps(samplers_incomplete(mx, trained["mvtcae_conv"], moe["mmvae_conv"])))
+        record, counts = evaluation_phase(mx, {"mvtcae_conv": trained["mvtcae_conv"].model,
+                                               "mmvae_conv": moe["mmvae_conv"].model})
+        print(json.dumps(record))
+        add(counts)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

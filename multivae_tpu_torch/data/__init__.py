@@ -1,5 +1,11 @@
 from .batch import MultimodalBatch, as_batch, batch_from_arrays
-from .datasets import DatasetOutput, IncompleteDataset, MultimodalBaseDataset
+from .datasets import (
+    DatasetOutput,
+    IncompleteDataset,
+    MultimodalBaseDataset,
+    ResampleDataset,
+    random_split,
+)
 from .loader import DataLoader
 
 __all__ = [
@@ -8,6 +14,8 @@ __all__ = [
     "IncompleteDataset",
     "MultimodalBaseDataset",
     "MultimodalBatch",
+    "ResampleDataset",
     "as_batch",
     "batch_from_arrays",
+    "random_split",
 ]

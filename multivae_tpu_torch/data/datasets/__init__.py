@@ -1,3 +1,10 @@
-from .base import DatasetOutput, IncompleteDataset, MultimodalBaseDataset
+from .base import (
+    DatasetOutput,
+    IncompleteDataset,
+    MultimodalBaseDataset,
+    ResampleDataset,
+    random_split,
+)
 
-__all__ = ["DatasetOutput", "IncompleteDataset", "MultimodalBaseDataset"]
+__all__ = ["DatasetOutput", "IncompleteDataset", "MultimodalBaseDataset",
+           "ResampleDataset", "random_split"]

@@ -89,6 +89,10 @@ missing with probability 0.2, and a few rows have no modality at all. The
 eval sets of the conv protocols are complete, as PolyMNIST's test set is;
 the MMVAE+ eval split is cut from the same incomplete data.
 
+``labelled_polymnist`` makes the evaluation phase's sets: complete random
+PolyMNIST rows with digit labels in [0, 10), the shape of PolyMNIST's test
+set (10,000 rows there).
+
 All: Adam 1e-3, float32, seed 0; batch 256 unless stated. Only depth is
 cut (rows, epochs). ``Workload.trainer_cls`` names the trainer a workload
 needs (the ``MultistageTrainer`` for ``telbo_conv`` and ``jnf_conv``).
@@ -376,3 +380,13 @@ def dead_rows(n: int) -> np.ndarray:
     """Rows of the incomplete train sets with no modality (row 5 among them,
     so the first 8 rows hold one)."""
     return np.arange(5, n, 509)
+
+
+def labelled_polymnist(n: int, seed: int):
+    """``n`` complete random PolyMNIST rows (5 modalities of 3x28x28, as the
+    conv protocols name them) with labels in [0, 10), from ``seed``."""
+    from ..data import MultimodalBaseDataset
+
+    rng = np.random.default_rng(seed)
+    data = _images(rng, n, {f"m{i}": POLYMNIST for i in range(5)})
+    return MultimodalBaseDataset(data, labels=rng.integers(0, 10, n))

@@ -50,6 +50,18 @@ in the order Flax creates them, so ``<group>/<m>/Dense_i``, ``Conv_i``,
   ``.blocks.<i>.{hidden.<j>,mu,alpha}``, kernels transposed like a Dense's.
   The MADE masks are buffers built from the flow's shape, not weights.
 
+Two evaluation nets have maps of their own:
+
+- ``classifier_from_jax``: the JAX package's PolyMNIST classifier
+  (``conv1``, ``conv2``, ``fc1``, ``fc2``) becomes the port's
+  ``encoder.0``, ``.3``, ``.7`` and ``.10``. Its Flax model transposes the
+  conv map to NCHW before flattening, so ``fc1`` needs no row permutation;
+- ``inception_from_jax``: the Flax InceptionV3's ``{"params",
+  "batch_stats"}`` become pytorch-fid's names: ``<path>/conv/kernel``
+  becomes ``<path>.conv.weight``, ``<path>/bn/{scale,bias}`` and
+  ``batch_stats`` ``<path>/bn/{mean,var}`` become ``<path>.bn.{weight,
+  bias,running_mean,running_var}`` (``num_batches_tracked`` 0).
+
 Only numpy goes in; the JAX side of the conversion is the caller's.
 """
 
@@ -200,4 +212,44 @@ def params_from_jax(params: dict) -> Dict[str, torch.Tensor]:
         state.update({f"flows.{mod}.{k}": v for k, v in flow_from_jax(flow).items()})
     for name, leaf in params.get("model", {}).items():
         state[name] = torch.tensor(np.asarray(leaf))
+    return state
+
+
+def _conv_weight(kernel) -> torch.Tensor:
+    """Flax HWIO conv kernel -> torch OIHW weight."""
+    return torch.tensor(np.asarray(kernel).transpose(3, 2, 0, 1).copy())
+
+
+def classifier_from_jax(params: dict) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``ClassifierPolyMNIST`` parameters (``{"params":
+    ...}`` or their content) -> the port's ``state_dict``."""
+    params = params.get("params", params)
+    state = {}
+    for name, index in (("conv1", 0), ("conv2", 3), ("fc1", 7), ("fc2", 10)):
+        kernel = params[name]["kernel"]
+        state[f"encoder.{index}.weight"] = (
+            _conv_weight(kernel) if name.startswith("conv")
+            else torch.tensor(np.asarray(kernel).T.copy()))
+        state[f"encoder.{index}.bias"] = torch.tensor(np.asarray(params[name]["bias"]))
+    return state
+
+
+def inception_from_jax(variables: dict) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``InceptionV3FID`` variables ``{"params": ...,
+    "batch_stats": ...}`` -> the port's (pytorch-fid's) ``state_dict``."""
+    state = {}
+
+    def walk(tree, path, leaf_map):
+        for name, node in tree.items():
+            if isinstance(node, dict):
+                walk(node, path + [name], leaf_map)
+            else:
+                key = ".".join(path) + "." + leaf_map[name]
+                state[key] = (_conv_weight(node) if name == "kernel"
+                              else torch.tensor(np.asarray(node)))
+
+    walk(variables["params"], [], {"kernel": "weight", "scale": "weight", "bias": "bias"})
+    walk(variables["batch_stats"], [], {"mean": "running_mean", "var": "running_var"})
+    for key in [k for k in state if k.endswith(".bn.running_mean")]:
+        state[key.replace("running_mean", "num_batches_tracked")] = torch.tensor(0)
     return state

@@ -149,3 +149,46 @@ def test_mhvae_defaults_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         workloads.build("mhvae_polymnist", n=8)
     assert MHVAE(cfg, **blocks, device="cpu").device == torch.device("cpu")
+
+
+def test_clustering_and_visualization_need_no_sklearn_or_pil(tmp_path):
+    """The card's machine has neither scikit-learn nor Pillow: with both
+    blocked, the latent clustering and the sample grids (PNGs written) run
+    to their end."""
+    code = (
+        "import sys\n"
+        "sys.modules['sklearn'] = None\n"
+        "sys.modules['PIL'] = None\n"
+        "import os, numpy as np, torch\n"
+        "from multivae_tpu_torch.data import MultimodalBaseDataset\n"
+        "from multivae_tpu_torch.metrics import (Clustering, ClusteringConfig,\n"
+        "    Visualization, VisualizationConfig)\n"
+        "from multivae_tpu_torch.models import MVTCAE, MVTCAEConfig\n"
+        "rng = np.random.default_rng(0)\n"
+        "dims = {'a': (3, 6, 6), 'b': (5,)}\n"
+        "def ds(n):\n"
+        "    return MultimodalBaseDataset({m: rng.uniform(size=(n, *d)).astype('float32')\n"
+        "                                  for m, d in dims.items()},\n"
+        "                                 labels=rng.integers(0, 3, n))\n"
+        "model = MVTCAE(MVTCAEConfig(n_modalities=2, latent_dim=4, input_dims=dims),\n"
+        "               device='cpu')\n"
+        "gen = torch.Generator().manual_seed(0)\n"
+        "acc = Clustering(model, ds(20), ds(30), eval_config=ClusteringConfig(\n"
+        "    n_clusters=3, number_of_runs=2, batch_size=8), generator=gen).eval()\n"
+        "assert 0 <= acc.cluster_accuracy <= 1\n"
+        f"out = {str(tmp_path)!r}\n"
+        "vis = Visualization(model, ds(10), output=out, eval_config=VisualizationConfig(\n"
+        "    n_samples=3, n_data_cond=2), generator=gen)\n"
+        "assert vis.eval().unconditional_generation.dtype == np.uint8\n"
+        "vis.conditional_samples_subset(['b'])\n"
+        "assert sorted(os.listdir(out)) == [\"conditional_from_subset_['b'].png\",\n"
+        "                                   'metrics.log', 'unconditional.png']\n"
+        "assert not [k for k in sys.modules if k.split('.')[0] in ('sklearn', 'PIL')\n"
+        "            and sys.modules[k] is not None]\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and "ok" in proc.stdout, proc.stdout + proc.stderr

@@ -164,3 +164,86 @@ def mhvae_mlp_blocks(dims: dict, latent: int, shared: bool = True):
             [_MLP([latent, 16]), _MLP([latent, 16])],
             posterior() if shared else {m: posterior() for m in dims},
             [head(16), head(16)])
+
+
+def record_keys(jmodel):
+    """Make ``jmodel.next_rng`` log the keys it hands out; returns the
+    list they go into, in call order."""
+    keys, draw = [], jmodel.next_rng
+
+    def next_rng():
+        key = draw()
+        keys.append(key)
+        return key
+
+    jmodel.next_rng = next_rng
+    return keys
+
+
+def _split_chain(key):
+    while True:
+        key, sub = jax.random.split(key)
+        yield sub
+
+
+class JaxCallDraws:
+    """Feed the port's ``tmodel`` the JAX draws of ``keys``, one key a
+    public call (``encode``, and through it ``predict``;
+    ``generate_from_prior``; the joint NLLs), as the JAX model's
+    ``next_rng`` handed them to the same calls. MVTCAE draws its noise from
+    the key itself (the NLL from the key's split chain); MMVAE
+    (``mixture=True``, Laplace) its Uniform noise and its expert as the JAX
+    package does: ``encode`` from ``split(key, 3)[1:]`` with the expert by
+    ``categorical`` over the subset's indicator, the NLL's expert by
+    ``randint`` from ``split(key)[1]`` and its noise from the first half's
+    chain, the paper NLL from each chain key split once a modality."""
+
+    CALLS = ("encode", "generate_from_prior", "compute_joint_nll",
+             "compute_joint_nll_paper")
+
+    def __init__(self, tmodel, keys, mixture=False):
+        self.model, self.keys, self.mixture = tmodel, list(keys), mixture
+        self.noise_keys, self.expert = iter(()), None
+        for name in self.CALLS:
+            if hasattr(tmodel, name):
+                self._wrap(name)
+        tmodel.draw_noise = self._noise
+        tmodel.draw_expert = lambda n, generator=None: self.expert(n)
+
+    def _wrap(self, name):
+        call = getattr(self.model, name)
+
+        def fed(*args, **kwargs):
+            self._begin(name, self.keys.pop(0), args, kwargs)
+            return call(*args, **kwargs)
+
+        setattr(self.model, name, fed)
+
+    def _begin(self, name, key, args, kwargs):
+        mods = list(self.model.encoders)
+        if not self.mixture:
+            self.noise_keys = (_split_chain(key) if name == "compute_joint_nll"
+                               else iter([key]))
+        elif name == "encode":
+            _, choice, sample = jax.random.split(key, 3)
+            cond = self.model._normalize_cond_mod(
+                kwargs.get("cond_mod", args[1] if len(args) > 1 else "all"))
+            subset = jnp.asarray([float(m in cond) for m in mods])
+            idx = int(jax.random.categorical(choice, jnp.log(subset)))
+            self.expert = lambda n: cond.index(mods[idx])
+            self.noise_keys = iter([sample])
+        elif name == "compute_joint_nll":
+            rest, choice = jax.random.split(key)
+            self.expert = lambda n: int(jax.random.randint(choice, (), 0, n))
+            self.noise_keys = _split_chain(rest)
+        elif name == "compute_joint_nll_paper":
+            self.noise_keys = (k for sub in _split_chain(key)
+                               for k in jax.random.split(sub, len(mods)))
+        else:
+            self.noise_keys = iter([key])
+
+    def _noise(self, shape, generator=None):
+        key = next(self.noise_keys)
+        if self.mixture:
+            return uniform(key, shape, LAPLACE_LOW, 0.5)
+        return normal(key, shape)
