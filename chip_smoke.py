@@ -156,7 +156,31 @@ Phases (any failure exits non-zero and prints no result line):
     card vs CPU on 64 rows with the same noise (the classifiers'
     predictions equal but on near-ties, whose count is printed), and the
     Inception embeddings of 8 rows card vs CPU;
-20. the seconds the whole run took, a ``kernels`` JSON line (launches
+20. ``trainer_lifecycle``: ``mmvae_conv`` (1024 incomplete rows, 512 eval
+    rows, DReG) trained 2 epochs by ``BaseTrainer`` with a checkpoint and
+    the prediction grids every epoch, ``StepTimingCallback`` and a callback
+    that records every event: the events in the JAX loop's order, each
+    checkpoint's files, bytes and save seconds, the PNG grids, the mixture
+    launches of the sanity check's forward (2) and of every step; two
+    trainers resumed from ``checkpoint_epoch_1`` run epoch 2, whose train
+    and eval losses must agree with the uninterrupted run's within
+    ``RESUME_RTOL`` and whose weights' moves over the epoch within
+    ``RESUME_MOVE_RTOL`` (the spread of the two printed), while a resume
+    without the generator's state must miss the latter; ``AutoModel.load_from_folder`` reads
+    ``final_model`` onto the card (the kept weights, exactly; the 8-row loss
+    on the same draws within ``RELOAD_RTOL``); a deterministic
+    ``Predictor`` (batch 64, a request of 50 rows of ``m0``) on the reloaded
+    MMVAE and an ``AnySubsetPredictor`` on the reloaded ``mvtcae_conv``
+    (every row its own subset) card vs CPU, each one's ms a request at
+    batch 64 and 256, MMVAE refused by the latter; ``mmvaeplus_k10_micro``
+    (``use_remat`` off, ``microbatch_steps=2``: 2 mixture forwards and 2
+    full backwards a step) trained 2 epochs, its steps/s and peak beside
+    ``mmvaeplus_k10``'s, its 8-row microbatched gradient card vs CPU; and
+    ``telbo_conv``'s boundary checkpoint ``checkpoint_epoch_1`` reloaded by
+    ``AutoModel``. Every trainer above runs the sanity check's forward at
+    its construction; the phases that count launches per step reset the
+    counts after it;
+21. the seconds the whole run took, a ``kernels`` JSON line (launches
     summed over every training and inference phase that runs the kernels),
     then the last line
     ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -575,12 +599,14 @@ def rows_batch(dataset, idx, dtype=torch.float32):
                              masks=raw.get("masks"))
 
 
-def workload_run(mx, name, n=2048, epochs=2, device="cuda", per_step=None):
+def workload_run(mx, name, n=2048, epochs=2, device="cuda", per_step=None,
+                 eval_fwd=None):
     """Train a workload of ``tools/workloads.py`` with its trainer
     (BaseTrainer unless it names another); returns (the phase's JSON record,
     the workload, the mixture launches). The kernels must launch
     ``per_step`` times (forward, full and dz-only backward) on each train
-    step and the forwards on each eval step: none on the MVTCAE workloads.
+    step and ``eval_fwd`` forwards (default: the train step's) on each eval
+    step: none on the MVTCAE workloads.
     The steps are counted by a hook on the optimizer, set again on the new
     optimizer of a ``MultistageTrainer`` reset; a two-stage model's steps/s
     are also given for each stage, and its 8-row loss is checked card vs CPU
@@ -633,7 +659,7 @@ def workload_run(mx, name, n=2048, epochs=2, device="cuda", per_step=None):
           f"expected {expected_steps} steps, ran {len(step_ends)}")
     eval_steps = 0 if w.eval is None else epochs * len(trainer.eval_loader)
     expected = {k: per_step.get(k, 0) * expected_steps for k in KERNELS}
-    expected["fwd"] += per_step.get("fwd", 0) * eval_steps
+    expected["fwd"] += (per_step.get("fwd", 0) if eval_fwd is None else eval_fwd) * eval_steps
     check(launches == expected, f"{name}: expected {expected} launches, got {launches}")
     check(all(np.isfinite(losses)), f"non-finite epoch loss: {losses}")
     resets = [e for e in getattr(w.model, "reset_optimizer_epochs", []) if e <= epochs]
@@ -648,7 +674,8 @@ def workload_run(mx, name, n=2048, epochs=2, device="cuda", per_step=None):
               "steps_per_s": len(gaps) / (sum(g for _, g in gaps) / 1e3),
               "peak_mem_bytes": torch.cuda.max_memory_allocated(),
               "peak_above_held_bytes": torch.cuda.max_memory_allocated() - held,
-              "wall_s": wall_s, "launches": launches}
+              "wall_s": wall_s, "launches": launches,
+              "training_dir": trainer.training_dir}
     if resets:
         record.update(optimizer_resets=resets, final_stage=w.model.current_stage)
         by_stage = {}
@@ -1553,6 +1580,414 @@ def evaluation_phase(mx, models, rows=EVAL_ROWS, inception_model="mvtcae_conv"):
     return record, total
 
 
+# trainer_lifecycle. Seeded training is not bit-reproducible on the card
+# (cuDNN's weight-gradient kernels sum with atomics), so a resumed epoch
+# is held to the uninterrupted one within tolerances set from the card's
+# own spread. In runs of this phase (NVIDIA H100 80GB HBM3, 700 W) two
+# resumes from one checkpoint differed by 1.5e-6 to 2.8e-6 (train epoch
+# loss) and 4.7e-6 to 6.3e-6 (eval), relative, and the moves of their
+# weights over the epoch by 6.4e-4 to 7.1e-4 of the move's norm over all
+# the weights (1.7e-3 to 3.4e-3 in the worst tensor). The epoch losses
+# within RESUME_RTOL (16x that spread); but a mean over 1,024 rows of
+# K=10 draws hardly moves with the noise (a resume without the
+# generator's state moved them 1.3e-5 to 2.1e-5), so the weights decide:
+# their moves within RESUME_MOVE_RTOL (about 30x the spread), which a
+# resume without the generator's state (0.40) must miss. The phase prints
+# both spreads. On the CPU the tests hold the resumed run exactly equal.
+RESUME_RTOL = 1e-4
+RESUME_MOVE_RTOL = 2e-2
+# The reloaded model's 8-row loss against the kept model's: the same
+# weights on the same draws, but the card's forward is not bit-reproducible
+# either (9.4e-7 relative between the two in an earlier run of this phase,
+# NVIDIA H100 80GB HBM3, 700 W): 10x that.
+RELOAD_RTOL = 1e-5
+# A microbatched 8-row gradient card vs CPU, normwise over every
+# parameter: float32 sums of the conv weight gradients in another order,
+# through the IWAE weights at K=10. In two runs of this phase the two
+# differed by 4.4e-5 and 4.0e-4, and each stood 0.7e-4 to 4.2e-4 from the
+# float64 gradient on the CPU, which the phase prints: 5e-3 is 12x the
+# larger.
+MICRO_GRAD_RTOL = 5e-3
+# ms a request: median of this many calls after a warm-up
+SERVE_REPEATS = 20
+CHECKPOINT_FILES = {"environment.json", "generator.pt", "info_checkpoint.json",
+                    "live_params.pt", "model.pt", "model_config.json", "optimizer.pt",
+                    "training_config.json"}
+
+
+def _checkpoint_files(model):
+    """The files of a checkpoint of ``model`` trained with a scheduler: one
+    pickle a custom architecture beside ``CHECKPOINT_FILES``."""
+    return (CHECKPOINT_FILES | {"scheduler.json"}
+            | {f"{a}.pkl" for a in model.model_config.custom_architectures})
+
+
+def _event_recorder():
+    """A callback that logs (event, host seconds) of every event."""
+    from multivae_tpu_torch.trainers.base.callbacks import TrainingCallback
+
+    class Events(TrainingCallback):
+        def __init__(self):
+            self.log = []
+
+        def __getattribute__(self, name):
+            if name.startswith("on_"):
+                log = object.__getattribute__(self, "log")
+                return lambda training_config, **kwargs: log.append(
+                    (name, time.perf_counter()))
+            return object.__getattribute__(self, name)
+
+    return Events()
+
+
+def expected_events(first, last, steps, eval_steps):
+    """The JAX synchronous loop's event order for epochs ``first`` ..
+    ``last``, with an eval set, grids and a checkpoint every epoch."""
+    events = ["on_init_end", "on_train_begin"]
+    for _ in range(first, last + 1):
+        events += (["on_epoch_begin", "on_train_step_begin"]
+                   + ["on_train_step_end"] * steps
+                   + ["on_eval_step_begin"] + ["on_eval_step_end"] * eval_steps
+                   + ["on_prediction_step", "on_epoch_end", "on_save_checkpoint",
+                      "on_log"])
+    return events + ["on_save", "on_train_end"]
+
+
+def _png_size(path):
+    with open(path, "rb") as f:
+        head = f.read(24)
+    check(head[:8] == b"\x89PNG\r\n\x1a\n", f"{path} is not a PNG")
+    return int.from_bytes(head[16:20], "big"), int.from_bytes(head[20:24], "big")
+
+
+def _rel(a, b):
+    return abs(a - b) / abs(b)
+
+
+def _request_ms(pred, request, masks=None, repeats=SERVE_REPEATS):
+    """Median ms of a request (the reply fetched to the host) after a
+    warm-up call."""
+    times = []
+    for _ in range(repeats + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pred(request) if masks is None else pred(request, masks)
+        times.append(time.perf_counter() - t0)
+        check(all(np.isfinite(v).all() for v in out.values()), "non-finite reply")
+    return 1e3 * float(np.median(times[1:]))
+
+
+def _same_reply(card, cpu, label):
+    """Every generated modality of two replies within LOSS_RTOL of the
+    largest entry; returns the largest such error."""
+    err = 0.0
+    check(set(card) == set(cpu), f"{label}: modalities {set(card)} vs {set(cpu)}")
+    for m in cpu:
+        check(card[m].shape == cpu[m].shape, f"{label}: {m} {card[m].shape} vs {cpu[m].shape}")
+        e = float(np.abs(card[m] - cpu[m]).max() / np.abs(cpu[m]).max())
+        check(e <= LOSS_RTOL, f"{label}: {m} card vs cpu {e}")
+        err = max(err, e)
+    return err
+
+
+def lifecycle_training(mx, out, n, device):
+    """Steps 1-3 of ``trainer_lifecycle`` on ``mmvae_conv``: train with every
+    lifecycle feature, resume, reload. Returns (record, reloaded model,
+    eval set, launches)."""
+    import shutil
+
+    from multivae_tpu_torch.models import AutoModel
+    from multivae_tpu_torch.tools import workloads
+    from multivae_tpu_torch.trainers import BaseTrainer, BaseTrainerConfig
+    from multivae_tpu_torch.trainers.base.callbacks import StepTimingCallback
+
+    w = workloads.build("mmvae_conv", n=n, device=device)
+    launches = {k: 0 for k in KERNELS}
+    record = {}
+
+    def run(model, name, checkpoint=None):
+        events, timing = _event_recorder(), StepTimingCallback()
+        mx.reset_launches()
+        trainer = BaseTrainer(
+            model, w.train, w.eval, callbacks=[events, timing], checkpoint=checkpoint,
+            device=device, training_config=BaseTrainerConfig(
+                output_dir=os.path.join(out, name), num_epochs=2, seed=0, steps_saving=1,
+                steps_predict=1, **w.trainer_kwargs))
+        # the sanity check's forward: DReG's two mixture forwards, no backward
+        check(mx.launches == {"fwd": 2, "bwd": 0, "bwd_dz": 0},
+              f"{name}: sanity check launched {mx.launches}")
+        trainer.train()
+        torch.cuda.synchronize()
+        steps, eval_steps = len(trainer.train_loader), len(trainer.eval_loader)
+        first = 1 if checkpoint is None else 2
+        epochs = 3 - first
+        expected = {"fwd": 2 + epochs * 2 * (steps + eval_steps), "bwd": 0,
+                    "bwd_dz": epochs * steps}
+        check(mx.launches == expected, f"{name}: expected {expected}, got {mx.launches}")
+        for k in KERNELS:
+            launches[k] += mx.launches[k]
+        names = [e for e, _ in events.log]
+        check(names == expected_events(first, 2, steps, eval_steps),
+              f"{name}: events {names}")
+        check(len(trainer.history) == epochs and all(
+            np.isfinite(h["train_epoch_loss"]) for h in trainer.history),
+            f"{name}: history {trainer.history}")
+        return trainer, events, timing
+
+    full, events, timing = run(w.model, "full")
+    record["events"] = len(events.log)
+    record["epoch_time_s"] = [h["epoch_time_s"] for h in timing.history]
+    stamps = [t for e, t in events.log if e in ("on_epoch_end", "on_save_checkpoint")]
+    checkpoints = {}
+    for epoch in (1, 2):
+        path = os.path.join(full.training_dir, f"checkpoint_epoch_{epoch}")
+        files = set(os.listdir(path))
+        check(files == _checkpoint_files(w.model), f"checkpoint {epoch}: {files}")
+        with open(os.path.join(path, "info_checkpoint.json")) as f:
+            info = json.load(f)
+        check(info["trained_epochs"] == epoch, f"checkpoint {epoch}: {info}")
+        checkpoints[epoch] = {
+            "bytes": sum(os.path.getsize(os.path.join(path, f)) for f in files),
+            "save_s": stamps[2 * epoch - 1] - stamps[2 * epoch - 2]}
+    record["checkpoints"] = checkpoints
+    grids = {}
+    for key in list(w.train.data) + ["all"]:
+        grids[key] = _png_size(os.path.join(full.training_dir, f"recon_from_{key}.png"))
+    record["grids_wh"] = grids
+    print(f"  lifecycle: checkpoints {checkpoints}, grids {grids}", flush=True)
+
+    # resume twice from checkpoint 1, and once without the generator's state
+    ckpt = os.path.join(full.training_dir, "checkpoint_epoch_1")
+    bare = os.path.join(out, "without_generator")
+    shutil.copytree(ckpt, bare)
+    os.remove(os.path.join(bare, "generator.pt"))
+    resumed = {}
+    for name, path in (("resumed", ckpt), ("resumed_again", ckpt),
+                       ("without_generator", bare)):
+        model = workloads.build("mmvae_conv", n=8, n_eval=0, device=device).model
+        trainer = run(model, name, checkpoint=path)[0]
+        resumed[name] = (trainer.history[0], trainer.model.state_dict())
+        del trainer
+    trainer = BaseTrainer(workloads.build("mmvae_conv", n=8, n_eval=0, device=device).model,
+                          w.train, w.eval, training_config=BaseTrainerConfig(
+                              output_dir=os.path.join(out, "timing"), seed=0,
+                              **w.trainer_kwargs), device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer._resume_from_checkpoint(ckpt)
+    torch.cuda.synchronize()
+    record["resume_s"] = time.perf_counter() - t0
+    del trainer
+    # each weight tensor's move over epoch 2, from the checkpoint's live weights
+    start = torch.load(os.path.join(ckpt, "live_params.pt"), map_location=device,
+                       weights_only=True)
+    moved = {k: v - start[k] for k, v in full.model.state_dict().items()}
+
+    def move_diff(state):
+        """(the moves' difference over all the weights, over the worst
+        tensor), each relative to the uninterrupted move's norm."""
+        diffs = {k: float((state[k] - start[k] - m).norm()) for k, m in moved.items()}
+        norms = {k: float(m.norm()) for k, m in moved.items()}
+        total = (sum(d * d for d in diffs.values()) / sum(n * n for n in norms.values())) ** 0.5
+        return total, max(diffs[k] / norms[k] for k in moved if norms[k] > 0)
+
+    for key in ("train_epoch_loss", "eval_epoch_loss"):
+        u, r = full.history[1][key], resumed["resumed"][0][key]
+        record[f"{key}_uninterrupted"], record[f"{key}_resumed"] = u, r
+        record[f"{key}_rel_diff"] = _rel(r, u)
+        record[f"{key}_spread"] = _rel(resumed["resumed_again"][0][key], r)
+        record[f"{key}_without_generator_rel_diff"] = _rel(
+            resumed["without_generator"][0][key], u)
+    for name in resumed:
+        (record[f"{name}_move_rel_diff"],
+         record[f"{name}_move_rel_diff_worst_tensor"]) = move_diff(resumed[name][1])
+    print("  lifecycle resume: " + json.dumps(
+        {k: v for k, v in record.items() if "resume" in k or "generator" in k
+         or "spread" in k or "uninterrupted" in k or "move" in k}), flush=True)
+    for key in ("train_epoch_loss", "eval_epoch_loss"):
+        check(record[f"{key}_rel_diff"] <= RESUME_RTOL,
+              f"resumed {key} {record[f'{key}_resumed']} vs uninterrupted "
+              f"{record[f'{key}_uninterrupted']}")
+    check(record["resumed_move_rel_diff"] <= RESUME_MOVE_RTOL,
+          f"resumed weights moved {record['resumed_move_rel_diff']} off the uninterrupted run")
+    check(record["without_generator_move_rel_diff"] > RESUME_MOVE_RTOL,
+          "a resume without the generator's state moves the weights as the "
+          "uninterrupted run did")
+
+    # reload the final model and hold its 8-row loss to the kept model's
+    final = os.path.join(full.training_dir, "final_model")
+    t0 = time.perf_counter()
+    reloaded = AutoModel.load_from_folder(final, device=device)
+    torch.cuda.synchronize()
+    record["reload_s"] = time.perf_counter() - t0
+    kept = full.best_model
+    check(type(reloaded) is type(kept) and reloaded.device.type == torch.device(device).type,
+          f"reloaded {type(reloaded)} on {reloaded.device}")
+    state = reloaded.state_dict()
+    check(all(torch.equal(state[k], v) for k, v in kept.state_dict().items()),
+          "reloaded weights differ from the kept ones")
+
+    def small_loss(net, dtype):
+        return net.loss_function(rows_batch(w.eval, np.arange(8), dtype)
+                                 .to(net.device))["loss"]
+
+    draws = recorded_draws(kept, small_loss, 1)
+    values = []
+    for net in (kept, reloaded):
+        with injected_noise(net, draws), torch.no_grad():
+            values.append(float(small_loss(net, torch.float32)))
+    record["reload_loss_live"], record["reload_loss_reloaded"] = values
+    check(_rel(values[1], values[0]) <= RELOAD_RTOL, f"reloaded loss {values}")
+    return record, reloaded, w.eval, launches
+
+
+def lifecycle_serving(mmvae, mvtcae, eval_set, out, device, rows=50):
+    """Step 4 of ``trainer_lifecycle``: a ``Predictor`` on the reloaded
+    MMVAE and an ``AnySubsetPredictor`` on the reloaded MVTCAE, card vs CPU
+    (posterior means) and timed at batch 64 and 256."""
+    from multivae_tpu_torch.models import AutoModel
+    from multivae_tpu_torch.serving import AnySubsetPredictor, Predictor
+
+    record = {}
+    data = {m: v[:256] for m, v in eval_set.data.items()}
+    mods = list(data)
+    cpu = copy.deepcopy(mmvae).to("cpu")
+    request = {"m0": data["m0"][:rows]}
+    card_out = Predictor(mmvae, cond_mod="m0", batch_size=64, deterministic=True).warmup()(
+        request)
+    cpu_out = Predictor(cpu, cond_mod="m0", batch_size=64, deterministic=True)(request)
+    record["predictor_card_vs_cpu"] = _same_reply(card_out, cpu_out, "Predictor")
+    check(all(v.shape == (rows, 3, 28, 28) for v in card_out.values()), "reply shapes")
+    sampled = Predictor(mmvae, cond_mod="m0", batch_size=64)
+    first, second = sampled(request), sampled(request)
+    check(any(not np.array_equal(first[m], second[m]) for m in first),
+          "two sampled replies are equal: the noise did not advance")
+    for b in (64, 256):
+        record[f"predictor_ms_batch_{b}"] = _request_ms(
+            Predictor(mmvae, cond_mod="m0", batch_size=b), {"m0": data["m0"][:b]})
+
+    folder = os.path.join(out, "mvtcae_conv")
+    mvtcae.save(folder)
+    poe = AutoModel.load_from_folder(folder, device=device)
+    check(type(poe).__name__ == "MVTCAE" and poe.device.type == torch.device(device).type,
+          "MVTCAE reload")
+    # every row brings a nonempty subset of the modalities, all 31 in turn
+    pattern = (np.arange(256) % 31) + 1
+    masks = {m: ((pattern >> i) & 1).astype(np.float32) for i, m in enumerate(mods)}
+    card_out = AnySubsetPredictor(poe, batch_size=64, deterministic=True).warmup()(
+        {m: v[:rows] for m, v in data.items()}, {m: v[:rows] for m, v in masks.items()})
+    cpu_out = AnySubsetPredictor(copy.deepcopy(poe).to("cpu"), batch_size=64,
+                                 deterministic=True)(
+        {m: v[:rows] for m, v in data.items()}, {m: v[:rows] for m, v in masks.items()})
+    record["any_subset_card_vs_cpu"] = _same_reply(card_out, cpu_out, "AnySubsetPredictor")
+    for b in (64, 256):
+        record[f"any_subset_ms_batch_{b}"] = _request_ms(
+            AnySubsetPredictor(poe, batch_size=b), {m: v[:b] for m, v in data.items()},
+            {m: v[:b] for m, v in masks.items()})
+    try:
+        AnySubsetPredictor(mmvae)
+        check(False, "AnySubsetPredictor took MMVAE")
+    except TypeError:
+        pass
+    return record
+
+
+def lifecycle_microbatch(mx, remat_record, device, n=512):
+    """Step 5 of ``trainer_lifecycle``: ``mmvaeplus_k10_micro`` beside the
+    ``use_remat`` run of ``mmvaeplus_k10``, and its 8-row microbatched
+    gradient card vs CPU on the same draws."""
+    from multivae_tpu_torch.ops.microbatch import microbatched_backward, split_batch
+
+    record, w, launches = workload_run(mx, "mmvaeplus_k10_micro", n=n, device=device,
+                                       per_step={"fwd": 2, "bwd": 2}, eval_fwd=1)
+    print(json.dumps(record), flush=True)
+    model = w.model
+
+    def chunk_losses(net, dtype):
+        batch = rows_batch(w.train, np.arange(8), dtype).to(net.device)
+        return sum(net.loss_function(c)["loss"] for c in split_batch(batch, 2))
+
+    draws = recorded_draws(model, chunk_losses, 2)
+    grads = {}
+    for key, device_, dtype in (("card", None, torch.float32), ("cpu", "cpu", torch.float32),
+                                ("cpu_float64", "cpu", torch.float64)):
+        net = model if device_ is None else copy.deepcopy(model).to(device_, dtype)
+        net.zero_grad(set_to_none=True)
+        batch = rows_batch(w.train, np.arange(8), dtype).to(net.device)
+        with injected_noise(net, draws, dtype):
+            out = microbatched_backward(lambda c: net.loss_function(c), batch, 2)
+        grads[key] = (float(out["loss"]), torch.cat([
+            p.grad.detach().double().cpu().flatten() for p in net.parameters()
+            if p.grad is not None]))
+        net.zero_grad(set_to_none=True)
+    ref = grads["cpu"][1]
+    err = float((grads["card"][1] - ref).norm() / ref.norm())
+    check(err <= MICRO_GRAD_RTOL, f"microbatched gradient card vs cpu {err}")
+    check(_rel(grads["card"][0], grads["cpu"][0]) <= LOSS_RTOL,
+          f"microbatched loss card {grads['card'][0]} vs cpu {grads['cpu'][0]}")
+    f64 = grads["cpu_float64"][1]
+    summary = {
+        "micro_steps_per_s": record["steps_per_s"],
+        "remat_steps_per_s": remat_record["steps_per_s"],
+        "micro_peak_above_held_bytes": record["peak_above_held_bytes"],
+        "remat_peak_above_held_bytes": remat_record["peak_above_held_bytes"],
+        "micro_grad_card_vs_cpu": err,
+        "micro_grad_card_vs_float64": float((grads["card"][1] - f64).norm() / f64.norm()),
+        "micro_grad_cpu_vs_float64": float((ref - f64).norm() / f64.norm()),
+        "micro_loss_card": grads["card"][0], "micro_loss_cpu": grads["cpu"][0]}
+    return summary, launches
+
+
+def lifecycle_boundary(telbo_dir, device):
+    """Step 6 of ``trainer_lifecycle``: the ``MultistageTrainer``'s
+    checkpoint of epoch ``warmup - 1`` from the ``telbo_conv`` run, reloaded
+    by ``AutoModel``."""
+    from multivae_tpu_torch.models import AutoModel
+
+    path = os.path.join(telbo_dir, "checkpoint_epoch_1")
+    files = set(os.listdir(path))
+    model = AutoModel.load_from_folder(path, device=device)
+    check(files == _checkpoint_files(model), f"TELBO boundary checkpoint: {files}")
+    with open(os.path.join(path, "info_checkpoint.json")) as f:
+        info = json.load(f)
+    check(info["trained_epochs"] == 1, f"TELBO boundary checkpoint: {info}")
+    saved = torch.load(os.path.join(path, "model.pt"), map_location=device, weights_only=True)
+    state = model.state_dict()
+    check(type(model).__name__ == "TELBO" and all(
+        torch.equal(state[k], v) for k, v in saved.items()), "TELBO boundary reload")
+    return {"telbo_boundary_checkpoint": os.path.basename(path),
+            "telbo_boundary_bytes": sum(os.path.getsize(os.path.join(path, f))
+                                        for f in files)}
+
+
+def trainer_lifecycle(mx, mvtcae, remat_record, telbo_dir, n=1024, micro_n=512,
+                      device="cuda"):
+    """The ``trainer_lifecycle`` phase: train ``mmvae_conv`` with callbacks,
+    checkpoints and grids, resume, reload, serve, the microbatched
+    ``mmvaeplus_k10``, and the ``MultistageTrainer``'s boundary checkpoint.
+    Returns (record, mixture launches of its training runs)."""
+    import shutil
+
+    start = time.perf_counter()
+    out = os.path.join(ROOT, "build", "chip_smoke", "lifecycle")
+    shutil.rmtree(out, ignore_errors=True)
+    record = {"phase": "trainer_lifecycle"}
+    try:
+        training, reloaded, eval_set, launches = lifecycle_training(mx, out, n, device)
+        record.update(training)
+        record.update(lifecycle_serving(reloaded, mvtcae, eval_set, out, device))
+        micro, counts = lifecycle_microbatch(mx, remat_record, device, n=micro_n)
+        record.update(micro)
+        for k in KERNELS:
+            launches[k] += counts[k]
+        record.update(lifecycle_boundary(telbo_dir, device))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    record["launches"] = launches
+    record["seconds"] = time.perf_counter() - start
+    return record, launches
+
+
 def main():
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1642,12 +2077,14 @@ def main():
 
         moe = {}
         dreg, iwae_step = {"fwd": 2, "bwd_dz": 1}, {"fwd": 1, "bwd": 1}
+        moe_records = {}
         for name, n, per_step in (("mmvae_conv", 1024, dreg),
                                   ("mmvaeplus_partial", 1024, dreg),
                                   ("mmvaeplus_k10", 512, iwae_step),
                                   ("cmvae_polymnist", 256, iwae_step)):
             record, moe[name], counts = workload_run(mx, name, n=n, per_step=per_step)
             print(json.dumps(record))
+            moe_records[name] = record
             add(counts)
         del moe["mmvaeplus_partial"]
         # MMVAE+ and CMVAE evaluate the mixture once a chunk of K // M samples
@@ -1671,10 +2108,13 @@ def main():
             "crmvae_resnet": [("joint_nll", 64, 0)]})[0]))
 
         joint = {}
+        telbo_dir = None
         for name, n, epochs in (("dmvae_mnist_svhn", 2048, 2), ("jmvae_conv", 2048, 2),
                                 ("telbo_conv", 1024, 3), ("cvae_tutorial", 256, 3)):
             record, joint[name], _ = workload_run(mx, name, n=n, epochs=epochs)
             print(json.dumps(record))
+            if name == "telbo_conv":
+                telbo_dir = record["training_dir"]
         mx.reset_launches()
         cvae = cvae_surface(joint.pop("cvae_tutorial"))
         check(not any(mx.launches.values()), f"cvae inference launched {mx.launches}")
@@ -1698,6 +2138,10 @@ def main():
         print(json.dumps(samplers_incomplete(mx, trained["mvtcae_conv"], moe["mmvae_conv"])))
         record, counts = evaluation_phase(mx, {"mvtcae_conv": trained["mvtcae_conv"].model,
                                                "mmvae_conv": moe["mmvae_conv"].model})
+        print(json.dumps(record))
+        add(counts)
+        record, counts = trainer_lifecycle(mx, trained["mvtcae_conv"].model,
+                                           moe_records["mmvaeplus_k10"], telbo_dir)
         print(json.dumps(record))
         add(counts)
     except SmokeFailure as e:

@@ -1,3 +1,4 @@
+from .auto_model import AutoConfig, AutoModel
 from .base import BaseModel, BaseMultiVAE, BaseMultiVAEConfig
 from .cmvae import CMVAE, CMVAEConfig
 from .crmvae import CRMVAE, CRMVAEConfig
@@ -15,7 +16,7 @@ from .mvtcae import MVTCAE, MVTCAEConfig
 from .nexus import Nexus, NexusConfig
 from .telbo import TELBO, TELBOConfig
 
-__all__ = ["BaseJointModel", "BaseJointModelConfig", "BaseModel", "BaseMultiVAE",
+__all__ = ["AutoConfig", "AutoModel", "BaseJointModel", "BaseJointModelConfig", "BaseModel", "BaseMultiVAE",
            "BaseMultiVAEConfig", "CMVAE", "CMVAEConfig", "CRMVAE", "CRMVAEConfig", "CVAE",
            "CVAEConfig", "DMVAE", "DMVAEConfig", "JMVAE", "JMVAEConfig", "JNF",
            "JNFConfig", "MHVAE", "MHVAEConfig", "MMVAE", "MMVAEConfig", "MMVAEPlus",

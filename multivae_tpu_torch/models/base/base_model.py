@@ -10,13 +10,16 @@ package does with cloudpickle: a network group held in an ``nn.ModuleDict``
 single module (``joint_encoder``, CVAE's ``encoder``) whole, and each is
 given back to the constructor in that form. Loading them runs code from
 the pickle, so load only folders you wrote.
+
+Every subclass registers itself by class name on definition
+(``get_model_class``, ``model_registry``), which ``AutoModel`` reads.
 """
 
 from __future__ import annotations
 
 import os
 import sys
-from typing import Optional
+from typing import Dict, Optional, Type
 
 import torch
 from torch import nn
@@ -24,11 +27,29 @@ from torch import nn
 from ...ops.gaussian import rsample_from_gaussian
 from ...utils.config import EnvironmentConfig, get_config_class
 
+_MODEL_REGISTRY: Dict[str, Type["BaseModel"]] = {}
+
+
+def get_model_class(name: str) -> Type["BaseModel"]:
+    if name not in _MODEL_REGISTRY:
+        raise NameError(
+            f"Model class '{name}' is unknown. Registered: {sorted(_MODEL_REGISTRY)}"
+        )
+    return _MODEL_REGISTRY[name]
+
+
+def model_registry() -> Dict[str, Type["BaseModel"]]:
+    return dict(_MODEL_REGISTRY)
+
 
 class BaseModel(nn.Module):
     """Root class of all models: holds the config and the modules."""
 
     model_name = "BaseModel"
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        _MODEL_REGISTRY[cls.__name__] = cls
 
     def __init__(self, model_config):
         super().__init__()

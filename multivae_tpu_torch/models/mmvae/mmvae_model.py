@@ -51,6 +51,9 @@ class MMVAE(BaseMultiVAE):
     """Variational Mixture-of-Experts Autoencoder."""
 
     model_name = "MMVAE"
+    # the objective is a sum over the rows (loss == loss_sum): the
+    # trainer's microbatch_steps accumulates exact gradients over chunks
+    loss_is_sum = True
 
     def __init__(self, model_config: MMVAEConfig, encoders: dict = None,
                  decoders: dict = None, seed: int = 0, device="cuda"):

@@ -58,6 +58,9 @@ class MMVAEPlus(BaseMultiVAE):
     """The MMVAE+ model."""
 
     model_name = "MMVAEPlus"
+    # the objective is a sum over the rows (loss == loss_sum): the
+    # trainer's microbatch_steps accumulates exact gradients over chunks
+    loss_is_sum = True
 
     def __init__(self, model_config: MMVAEPlusConfig, encoders: dict = None,
                  decoders: dict = None, seed: int = 0, device="cuda"):

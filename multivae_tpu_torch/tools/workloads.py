@@ -26,6 +26,10 @@ random data in the real datasets' shapes, made from a seed.
   with ``--K 10``): the same model with K=10, ``iwae_looser`` and
   ``use_remat``, batch 32, Adam with ``amsgrad=True``, on complete data
   with a 10% eval split.
+- ``mmvaeplus_k10_micro``: the same run with ``use_remat`` off and each
+  step's gradient accumulated over two 16-row chunks
+  (``microbatch_steps=2``), the JAX package's alternative to remat
+  (``multivae_tpu/trainers/base/base_trainer_config.py:68-79``).
 
 - ``cmvae_polymnist``: the paper's CMVAE run (``examples/cmvae_polymnist.py:42-79``):
   the resnet nets, latent 32 plus private 32, 40 clusters, K=1,
@@ -107,7 +111,8 @@ import numpy as np
 import torch
 
 NAMES = ("mmvae", "mvtcae_mlp", "mvtcae_conv", "mmvae_conv", "mmvaeplus_partial",
-         "mmvaeplus_k10", "cmvae_polymnist", "mvae_conv", "mopoe_conv", "crmvae_resnet",
+         "mmvaeplus_k10", "mmvaeplus_k10_micro", "cmvae_polymnist", "mvae_conv",
+         "mopoe_conv", "crmvae_resnet",
          "dmvae_mnist_svhn", "jmvae_conv", "telbo_conv", "jnf_conv", "cvae_tutorial",
          "mhvae_polymnist", "nexus_e2e")
 BATCH = {name: (32 if name.startswith(("mmvaeplus", "cmvae"))
@@ -236,7 +241,8 @@ def build(name: str, n: int = 2048, n_eval: Optional[int] = None,
                         _trainer_kwargs(name))
 
     if name.startswith("mmvaeplus"):
-        k10 = name == "mmvaeplus_k10"
+        k10 = name.startswith("mmvaeplus_k10")
+        micro = name == "mmvaeplus_k10_micro"
         encoders, decoders = _seeded(
             {m: EncoderResnetMMNIST(PLUS_LATENT, PLUS_LATENT) for m in poly},
             {m: DecoderResnetMMNIST(2 * PLUS_LATENT) for m in poly})
@@ -245,14 +251,16 @@ def build(name: str, n: int = 2048, n_eval: Optional[int] = None,
             input_dims=poly, K=10 if k10 else 1,
             prior_and_posterior_dist="laplace_with_softmax", learn_shared_prior=False,
             learn_modality_prior=True, beta=2.5, reconstruction_option="joint_prior",
-            loss="iwae_looser" if k10 else "dreg_looser", use_remat=k10, **laplace),
+            loss="iwae_looser" if k10 else "dreg_looser", use_remat=k10 and not micro,
+            **laplace),
             encoders=encoders, decoders=decoders, seed=SEED, device=device)
         n_eval = n // 10 if n_eval is None else n_eval
         if k10:
             train = MultimodalBaseDataset(_images(rng, n, poly))
             eval_set = MultimodalBaseDataset(_images(rng, n_eval, poly)) if n_eval else None
             return Workload(model, train, eval_set, _trainer_kwargs(
-                name, optimizer_params={"amsgrad": True}))
+                name, optimizer_params={"amsgrad": True},
+                **({"microbatch_steps": 2} if micro else {})))
         data, masks = _incomplete(rng, n + n_eval, poly)
         rows = {"train": slice(0, n), "eval": slice(n, n + n_eval)}
         split = {k: IncompleteDataset({m: v[s] for m, v in data.items()},

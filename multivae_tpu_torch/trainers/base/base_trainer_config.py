@@ -3,8 +3,8 @@
 
 Keeps the JAX package's field names for the options the port's
 synchronous loop implements. The TPU-only fields (meshes, FSDP, device
-caches, fused epoch blocks, pipelining, microbatching, orbax) are not part
-of the port; a ``training_config.json`` holding them does not load here.
+caches, fused epoch blocks, pipelining, orbax) are not part of the port; a
+``training_config.json`` holding them does not load here.
 Optimizer and scheduler specs are validated eagerly.
 """
 
@@ -35,8 +35,19 @@ class BaseTrainerConfig(BaseConfig):
             the train loss without an eval set).
         scheduler_params: scheduler kwargs.
         learning_rate: base learning rate.
+        steps_saving: save a checkpoint every N epochs (None: never).
+        steps_predict: write the prediction grids every N epochs and at
+            epoch 1 (None: never).
+        keep_best_on_train: keep the weights of the best train loss instead
+            of the best eval loss.
         seed: seed of the data order and of the sampling generator.
         drop_last: drop the final partial batch instead of padding it.
+        microbatch_steps: accumulate each step's gradient over N equal
+            chunks of the batch (``ops/microbatch.py``), each holding its
+            activations only through its own backward. Exact for the
+            objectives that are sums over the rows (the model declares
+            ``loss_is_sum = True``: MMVAE, MMVAE+, CMVAE); each chunk draws
+            its own noise, in chunk order. 1 (default) is off.
     """
 
     output_dir: Optional[str] = None
@@ -48,10 +59,19 @@ class BaseTrainerConfig(BaseConfig):
     scheduler_cls: Optional[str] = None
     scheduler_params: Optional[dict] = None
     learning_rate: float = 1e-4
+    steps_saving: Optional[int] = None
+    steps_predict: Optional[int] = None
+    keep_best_on_train: bool = False
     seed: int = 8
     drop_last: bool = False
+    microbatch_steps: int = 1
 
     def __post_init__(self):
+        if self.microbatch_steps < 1:
+            raise AttributeError(
+                "microbatch_steps must be a positive integer, got "
+                f"{self.microbatch_steps}."
+            )
         check_specs(self.optimizer_cls, self.learning_rate,
                     self.optimizer_params, self.scheduler_cls,
                     self.scheduler_params)

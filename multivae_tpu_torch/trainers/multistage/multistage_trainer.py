@@ -3,17 +3,19 @@
 Counterpart of ``multivae_tpu/trainers/multistage/multistage_trainer.py``.
 Before each epoch the model's stage is set from ``stage_for_epoch`` (where
 the model has stages). At each epoch of ``model.reset_optimizer_epochs``
-the kept weights (the live ones when none were kept) are loaded into the
-model, a fresh optimizer and scheduler are built over its parameters, the
-kept weights are dropped and both best losses restart at 1e12, as in the
-JAX package. For TELBO (``reset_optimizer_epochs = [warmup]``) the reset
-comes at the start of epoch ``warmup``, still in stage 1, and the stage
-flips at ``warmup + 1``; for JNF (``[warmup + 1]``) the reset and the flip
-come at the start of the same epoch, the stage set first.
+the trainer first saves ``checkpoint_epoch_<epoch - 1>``, then the kept
+weights (the live ones when none were kept) are loaded into the model, a
+fresh optimizer and scheduler are built over its parameters, the kept
+weights are dropped and both best losses restart at 1e12, as in the JAX
+package. A run resumed from that checkpoint goes on at the boundary epoch
+and resets again there, as the uninterrupted run did. For TELBO
+(``reset_optimizer_epochs = [warmup]``) the reset comes at the start of
+epoch ``warmup``, still in stage 1, and the stage flips at ``warmup + 1``;
+for JNF (``[warmup + 1]``) the reset and the flip come at the start of the
+same epoch, the stage set first.
 
 The optimizer is a new object after a reset: hooks registered on the old
-one do not carry over. The JAX trainer's checkpoint at the boundary is not
-part of the port (it has no checkpoint/resume yet).
+one do not carry over.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ class MultistageTrainer(BaseTrainer):
         logger.info("Epoch %s: reset the optimizer and the best losses, going on "
                     "from the best model so far.", epoch)
         cfg = self.training_config
+        self.save_checkpoint(dir_path=self.training_dir, epoch=epoch - 1)
         self._restore_best()
         self.optimizer = make_optimizer(cfg.optimizer_cls, model.parameters(),
                                         cfg.learning_rate, cfg.optimizer_params)

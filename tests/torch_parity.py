@@ -78,14 +78,16 @@ class Recorder(TrainingCallback):
         self.logs.append(dict(logs))
 
 
-def feed_trainer_noise(trainer, model, draws_of_key, seed):
+def feed_trainer_noise(trainer, model, draws_of_key, seed, first_step=0):
     """Make the port's ``trainer`` draw the JAX trainer's noise: a train
     step's loss gets ``draws_of_key(fold_in(key(seed), step))``, an eval
     step's ``draws_of_key(key(seed + 1000 + epoch))`` (the eval generator's
     seed), where ``draws_of_key(key)`` returns the ``draw_noise`` hook of
-    one loss call. Returns the counter of train steps, which goes on across
-    an optimizer reset as the JAX trainer's step does."""
-    steps = itertools.count()
+    one loss call. Returns the counter of train steps, which starts at
+    ``first_step`` (a resumed JAX trainer's: its trained epochs times the
+    steps an epoch) and goes on across an optimizer reset as the JAX
+    trainer's step does."""
+    steps = itertools.count(first_step)
     current = {}
 
     def noise(shape, generator=None):
