@@ -180,7 +180,24 @@ Phases (any failure exits non-zero and prints no result line):
     ``AutoModel``. Every trainer above runs the sanity check's forward at
     its construction; the phases that count launches per step reset the
     counts after it;
-21. the seconds the whole run took, a ``kernels`` JSON line (launches
+21. ``datasets``: each dataset's files written in their real formats
+    (``tools/dataset_files.py``) under ``build/chip_smoke`` and read by the
+    port's dataset classes, each step a JSON line with its seconds:
+    PolyMNIST's test split (10,000 rows x 5 modalities of 3x28x28 float32,
+    470 MB, four ``.npy`` and one ``.pt``) loaded by ``MMNISTDataset`` with
+    20% of the rows missing (MAR), its load seconds a GB; ``mvtcae_conv``
+    (4,096 rows) and ``mmvaeplus_partial`` (512 rows: the exact mixture
+    launches a train and eval step) trained 16 steps from it, on 512 eval
+    rows; MNIST's gzipped idx files (10,000 rows) and SVHN's
+    ``test_32x32.mat`` (26,032 rows) paired by ``MnistSvhn``,
+    ``dmvae_mnist_svhn`` trained 16 steps from the pairs; CUB's captions and
+    64x64 PNGs read by ``CUB(output_type="tokens")`` without importing PIL,
+    ``mvtcae_cub`` trained 16 steps at the example's widths (the 8-row loss
+    card vs CPU); each beside the same workload's run on random arrays
+    earlier in the call (steps/s, peak above held); then a Translated
+    PolyMNIST tree of 2,048 rows x 5 PNGs and the seconds to read a batch
+    of 256 rows;
+22. the seconds the whole run took, a ``kernels`` JSON line (launches
     summed over every training and inference phase that runs the kernels),
     then the last line
     ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -592,18 +609,24 @@ def card_vs_cpu(model, fn, draws):
 
 def rows_batch(dataset, idx, dtype=torch.float32):
     from multivae_tpu_torch.data import batch_from_arrays
+    from multivae_tpu_torch.data.batch import map_leaves
 
     raw = dataset.get_batch(idx)
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
-    return batch_from_arrays({m: v.astype(np_dtype) for m, v in raw["data"].items()},
+
+    def cast(v):   # floats to ``dtype``; a text modality's tokens stay integers
+        return v.astype(np_dtype) if np.issubdtype(v.dtype, np.floating) else v
+
+    return batch_from_arrays({m: map_leaves(cast, v) for m, v in raw["data"].items()},
                              masks=raw.get("masks"))
 
 
 def workload_run(mx, name, n=2048, epochs=2, device="cuda", per_step=None,
-                 eval_fwd=None):
-    """Train a workload of ``tools/workloads.py`` with its trainer
-    (BaseTrainer unless it names another); returns (the phase's JSON record,
-    the workload, the mixture launches). The kernels must launch
+                 eval_fwd=None, workload=None):
+    """Train a workload of ``tools/workloads.py`` (or ``workload``, built
+    already, named ``name``) with its trainer (BaseTrainer unless it names
+    another); returns (the phase's JSON record, the workload, the mixture
+    launches). The kernels must launch
     ``per_step`` times (forward, full and dz-only backward) on each train
     step and ``eval_fwd`` forwards (default: the train step's) on each eval
     step: none on the MVTCAE workloads.
@@ -615,7 +638,7 @@ def workload_run(mx, name, n=2048, epochs=2, device="cuda", per_step=None,
     from multivae_tpu_torch.trainers import BaseTrainer, BaseTrainerConfig
 
     per_step = per_step or {}
-    w = workloads.build(name, n=n, device=device)
+    w = workload or workloads.build(name, n=n, device=device)
     trainer = (w.trainer_cls or BaseTrainer)(
         w.model, w.train, w.eval, device=device,
         training_config=BaseTrainerConfig(
@@ -1599,7 +1622,8 @@ RESUME_MOVE_RTOL = 2e-2
 # The reloaded model's 8-row loss against the kept model's: the same
 # weights on the same draws, but the card's forward is not bit-reproducible
 # either (9.4e-7 relative between the two in an earlier run of this phase,
-# NVIDIA H100 80GB HBM3, 700 W): 10x that.
+# NVIDIA H100 80GB HBM3, 700 W): 10x that. Both run on cuDNN's
+# deterministic algorithms.
 RELOAD_RTOL = 1e-5
 # A microbatched 8-row gradient card vs CPU, normwise over every
 # parameter: float32 sums of the conv weight gradients in another order,
@@ -1833,9 +1857,18 @@ def lifecycle_training(mx, out, n, device):
 
     draws = recorded_draws(kept, small_loss, 1)
     values = []
-    for net in (kept, reloaded):
-        with injected_noise(net, draws), torch.no_grad():
-            values.append(float(small_loss(net, torch.float32)))
+    # deterministic cuDNN algorithms: the decoders' transposed convs may
+    # otherwise take a data-gradient algorithm that sums with atomics, and
+    # two forwards of the same weights then differ by float32 noise (3.2e-5
+    # relative seen on an H100, more than this check is about)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for net in (kept, reloaded):
+            with injected_noise(net, draws), torch.no_grad():
+                values.append(float(small_loss(net, torch.float32)))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
     record["reload_loss_live"], record["reload_loss_reloaded"] = values
     check(_rel(values[1], values[0]) <= RELOAD_RTOL, f"reloaded loss {values}")
     return record, reloaded, w.eval, launches
@@ -1988,6 +2021,163 @@ def trainer_lifecycle(mx, mvtcae, remat_record, telbo_dir, n=1024, micro_n=512,
     return record, launches
 
 
+# the datasets phase: PolyMNIST's test split (rows of 5 x 3x28x28 float32),
+# MNIST's and SVHN's test splits, the Translated PolyMNIST rows, and the
+# rows a host read of Translated PolyMNIST takes
+POLYMNIST_TEST_ROWS = 10_000
+MNIST_TEST_ROWS, SVHN_TEST_ROWS = 10_000, 26_032
+TRANSLATED_ROWS, TRANSLATED_BATCH = 2048, 256
+FILE_STEPS = 16
+
+
+def _tree_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path)
+               for f in files)
+
+
+def _file_step(step, start, **values):
+    line = {"phase": "datasets", "step": step, "seconds": time.perf_counter() - start}
+    line.update(values)
+    print(json.dumps(line))
+    return line
+
+
+def datasets_phase(mx, random_records, device="cuda", polymnist_rows=POLYMNIST_TEST_ROWS,
+                   mnist_rows=MNIST_TEST_ROWS, svhn_rows=SVHN_TEST_ROWS,
+                   translated_rows=TRANSLATED_ROWS, eval_rows=512, steps=FILE_STEPS):
+    """The ``datasets`` phase: write each dataset's files in their real
+    formats (``tools/dataset_files.py``) under ``build/chip_smoke``, load
+    them with the port's dataset classes and train from them:
+    ``mvtcae_conv`` and ``mmvaeplus_partial`` (the mixture kernels on file
+    data, the exact launches a step) from PolyMNIST's test split with 20%
+    of the rows missing, ``dmvae_mnist_svhn`` from MNIST-SVHN's pairs and
+    ``mvtcae_cub`` from CUB's captions and PNGs (no PIL import), each for
+    ``steps`` steps, beside ``random_records``, the runs of the same
+    workloads on random arrays in this call; then the seconds to read a
+    batch of Translated PolyMNIST's PNGs. Each step prints a JSON line of
+    its own. Returns (record, mixture launches)."""
+    import dataclasses
+    import shutil
+
+    from multivae_tpu_torch.data import ResampleDataset
+    from multivae_tpu_torch.data.datasets import CUB, MMNISTDataset, MnistSvhn, TranslatedMMNIST
+    from multivae_tpu_torch.tools import dataset_files, workloads
+
+    start = time.perf_counter()
+    parent = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(parent, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="datasets_", dir=parent)
+    launches = {k: 0 for k in KERNELS}
+    record = {"phase": "datasets"}
+
+    def train(name, dataset, n_train, n_eval, per_step=None, workload=None):
+        """``name`` for ``steps`` steps on the first ``n_train`` rows of
+        ``dataset``, its last ``n_eval`` rows the eval set."""
+        w = workload or workloads.build(name, n=8, n_eval=0, device=device)
+        n = len(dataset)
+        w = dataclasses.replace(
+            w, train=ResampleDataset(dataset, np.arange(n_train)),
+            eval=ResampleDataset(dataset, np.arange(n - n_eval, n)) if n_eval else None)
+        run, _, counts = workload_run(mx, name, epochs=1, device=device, per_step=per_step,
+                                      workload=w)
+        check(run["steps"] == steps, f"{name}: {run['steps']} steps, expected {steps}")
+        for k in KERNELS:
+            launches[k] += counts[k]
+        random = random_records.get(name, {})
+        out = {k: run[k] for k in ("steps", "eval_steps", "epoch_losses", "steps_per_s",
+                                   "peak_above_held_bytes", "wall_s", "launches")}
+        out.update({k: v for k, v in run.items() if k.startswith("small_loss")})
+        out["random_arrays"] = {k: random.get(k) for k in ("steps_per_s",
+                                                           "peak_above_held_bytes")}
+        return out
+
+    try:
+        t0 = time.perf_counter()
+        dataset_files.write_polymnist(root, "test", polymnist_rows, seed=0, pt=("m2",))
+        nbytes = _tree_bytes(os.path.join(root, "MMNIST"))
+        write = _file_step("polymnist_write", t0, rows=polymnist_rows, bytes=nbytes)
+        t0 = time.perf_counter()
+        poly = MMNISTDataset(root, split="test", missing_ratio=0.2, keep_incomplete=True)
+        check(len(poly) == polymnist_rows and poly.masks["m0"].all()
+              and not poly.masks["m1"].all(), "PolyMNIST's MAR masks")
+        load = _file_step("polymnist_load", t0, rows=len(poly), bytes=nbytes,
+                          s_per_gb=(time.perf_counter() - t0) / (nbytes / 1e9))
+        record["polymnist_write"], record["polymnist_load"] = write, load
+        batch = workloads.BATCH
+        t0 = time.perf_counter()
+        record["mvtcae_conv"] = _file_step(
+            "mvtcae_conv", t0, **train("mvtcae_conv", poly, steps * batch["mvtcae_conv"],
+                                       eval_rows))
+        t0 = time.perf_counter()
+        record["mmvaeplus_partial"] = _file_step("mmvaeplus_partial", t0, **train(
+            "mmvaeplus_partial", poly, steps * batch["mmvaeplus_partial"], eval_rows,
+            per_step={"fwd": 2, "bwd_dz": 1}))
+        del poly
+
+        t0 = time.perf_counter()
+        dataset_files.write_mnist(root, 16, mnist_rows, seed=1, gz=True)
+        dataset_files.write_svhn(root, "test", svhn_rows, seed=2)
+        write = _file_step("mnist_svhn_write", t0, mnist_rows=mnist_rows, svhn_rows=svhn_rows,
+                           bytes=_tree_bytes(root) - nbytes)
+        t0 = time.perf_counter()
+        pairs = MnistSvhn(root, split="test")
+        load = _file_step("mnist_svhn_load", t0, rows=len(pairs))
+        check(len(pairs) >= steps * batch["dmvae_mnist_svhn"], f"{len(pairs)} MNIST-SVHN pairs")
+        t0 = time.perf_counter()
+        record["mnist_svhn_write"], record["mnist_svhn_load"] = write, load
+        record["dmvae_mnist_svhn"] = _file_step("dmvae_mnist_svhn", t0, **train(
+            "dmvae_mnist_svhn", pairs, steps * batch["dmvae_mnist_svhn"], 0))
+        del pairs
+
+        t0 = time.perf_counter()
+        dataset_files.write_cub(root, **workloads.CUB_SYNTHETIC)
+        cub_train = CUB(root, "train", output_type="tokens")
+        cub_eval = CUB(root, "eval", output_type="tokens")
+        check("PIL" not in sys.modules, "the CUB dataset imported PIL")
+        load = _file_step("cub_load", t0, rows=len(cub_train), eval_rows=len(cub_eval),
+                          vocab_size=cub_train.vocab_size)
+        t0 = time.perf_counter()
+        w = workloads.cub_workload(cub_train, cub_eval, device=device)
+        run, _, counts = workload_run(mx, "mvtcae_cub", epochs=1, device=device, workload=w)
+        check(run["steps"] == steps, f"mvtcae_cub: {run['steps']} steps, expected {steps}")
+        check(not any(counts.values()), f"mvtcae_cub launched {counts}")
+        check("PIL" not in sys.modules, "training on CUB imported PIL")
+        record["cub_load"] = load
+        record["mvtcae_cub"] = _file_step(
+            "mvtcae_cub", t0, vocab_size=cub_train.vocab_size,
+            parameters=sum(p.numel() for p in w.model.parameters()),
+            **{k: run[k] for k in run if k not in ("phase", "training_dir")})
+        del w, cub_train, cub_eval
+
+        t0 = time.perf_counter()
+        dataset_files.write_translated_polymnist(root, translated_rows, seed=3)
+        write = _file_step("translated_write", t0, rows=translated_rows, modalities=5)
+        translated = TranslatedMMNIST(root, 0.75, True, 5)
+        check(len(translated) == translated_rows, f"{len(translated)} Translated rows")
+        n_read = min(TRANSLATED_BATCH, translated_rows)
+        idx = np.random.default_rng(4).permutation(translated_rows)[:n_read]
+        t0 = time.perf_counter()
+        rows = translated.get_batch(idx)
+        read_s = time.perf_counter() - t0
+        check(rows["data"]["m4"].shape == (n_read, 3, 28, 28), "Translated batch")
+        record["translated_write"] = write
+        record["translated_read"] = _file_step(
+            "translated_read", t0, batch=n_read, read_s=read_s,
+            pngs_per_s=5 * n_read / read_s)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # the steps printed their lines: the phase's line sums them up
+    summary = {"phase": "datasets", "seconds": time.perf_counter() - start,
+               "launches": launches, "steps_per_s_files_vs_random": {
+                   name: [record[name]["steps_per_s"],
+                          record[name].get("random_arrays", {}).get("steps_per_s")]
+                   for name in ("mvtcae_conv", "mmvaeplus_partial", "dmvae_mnist_svhn",
+                                "mvtcae_cub")},
+               "step_seconds": {k: v["seconds"] for k, v in record.items()
+                                if isinstance(v, dict) and "seconds" in v}}
+    return summary, launches
+
+
 def main():
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2068,9 +2258,11 @@ def main():
         add(counts)
 
         trained = {}
+        random_records = {}   # runs on random arrays, beside the datasets phase's
         for name in ("mvtcae_mlp", "mvtcae_conv"):
             record, trained[name], _ = workload_run(mx, name)
             print(json.dumps(record))
+            random_records[name] = record
         print(json.dumps(inference_phase(mx, "mvtcae_inference", trained, {
             "mvtcae_mlp": [("joint_nll", 512, 0)],
             "mvtcae_conv": [("joint_nll", 256, 0)]})[0]))
@@ -2084,7 +2276,7 @@ def main():
                                   ("cmvae_polymnist", 256, iwae_step)):
             record, moe[name], counts = workload_run(mx, name, n=n, per_step=per_step)
             print(json.dumps(record))
-            moe_records[name] = record
+            moe_records[name] = random_records[name] = record
             add(counts)
         del moe["mmvaeplus_partial"]
         # MMVAE+ and CMVAE evaluate the mixture once a chunk of K // M samples
@@ -2113,6 +2305,7 @@ def main():
                                 ("telbo_conv", 1024, 3), ("cvae_tutorial", 256, 3)):
             record, joint[name], _ = workload_run(mx, name, n=n, epochs=epochs)
             print(json.dumps(record))
+            random_records[name] = record
             if name == "telbo_conv":
                 telbo_dir = record["training_dir"]
         mx.reset_launches()
@@ -2142,6 +2335,10 @@ def main():
         add(counts)
         record, counts = trainer_lifecycle(mx, trained["mvtcae_conv"].model,
                                            moe_records["mmvaeplus_k10"], telbo_dir)
+        print(json.dumps(record))
+        add(counts)
+        del trained, moe, poe, joint, jnf, mhvae, nexus
+        record, counts = datasets_phase(mx, random_records)
         print(json.dumps(record))
         add(counts)
     except SmokeFailure as e:

@@ -8,6 +8,10 @@ tensors:
 - ``weights`` is 0 on the padding rows the loader adds to keep every batch
   the same size, 1 elsewhere;
 - ``incomplete`` says whether the source dataset declared masks.
+
+A modality may be a dict of tensors with a common leading axis (CUB's
+``{"tokens", "padding_mask"}`` text), as the JAX batch's pytree allows:
+``map_leaves`` applies a tensor operation to each of them.
 """
 
 from __future__ import annotations
@@ -19,7 +23,30 @@ import numpy as np
 import torch
 
 
+def map_leaves(fn, value):
+    """``fn(value)`` on a modality's tensor, or on each tensor of a nested
+    (dict) modality, keeping its keys."""
+    if isinstance(value, dict):
+        return {k: map_leaves(fn, v) for k, v in value.items()}
+    return fn(value)
+
+
+def add_axes(value, n: int = 1):
+    """A modality with ``n`` leading axes of size 1 (on each tensor of a
+    nested one): the target a (K, B, ...) reconstruction is scored on."""
+    return map_leaves(lambda t: t[(None,) * n], value)
+
+
+def first_leaf(value):
+    """The tensor of a modality, or the first one of a nested modality."""
+    while isinstance(value, dict):
+        value = next(iter(value.values()))
+    return value
+
+
 def _tensor(x, dtype=None) -> torch.Tensor:
+    if isinstance(x, dict):
+        return map_leaves(lambda v: _tensor(v, dtype), x)
     if isinstance(x, torch.Tensor):
         return x if dtype is None else x.to(dtype)
     arr = np.asarray(x)
@@ -32,7 +59,8 @@ class MultimodalBatch:
     """A batch of multimodal data.
 
     Attributes:
-        data: modality name -> tensor of shape (B, *modality_dims).
+        data: modality name -> tensor of shape (B, *modality_dims), or a
+            dict of such tensors (a token modality).
         masks: modality name -> float (B,) availability (1 = available).
         weights: float (B,) sample weights; 0 marks padding samples.
         labels: optional (B,) labels.
@@ -47,14 +75,14 @@ class MultimodalBatch:
 
     @property
     def n_samples(self) -> int:
-        return next(iter(self.data.values())).shape[0]
+        return first_leaf(next(iter(self.data.values()))).shape[0]
 
     def to(self, device, non_blocking: bool = False) -> "MultimodalBatch":
         def mv(t):
             return None if t is None else t.to(device, non_blocking=non_blocking)
 
         return MultimodalBatch(
-            data={k: mv(v) for k, v in self.data.items()},
+            data={k: map_leaves(mv, v) for k, v in self.data.items()},
             masks={k: mv(v) for k, v in self.masks.items()},
             weights=mv(self.weights),
             labels=mv(self.labels),
@@ -70,7 +98,7 @@ def batch_from_arrays(data: dict, masks: Optional[dict] = None, labels=None,
     if incomplete is None:
         incomplete = masks is not None
     data = {k: _tensor(v) for k, v in data.items()}
-    n = next(iter(data.values())).shape[0]
+    n = first_leaf(next(iter(data.values()))).shape[0]
     if masks is None:
         masks = {k: torch.ones(n, dtype=dtype) for k in data}
     else:

@@ -4,7 +4,9 @@ Counterpart of ``multivae_tpu/data/datasets/base.py``: storage is host
 numpy and batches are gathered with one fancy-indexing call per modality
 (``get_batch``). ``IncompleteDataset`` keeps the reference convention:
 missing entries are zero-filled at the right shape and a boolean mask per
-modality carries availability. ``ResampleDataset`` is an index view over
+modality carries availability. A modality may be a dict of arrays with a
+common leading axis (CUB's ``{"tokens", "padding_mask"}`` text): its rows
+are taken from each array. ``ResampleDataset`` is an index view over
 another dataset, and ``random_split`` cuts a dataset into such views (the
 case studies' 90/10 train/eval split).
 """
@@ -16,6 +18,7 @@ from typing import Dict
 import numpy as np
 
 from ...utils.model_output import ModelOutput
+from ..batch import first_leaf, map_leaves
 
 
 class DatasetOutput(ModelOutput):
@@ -30,11 +33,20 @@ def _as_numpy(x):
     return np.asarray(x)
 
 
+def _length(value) -> int:
+    return len(first_leaf(value))
+
+
+def _take(value, index):
+    return map_leaves(lambda v: v[index], value)
+
+
 class MultimodalBaseDataset:
     """Base class for multimodal datasets.
 
     Args:
-        data: dict modality name -> array (n_samples, *dims).
+        data: dict modality name -> array (n_samples, *dims), or a dict of
+            such arrays (a token modality).
         labels: optional (n_samples,) array.
     """
 
@@ -46,7 +58,7 @@ class MultimodalBaseDataset:
     def _check_lengths(self):
         length = len(self)
         for m in self.data:
-            if len(self.data[m]) != length:
+            if _length(self.data[m]) != length:
                 raise AttributeError(
                     "The size of the provided datasets doesn't correspond "
                     "between modalities!"
@@ -57,14 +69,14 @@ class MultimodalBaseDataset:
             )
 
     def __len__(self):
-        return len(next(iter(self.data.values())))
+        return _length(next(iter(self.data.values())))
 
     def __getitem__(self, index):
         return self.get_batch(index)
 
     def get_batch(self, indices) -> DatasetOutput:
         """Vectorized gather of a batch of samples by index array."""
-        out = DatasetOutput(data={m: v[indices] for m, v in self.data.items()})
+        out = DatasetOutput(data={m: _take(v, indices) for m, v in self.data.items()})
         if self.labels is not None:
             out["labels"] = self.labels[indices]
         return out

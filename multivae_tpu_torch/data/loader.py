@@ -5,7 +5,8 @@ epoch permutation (``np.random.default_rng((seed, epoch))``) and the
 wrap-around padding of the last partial batch, with zero weight on the
 padding rows, are the JAX loader's, so both packages see the same batches
 in the same order. Batches are gathered on the host with numpy and come out
-as CPU tensors; the trainer moves them to its device.
+as CPU tensors (a nested modality, such as CUB's token text, as a dict of
+them); the trainer moves them to its device.
 """
 
 from __future__ import annotations

@@ -30,7 +30,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ...data.batch import MultimodalBatch, as_batch
+from ...data.batch import MultimodalBatch, add_axes, as_batch
 from ...nn.default_architectures import BaseDictDecoders, BaseDictEncoders
 from ...ops.dists import set_decoder_dist
 from ...ops.gaussian import gaussian_log_prob, rsample_from_gaussian, sum_f32
@@ -398,7 +398,7 @@ class BaseMultiVAE(BaseModel):
             for m in self.decoders:
                 recon = self.decode_mod(m, z)
                 lpx_z = lpx_z + sum_except_batch(
-                    self.recon_log_probs[m](recon, batch.data[m][None]),
+                    self.recon_log_probs[m](recon, add_axes(batch.data[m])),
                     batch_ndims=2)
             zeros = torch.zeros_like(z)
             lpz = sum_f32(gaussian_log_prob(z, zeros, zeros))
@@ -437,7 +437,7 @@ class BaseMultiVAE(BaseModel):
             for m in pred_mods:
                 recon = dec[m].reshape(n, -1, *dec[m].shape[1:])
                 chunks[m].append(sum_except_batch(
-                    self.recon_log_probs[m](recon, batch.data[m][None]),
+                    self.recon_log_probs[m](recon, add_axes(batch.data[m])),
                     batch_ndims=2))
             n_done += n
         cnll = {}

@@ -20,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from ...data.batch import MultimodalBatch, as_batch
+from ...data.batch import MultimodalBatch, as_batch, map_leaves
 from ...ops.gaussian import kl_divergence, masked_poe, rsample_from_gaussian
 from ...utils.model_output import ModelOutput
 from ..base.base_ae_model import BaseMultiVAE, sum_except_batch
@@ -70,7 +70,7 @@ class CRMVAE(BaseMultiVAE):
         loss_rec = 0.0
         for i, m in enumerate(mods):
             recon = self.decode_mod(m, torch.cat([z[0], z[i + 1]]))        # (2B, ...)
-            target = torch.cat([batch.data[m], batch.data[m]])
+            target = map_leaves(lambda t: torch.cat([t, t]), batch.data[m])
             rec_pair = (sum_except_batch(-self.recon_log_probs[m](recon, target)
                                          * self.rescale_factors[m])
                         * torch.cat([batch.masks[m]] * 2))

@@ -29,7 +29,7 @@ from typing import Optional
 
 import torch
 
-from ...data.batch import MultimodalBatch, as_batch
+from ...data.batch import MultimodalBatch, add_axes, as_batch
 from ...nn.default_architectures import (
     BaseDictDecodersMultiLatents,
     BaseDictEncoders_MultiLatents,
@@ -123,7 +123,7 @@ class DMVAE(BaseMultiVAE):
             z_p = rsample_from_gaussian(mu_p, lv_p, N=E, noise=self.draw_noise(
                 (E, *mu_p.shape), generator))
             out = self.decode_mod(m, torch.cat([shared_z, z_p], -1))
-            rec = sum_except_batch(self.recon_log_probs[m](out, batch.data[m][None])
+            rec = sum_except_batch(self.recon_log_probs[m](out, add_axes(batch.data[m]))
                                    * self.rescale_factors[m], batch_ndims=2)
             recon = recon + rec * batch.masks[m]
             kl = kl + _std_normal_kl(mu_p, lv_p) * batch.masks[m] * self.private_betas[m]
@@ -198,7 +198,7 @@ class DMVAE(BaseMultiVAE):
                     (chunk, *mu_p.shape), generator))
                 out = self.decode_mod(m, torch.cat([z, z_p], -1))
                 logw = logw + sum_except_batch(
-                    self.recon_log_probs[m](out, batch.data[m][None]), batch_ndims=2)
+                    self.recon_log_probs[m](out, add_axes(batch.data[m])), batch_ndims=2)
                 logw = logw + log_densities(z_p, mu_p, lv_p)
             return logw
 

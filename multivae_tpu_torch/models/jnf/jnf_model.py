@@ -35,7 +35,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from ...data.batch import MultimodalBatch
+from ...data.batch import MultimodalBatch, map_leaves
 from ...ops.flows import MAF
 from ...ops.gaussian import rsample_from_gaussian, sum_f32
 from ...utils.model_output import ModelOutput
@@ -230,7 +230,8 @@ class JNF(BaseJointModel):
         data repeated K times; (n, D) for K == 1, else (K, n, D)."""
         enc_params = {}
         for m in subset:
-            out = self.encode_mod(m, torch.cat([batch.data[m]] * K, 0))
+            out = self.encode_mod(m, map_leaves(lambda t: torch.cat([t] * K, 0),
+                                                batch.data[m]))
             enc_params[m] = (out["embedding"], out["log_covariance"])
         z = self._sample_from_moe_subset(enc_params, generator)
         ratios = []

@@ -43,7 +43,7 @@ from typing import Optional, Union
 import torch
 from torch import nn
 
-from ...data.batch import MultimodalBatch
+from ...data.batch import MultimodalBatch, add_axes
 from ...ops.gaussian import kl_divergence, masked_poe, sum_f32
 from ...ops.subsets import all_subsets
 from ...utils.model_output import ModelOutput
@@ -233,7 +233,7 @@ class MHVAE(BaseMultiVAE):
         for mod in self.decoders:
             recon = self.decode_mod(mod, z_dict["z_1"])
             recon = recon.reshape(n_sub, n_rows, *recon.shape[1:])
-            mod_loss = sum_except_batch(-self.recon_log_probs[mod](recon, batch.data[mod][None])
+            mod_loss = sum_except_batch(-self.recon_log_probs[mod](recon, add_axes(batch.data[mod]))
                                         * self.rescale_factors[mod], batch_ndims=2)
             recon_loss = recon_loss + (mod_loss * batch.masks[mod] * batch.weights).sum(-1)
         kl = sum(kl_dict[f"kl_{i}"] for i in range(1, self.n_latent + 1))

@@ -30,7 +30,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ...data.batch import MultimodalBatch, as_batch
+from ...data.batch import MultimodalBatch, add_axes, as_batch
 from ...ops.dreg import scale_grad
 from ...ops.iwae import chunked_logsumexp, iwae_log_marginal
 from ...ops.kdist import (
@@ -126,7 +126,7 @@ class MMVAE(BaseMultiVAE):
         for recon_mod in mods:
             recon = self.decode_mod(recon_mod, Z)             # (M, K, B, *)
             lp = self.recon_log_probs[recon_mod](
-                recon, batch.data[recon_mod][None, None])
+                recon, add_axes(batch.data[recon_mod], 2))
             lp = sum_except_batch(lp, 3) * self.rescale_factors[recon_mod]
             lpx_z = lpx_z + lp * batch.masks[recon_mod][None, None, :]
 
@@ -232,7 +232,7 @@ class MMVAE(BaseMultiVAE):
             for m in mods:
                 recon = self.decode_mod(m, z)
                 lpx_z = lpx_z + sum_except_batch(
-                    self.recon_log_probs[m](recon, batch.data[m][None]), 2)
+                    self.recon_log_probs[m](recon, add_axes(batch.data[m])), 2)
             lpz = dist_log_prob(self.dist_name, z, prior_mu, prior_std).sum(-1)
             lqz = torch.logsumexp(torch.stack([
                 dist_log_prob(self.dist_name, z, mu, sigma).sum(-1)

@@ -33,7 +33,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ...data.batch import MultimodalBatch, as_batch
+from ...data.batch import MultimodalBatch, add_axes, as_batch
 from ...nn.default_architectures import (
     BaseDictDecodersMultiLatents,
     BaseDictEncoders_MultiLatents,
@@ -205,7 +205,7 @@ class MMVAEPlus(BaseMultiVAE):
         lpx_z = 0.0
         for recon_mod in mods:
             lp = self.recon_log_probs[recon_mod](
-                recons[recon_mod], batch.data[recon_mod][None, None])
+                recons[recon_mod], add_axes(batch.data[recon_mod], 2))
             factor = 1.0 if unit_rescale else self.rescale_factors[recon_mod]
             lp = sum_except_batch(lp, 3) * factor
             lpx_z = lpx_z + lp * batch.masks[recon_mod][None, None, :]

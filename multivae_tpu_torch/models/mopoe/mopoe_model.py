@@ -30,7 +30,7 @@ from typing import Optional
 
 import torch
 
-from ...data.batch import MultimodalBatch, as_batch
+from ...data.batch import MultimodalBatch, add_axes, as_batch
 from ...nn.default_architectures import (
     BaseDictDecodersMultiLatents,
     BaseDictEncoders_MultiLatents,
@@ -242,7 +242,7 @@ class MoPoE(BaseMultiVAE):
             for m in self.decoders:
                 emb = torch.cat([z, private_z[m]], -1) if private_z else z
                 lpx_z = lpx_z + sum_except_batch(
-                    self.recon_log_probs[m](self.decode_mod(m, emb), batch.data[m][None]),
+                    self.recon_log_probs[m](self.decode_mod(m, emb), add_axes(batch.data[m])),
                     batch_ndims=2)
             zeros = torch.zeros_like(z)
             lpz = gaussian_log_prob(z, zeros, zeros).sum(-1) + lpz

@@ -29,7 +29,7 @@ from typing import Optional
 
 import torch
 
-from ...data.batch import MultimodalBatch, as_batch
+from ...data.batch import MultimodalBatch, add_axes, as_batch
 from ...ops.gaussian import rsample_from_gaussian, stable_poe, sum_f32
 from ...ops.subsets import all_subsets, subsets_to_mask
 from ...utils.model_output import ModelOutput
@@ -89,7 +89,7 @@ class MVAE(BaseMultiVAE):
         recon_total = 0.0
         for i, m in enumerate(self.encoders):
             recon = self.decode_mod(m, z)                                   # (S, B, ...)
-            rec_m = sum_except_batch(-self.recon_log_probs[m](recon, batch.data[m][None])
+            rec_m = sum_except_batch(-self.recon_log_probs[m](recon, add_axes(batch.data[m]))
                                      * self.rescale_factors[m], batch_ndims=2)
             rec_m = rec_m * batch.masks[m][None] * rows[:, i:i + 1]
             recon_total = recon_total + (rec_m * w).sum(-1)

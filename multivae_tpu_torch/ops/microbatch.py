@@ -16,7 +16,7 @@ from __future__ import annotations
 
 from typing import Callable, List
 
-from ..data.batch import MultimodalBatch
+from ..data.batch import MultimodalBatch, map_leaves
 from ..utils.model_output import ModelOutput
 
 
@@ -30,7 +30,8 @@ def split_batch(batch: MultimodalBatch, n_micro: int) -> List[MultimodalBatch]:
     def rows(t, i):
         return None if t is None else t[i * size:(i + 1) * size]
 
-    return [MultimodalBatch(data={k: rows(v, i) for k, v in batch.data.items()},
+    return [MultimodalBatch(data={k: map_leaves(lambda t: rows(t, i), v)
+                                  for k, v in batch.data.items()},
                             masks={k: rows(v, i) for k, v in batch.masks.items()},
                             weights=rows(batch.weights, i),
                             labels=rows(batch.labels, i),

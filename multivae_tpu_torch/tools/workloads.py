@@ -87,6 +87,18 @@ random data in the real datasets' shapes, made from a seed.
   that test trains it, on its synthetic data (3 classes: fixed centres in
   [0.1, 0.9] plus noise of 0.03).
 
+``mvtcae_cub`` (``cub_workload``) trains on ``CUB`` datasets, read from
+files: the CUB example (``examples/mvtcae_cub.py:37-75``): images of
+(3, 64, 64) through ``CUB_Resnet_Encoder`` / ``CUB_Resnet_Decoder`` at their
+defaults, captions of 32 tokens through ``CubTextEncoder`` (embed 512,
+feed-forward 128, 2 layers, 2 heads), the ``CubTextDecoderMLP`` logits
+under a categorical decoder, latent 64, beta 5.0, alpha 0.9, batch 64,
+Adam 1e-3. Cut: the vocabulary is the one ``CUBSentences`` builds from the
+given captions (the real CUB archive is not in the repo); on the synthetic
+captions of ``chip_smoke.py``'s ``datasets`` phase
+(``tools/dataset_files.write_cub`` with ``CUB_SYNTHETIC``) it holds
+1,538 words.
+
 The train sets of ``mvtcae_conv``, ``mmvae_conv``, ``mmvaeplus_partial``
 and ``mopoe_conv`` are ``IncompleteDataset``s: each (row, modality) is
 missing with probability 0.2, and a few rows have no modality at all. The
@@ -124,6 +136,11 @@ LATENT = 512
 PLUS_LATENT = 32   # MMVAE+: shared and private latent dims
 MISSING = 0.2   # partial PolyMNIST: share of (row, modality) pairs missing
 SEED = 0
+CUB_BATCH = 64
+CUB_LATENT = 64
+# the datasets phase's CUB files: 113 train images (1,130 captions, 1,017 in
+# the train split: 16 steps of 64), 12 test images, 1,500 made-up words
+CUB_SYNTHETIC = dict(n_train=113, n_test=12, seed=SEED, n_words=1500)
 
 
 @dataclasses.dataclass
@@ -398,3 +415,27 @@ def labelled_polymnist(n: int, seed: int):
     rng = np.random.default_rng(seed)
     data = _images(rng, n, {f"m{i}": POLYMNIST for i in range(5)})
     return MultimodalBaseDataset(data, labels=rng.integers(0, 10, n))
+
+
+def cub_workload(train, eval_set=None, device="cuda") -> Workload:
+    """``mvtcae_cub`` on ``CUB(..., output_type="tokens")`` datasets: the
+    caption length and the vocabulary are the train set's."""
+    from ..models import MVTCAE, MVTCAEConfig
+    from ..nn import BaseAEConfig
+    from ..nn.cub import CUB_Resnet_Decoder, CUB_Resnet_Encoder, CubTextDecoderMLP, CubTextEncoder
+
+    length, vocab = train.text_data.max_sequence_length, train.vocab_size
+    text = (length, vocab)
+    encoders = {"image": CUB_Resnet_Encoder(CUB_LATENT),
+                "text": CubTextEncoder(CUB_LATENT, length, vocab, embed_size=512, ff_size=128,
+                                       n_layers=2, nhead=2, dropout=0.1)}
+    decoders = {"image": CUB_Resnet_Decoder(CUB_LATENT),
+                "text": CubTextDecoderMLP(BaseAEConfig(latent_dim=CUB_LATENT, input_dim=text))}
+    encoders, decoders = _seeded(encoders, decoders)
+    model = MVTCAE(MVTCAEConfig(
+        n_modalities=2, latent_dim=CUB_LATENT, input_dims={"image": (3, 64, 64), "text": text},
+        decoders_dist={"image": "laplace", "text": "categorical"}, beta=5.0, alpha=0.9),
+        encoders=encoders, decoders=decoders, seed=SEED, device=device)
+    return Workload(model, train, eval_set, dict(
+        per_device_train_batch_size=CUB_BATCH, per_device_eval_batch_size=CUB_BATCH,
+        learning_rate=1e-3, optimizer_cls="Adam"))

@@ -42,6 +42,7 @@ the port. ``history`` holds each epoch's logged metrics.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import datetime
 import json
@@ -413,7 +414,13 @@ class BaseTrainer:
         sch_path = os.path.join(checkpoint_dir, "scheduler.json")
         if self.scheduler is not None and os.path.exists(sch_path):
             with open(sch_path) as f:
-                self.scheduler.load_state_dict(json.load(f))
+                state = json.load(f)
+            if "milestones" in state:
+                # MultiStepLR keeps a Counter of int epochs; JSON made its
+                # keys strings, which no epoch would ever match again
+                state["milestones"] = collections.Counter(
+                    {int(k): v for k, v in state["milestones"].items()})
+            self.scheduler.load_state_dict(state)
         # without the generator's state the run goes on, from the seed's
         # noise instead of the uninterrupted run's
         gen_path = os.path.join(checkpoint_dir, "generator.pt")

@@ -27,6 +27,15 @@ in the order Flax creates them, so ``<group>/<m>/Dense_i``, ``Conv_i``,
   flattened branch, whose channels are those of the last block. A decoder
   reshapes its Dense output channels-first, as the port's does: no
   permutation there;
+- the CUB nets (``nn/cub.py``): a ``PreActResnetBlock_i`` maps as a
+  ``ResnetBlock_i`` (``.blocks.<i>``, its convs ``.conv.<j>``, the heads of
+  the resnet encoder permuted as above); ``Embed_0``'s table becomes
+  ``.embed.weight``; a ``TransformerEncoderLayer_i`` becomes
+  ``.layers.<i>``, its ``LayerNorm_j`` (``scale``, ``bias``) ``.norm.<j>``,
+  its ``Dense_j`` ``.dense.<j>``, and its attention's per-head projections
+  ``query``, ``key`` and ``value`` (kernel (in, heads, head_dim), bias
+  (heads, head_dim)) and ``out`` (kernel (heads, head_dim, out)) become
+  Linear layers over the heads laid side by side;
 - ``model/<name>`` (e.g. ``prior_log_var``) becomes the top-level
   parameter ``<name>``;
 - a single net's group (``joint_encoder``; CVAE's ``encoder``,
@@ -80,7 +89,9 @@ _BLOCK_LISTS = {"top_down": "top_down_blocks", "prior": "prior_blocks"}
 _SINGLE_NETS = ("joint_encoder", "encoder", "decoder", "prior_network")
 _MADE_LAYERS = ("mu", "alpha")
 _LAYER_LISTS = {"Dense": "dense", "Conv": "conv", "ConvTranspose": "deconv",
-                "ResnetBlock": "blocks"}
+                "ResnetBlock": "blocks", "PreActResnetBlock": "blocks",
+                "TransformerEncoderLayer": "layers"}
+_BLOCKS = ("ResnetBlock", "PreActResnetBlock")
 
 
 def _is_layer(name: str) -> bool:
@@ -90,8 +101,9 @@ def _is_layer(name: str) -> bool:
 
 def _layer_key(name: str):
     if not _is_layer(name):
-        raise KeyError(f"Unsupported Flax layer {name!r}: only Dense_i, Conv_i, "
-                       "ConvTranspose_i and ResnetBlock_i are mapped.")
+        raise KeyError(f"Unsupported Flax layer {name!r}: only Embed_0, Dense_i, "
+                       "Conv_i, ConvTranspose_i, (PreAct)ResnetBlock_i and "
+                       "TransformerEncoderLayer_i are mapped.")
     kind, _, idx = name.rpartition("_")
     return kind, int(idx)
 
@@ -108,9 +120,10 @@ def _hwc_rows_to_chw(kernel: np.ndarray, channels: int) -> np.ndarray:
 
 def _flat_map_channels(layers: dict, keys: dict) -> Dict[int, int]:
     """Encoder: Dense index -> channels of the flattened map it reads."""
-    blocks = sorted(i for kind, i in keys.values() if kind == "ResnetBlock")
+    blocks = sorted((i, kind) for kind, i in keys.values() if kind in _BLOCKS)
     if blocks:
-        last = layers[f"ResnetBlock_{blocks[-1]}"]["Conv_1"]["kernel"]
+        i, kind = blocks[-1]
+        last = layers[f"{kind}_{i}"]["Conv_1"]["kernel"]
         return {i: np.shape(last)[-1] for kind, i in keys.values() if kind == "Dense"}
     convs = sorted(i for kind, i in keys.values() if kind == "Conv")
     if convs and "Dense_0" in layers:
@@ -127,11 +140,39 @@ def _submodule(name: str):
     return None
 
 
+def _linear(kernel, bias) -> Dict[str, torch.Tensor]:
+    """A Flax kernel (in, out) and bias (out,) as a Linear's weight and bias."""
+    return {"weight": torch.tensor(np.asarray(kernel).T.copy()),
+            "bias": torch.tensor(np.asarray(bias))}
+
+
+def _transformer_state(prefix: str, layer: dict) -> Dict[str, torch.Tensor]:
+    """One ``TransformerEncoderLayer_i`` of the CUB text encoder."""
+    pairs = {}
+    attn = layer["MultiHeadDotProductAttention_0"]
+    for name in ("query", "key", "value"):
+        kernel = np.asarray(attn[name]["kernel"])        # (in, heads, head_dim)
+        pairs[name] = (kernel.reshape(kernel.shape[0], -1), np.asarray(attn[name]["bias"]).ravel())
+    kernel = np.asarray(attn["out"]["kernel"])           # (heads, head_dim, out)
+    pairs["out"] = (kernel.reshape(-1, kernel.shape[-1]), attn["out"]["bias"])
+    for j in range(2):
+        pairs[f"dense.{j}"] = (layer[f"Dense_{j}"]["kernel"], layer[f"Dense_{j}"]["bias"])
+    state = {f"{prefix}.{name}.{k}": v for name, (kernel, bias) in pairs.items()
+             for k, v in _linear(kernel, bias).items()}
+    for j in range(2):
+        norm = layer[f"LayerNorm_{j}"]
+        state[f"{prefix}.norm.{j}.weight"] = torch.tensor(np.asarray(norm["scale"]))
+        state[f"{prefix}.norm.{j}.bias"] = torch.tensor(np.asarray(norm["bias"]))
+    return state
+
+
 def _net_state(prefix: str, layers: dict, encoder: bool) -> Dict[str, torch.Tensor]:
     state, own = {}, {}
     for name, leaf in layers.items():
         sub = _submodule(name)
-        if sub is None:
+        if name == "Embed_0":
+            state[f"{prefix}.embed.weight"] = torch.tensor(np.asarray(leaf["embedding"]))
+        elif sub is None:
             own[name] = leaf
         else:
             state.update(_net_state(f"{prefix}.{sub[0]}", leaf, encoder=sub[1]))
@@ -141,8 +182,11 @@ def _net_state(prefix: str, layers: dict, encoder: bool) -> Dict[str, torch.Tens
     for name, leaf in layers.items():
         kind, i = keys[name]
         key = f"{prefix}.{_LAYER_LISTS[kind]}.{i}"
-        if kind == "ResnetBlock":
+        if kind in _BLOCKS:
             state.update(_net_state(key, leaf, encoder=False))
+            continue
+        if kind == "TransformerEncoderLayer":
+            state.update(_transformer_state(key, leaf))
             continue
         kernel = np.asarray(leaf["kernel"])
         if kind == "Dense":

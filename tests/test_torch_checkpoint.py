@@ -32,6 +32,7 @@ from multivae_tpu.trainers import BaseTrainer as JTrainer
 from multivae_tpu.trainers import BaseTrainerConfig as JTrainerConfig
 from multivae_tpu.trainers import MultistageTrainer as JMultistageTrainer
 from multivae_tpu.trainers import MultistageTrainerConfig as JMultistageTrainerConfig
+from multivae_tpu.trainers.base.optim import make_scheduler as make_jax_scheduler
 from multivae_tpu_torch.data import MultimodalBaseDataset
 from multivae_tpu_torch.models import MVTCAE, MVTCAEConfig
 from multivae_tpu_torch.nn import BaseAEConfig, Decoder_AE_MLP, Encoder_VAE_MLP
@@ -41,6 +42,7 @@ from multivae_tpu_torch.trainers import (
     MultistageTrainer,
     MultistageTrainerConfig,
 )
+from multivae_tpu_torch.trainers.base.optim import _SCHEDULERS
 from test_torch_telbo import _arrays as telbo_arrays
 from test_torch_telbo import _models as telbo_models
 from test_torch_telbo import _stage_noise as telbo_noise
@@ -223,25 +225,65 @@ def test_resumed_run_repeats_the_uninterrupted_one(tmp_path):
     assert other.history[0]["train_epoch_loss"] != full.history[2]["train_epoch_loss"]
 
 
-@pytest.mark.parametrize("scheduler", ["StepLR", "ReduceLROnPlateau"])
+SCHEDULER_PARAMS = {
+    "StepLR": {"step_size": 1, "gamma": 0.5},
+    "MultiStepLR": {"milestones": [2, 4], "gamma": 0.5},
+    "ExponentialLR": {"gamma": 0.5},
+    "LinearLR": {"start_factor": 0.25, "total_iters": 3},
+    "ConstantLR": {"factor": 0.5, "total_iters": 3},
+    "PolynomialLR": {"total_iters": 3, "power": 2.0},
+    "CosineAnnealingLR": {"T_max": 3},
+    "CosineAnnealingWarmRestarts": {"T_0": 3},
+    "ReduceLROnPlateau": {"mode": "max", "patience": 0, "factor": 0.5},
+}
+
+
+def _record_rates(trainer):
+    """The rate in force after each epoch's scheduler step."""
+    rates = []
+    finalize = trainer._finalize_epoch
+
+    def finalize_and_record(*args):
+        finalize(*args)
+        rates.append(trainer.optimizer.param_groups[0]["lr"])
+
+    trainer._finalize_epoch = finalize_and_record
+    return rates
+
+
+@pytest.mark.parametrize("scheduler", sorted(SCHEDULER_PARAMS))
 def test_scheduler_state_is_carried_across_the_resume(tmp_path, scheduler):
-    """The rate and the scheduler's counters come back: StepLR halves the
-    rate every epoch; ReduceLROnPlateau (mode max, patience 0) cuts it at
-    every epoch that does not raise the eval loss, which needs its ``best``
-    and bad-epoch count."""
-    params = ({"step_size": 1, "gamma": 0.5} if scheduler == "StepLR"
-              else {"mode": "max", "patience": 0, "factor": 0.5})
-    extra = dict(scheduler_cls=scheduler, scheduler_params=params)
+    """Every scheduler the trainer takes, resumed from
+    ``checkpoint_epoch_2``: the rate of epochs 3-4 is the uninterrupted
+    run's, epoch by epoch, and so are the losses and the scheduler's state.
+    StepLR halves the rate every epoch; ReduceLROnPlateau (mode max,
+    patience 0) cuts it at every epoch that does not raise the eval loss,
+    which needs its ``best`` and bad-epoch count; MultiStepLR (milestones
+    [2, 4]) must decay again at epoch 4 after the resume, and its rates are
+    the JAX trainer's schedule."""
+    assert set(SCHEDULER_PARAMS) == set(_SCHEDULERS)
+    extra = dict(scheduler_cls=scheduler, scheduler_params=SCHEDULER_PARAMS[scheduler])
     full = _port_trainer(_models()[1], tmp_path / "full", **extra)
+    full_rates = _record_rates(full)
     full.train()
     resumed = _port_trainer(_models()[1], tmp_path / "resumed", **extra,
                             checkpoint=os.path.join(full.training_dir, "checkpoint_epoch_2"))
-    # both cut the rate at epoch 2: the resumed trainer starts from the cut
-    assert resumed.optimizer.param_groups[0]["lr"] == LR / (4 if scheduler == "StepLR" else 2)
+    # the resumed trainer starts from the rate of the checkpoint's epoch
+    assert resumed.optimizer.param_groups[0]["lr"] == full_rates[1]
+    if scheduler in ("StepLR", "ReduceLROnPlateau"):
+        # both cut the rate at epoch 2
+        assert full_rates[1] == LR / (4 if scheduler == "StepLR" else 2)
+    resumed_rates = _record_rates(resumed)
     resumed.train()
+    assert resumed_rates == full_rates[2:]
     assert resumed.history == full.history[2:]
     assert resumed.optimizer.param_groups[0]["lr"] == full.optimizer.param_groups[0]["lr"]
     assert resumed.scheduler.state_dict() == full.scheduler.state_dict()
+    if scheduler == "MultiStepLR":
+        jax_schedule = make_jax_scheduler(scheduler, LR, SCHEDULER_PARAMS[scheduler])
+        expected = [jax_schedule.lr_at(epoch) for epoch in range(1, 5)]
+        np.testing.assert_allclose(full_rates, expected, rtol=1e-12)
+        assert full_rates[3] == full_rates[1] / 2
 
 
 def test_keep_best_on_train_matches_jax(tmp_path):
