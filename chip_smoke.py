@@ -8,8 +8,10 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build every CUDA kernel of the port from ``multivae_tpu_torch/csrc``
-   with nvcc (into ``build/kernels/``), printing the build time and the
-   compiler's register/shared-memory report;
+   with nvcc (into ``build/kernels/``) and, beside them, the threaded
+   native gather (``csrc/gather.cpp``) with g++ (into ``build/native/``),
+   printing the build time and the compiler's register/shared-memory
+   report;
 3. kernels: the mixture log-density forward and its three gradients
    (full backward kernel), and dz alone with ``mus``/``sigmas`` detached
    (dz-only backward kernel), against the plain PyTorch version on the
@@ -197,7 +199,25 @@ Phases (any failure exits non-zero and prints no result line):
     earlier in the call (steps/s, peak above held); then a Translated
     PolyMNIST tree of 2,048 rows x 5 PNGs and the seconds to read a batch
     of 256 rows;
-22. the seconds the whole run took, a ``kernels`` JSON line (launches
+22. ``resident_data``: the device cache (``data/device_cache.py``)
+    against the host path (``data/prefetch.py``, the native gather), under
+    cuDNN's deterministic algorithms: partial PolyMNIST's train split at
+    its real size (60,000 rows x 5 x 3x28x28 float32 with the MAR masks of
+    ``tools/workloads._incomplete``, 2.82 GB) cached on the card, the
+    build's seconds and bytes, one epoch of cached batches against the
+    host loader's bit for bit, a 256-row gather on the card against the
+    host gather plus a pageable copy and plus a pinned one, the native
+    gather against numpy's (by thread count, at 256 and 4,096 rows), and
+    ``mvtcae_conv`` trained one epoch each
+    way; then ``mvtcae_conv``, ``mmvaeplus_partial`` (exact mixture
+    launches on every cached step) and ``dmvae_mnist_svhn`` on 2,048 rows,
+    2 epochs each way: steps/s and peaks above held side by side, every
+    cache built, the first epoch losses within ``RESIDENT_LOSS_RTOL``; the
+    coherences of the cached ``mvtcae_conv`` cached against host (equal
+    metrics); a GMM fitted through the trainer's cache, whose collected
+    latents equal the host loop's, with no second upload (device memory
+    grows by the latents only);
+23. the seconds the whole run took, a ``kernels`` JSON line (launches
     summed over every training and inference phase that runs the kernels),
     then the last line
     ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -709,6 +729,9 @@ def workload_run(mx, name, n=2048, epochs=2, device="cuda", per_step=None,
     if w.eval is not None:
         record["eval_losses"] = [h["eval_epoch_loss"] for h in trainer.history]
         record["lr"] = trainer.optimizer.param_groups[0]["lr"]
+    if trainer.training_config.cache_on_device:
+        record["device_cache"] = {"train": trainer._train_cache is not None,
+                                  "eval": trainer._eval_cache is not None}
 
     # the trained model's loss on 8 rows (incomplete sets: row 5 has no modality)
     def small_loss(net, dtype):
@@ -2178,6 +2201,291 @@ def datasets_phase(mx, random_records, device="cuda", polymnist_rows=POLYMNIST_T
     return summary, launches
 
 
+# resident_data: the device cache against the host path (now prefetched).
+# Host and cached runs of one workload start from the same weights and
+# seed and, with cuDNN's deterministic algorithms, take the same steps on
+# the same batches: their first epoch losses must agree within
+# RESIDENT_LOSS_RTOL (the phase prints the gap).
+RESIDENT_ROWS = 60_000            # partial PolyMNIST's train split
+RESIDENT_SMALL_ROWS = 2048
+RESIDENT_LOSS_RTOL = 1e-5
+GATHER_ROWS = 256
+GATHER_REPEATS = 20
+
+
+def _median_s(fn, repeats=GATHER_REPEATS):
+    """Median wall seconds of ``repeats`` calls of ``fn`` after a warm-up,
+    each to a synchronised end."""
+    times = []
+    for _ in range(repeats + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times[1:]))
+
+
+def _resident_workload(name, train, n_eval=0, device="cuda"):
+    """``name`` of ``tools/workloads.py`` (seeded weights) on ``train``."""
+    import dataclasses
+
+    from multivae_tpu_torch.tools import workloads
+
+    w = workloads.build(name, n=8, n_eval=n_eval, device=device)
+    return dataclasses.replace(w, train=train)
+
+
+def _host_vs_cached(mx, name, make, epochs, device, per_step=None):
+    """``name`` trained through the host path and with ``cache_on_device``
+    from the same weights (``make()`` builds the workload anew), under
+    cuDNN's deterministic algorithms: steps/s, peaks above held and the
+    first epoch losses of both; the caches must build and the losses agree
+    within ``RESIDENT_LOSS_RTOL``. Returns (record, mixture launches)."""
+    import dataclasses
+
+    runs, launches = {}, {k: 0 for k in KERNELS}
+    for path in ("host", "cached"):
+        w = make()
+        if path == "cached":
+            w = dataclasses.replace(w, trainer_kwargs=dict(w.trainer_kwargs,
+                                                           cache_on_device=True))
+        run, w, counts = workload_run(mx, name, epochs=epochs, device=device,
+                                      per_step=per_step, workload=w)
+        if path == "cached":
+            check(run["device_cache"] == {"train": True, "eval": w.eval is not None},
+                  f"{name}: a cache came back None: {run['device_cache']}")
+            runs["workload"] = w
+        for k in KERNELS:
+            launches[k] += counts[k]
+        runs[path] = run
+    host, cached = runs["host"], runs["cached"]
+    gap = abs(cached["epoch_losses"][0] - host["epoch_losses"][0]) / abs(host["epoch_losses"][0])
+    check(gap <= RESIDENT_LOSS_RTOL,
+          f"{name}: first epoch loss cached {cached['epoch_losses'][0]} vs host "
+          f"{host['epoch_losses'][0]} (rel {gap})")
+    record = {"rows": len(runs["workload"].train), "epochs": epochs, "steps": host["steps"],
+              "first_epoch_loss_rel_gap": gap, "launches": launches}
+    for path in ("host", "cached"):
+        record[path] = {k: runs[path][k] for k in ("steps_per_s", "peak_above_held_bytes",
+                                                   "epoch_losses", "wall_s", "launches")}
+    record["cached_over_host_steps_per_s"] = cached["steps_per_s"] / host["steps_per_s"]
+    return record, runs["workload"], launches
+
+
+def _check_epoch_batches(cache, loader, device):
+    """One epoch of ``cache``'s batches against the host loader's, bit for
+    bit: data, masks, weights, labels and the incomplete flag."""
+    from multivae_tpu_torch.data.batch import map_tensors
+    from multivae_tpu_torch.data.device_cache import upload_plan
+
+    def tensors(batch):
+        out = []
+        map_tensors(lambda t: out.append(t) or t, batch)
+        return out
+
+    idx, weights = upload_plan(loader, device)
+    n = 0
+    for i, host in enumerate(loader):
+        got, want = cache.gather(idx[i], weights[i]), host.to(device)
+        a, b = tensors(got), tensors(want)
+        check(got.incomplete == want.incomplete and len(a) == len(b)
+              and all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"cached batch {i} differs from the host loader's")
+        n += 1
+    check(n == len(loader), f"checked {n} of {len(loader)} batches")
+    return n
+
+
+def resident_data(mx, device="cuda", rows=RESIDENT_ROWS, small_rows=RESIDENT_SMALL_ROWS,
+                  eval_rows=RESIDENT_SMALL_ROWS):
+    """The ``resident_data`` phase: the device cache (``data/device_cache.py``)
+    against the host path (``data/prefetch.py`` and the native gather).
+
+    1. partial PolyMNIST's train split at ``rows`` rows (5 x 3x28x28
+       float32 and the MAR masks of ``tools/workloads._incomplete``): the
+       cache's build seconds and bytes, one epoch of its batches against
+       the host loader's bit for bit, a 256-row gather on the card against
+       the host gather plus a pageable copy and plus a pinned one, the
+       native gather against numpy's, and ``mvtcae_conv`` trained one epoch
+       through each path;
+    2. ``mvtcae_conv``, ``mmvaeplus_partial`` (the exact mixture launches)
+       and ``dmvae_mnist_svhn`` on ``small_rows`` rows, 2 epochs each way;
+    3. the coherences of the cached ``mvtcae_conv`` on ``eval_rows``
+       labelled rows, cached against host: equal metrics;
+    4. a GMM fitted on that ``mvtcae_conv``'s train set through the
+       trainer's cache (no second upload), its latents equal to the host
+       loop's.
+
+    Returns (record, mixture launches)."""
+    from multivae_tpu_torch.data import DataLoader, IncompleteDataset, batch_from_arrays
+    from multivae_tpu_torch.data import native_gather
+    from multivae_tpu_torch.data.device_cache import build_device_cache, cache_per_device_nbytes
+    from multivae_tpu_torch.metrics import CoherenceEvaluator, CoherenceEvaluatorConfig
+    from multivae_tpu_torch.ops import cuda_build
+    from multivae_tpu_torch.samplers import GaussianMixtureSampler, GaussianMixtureSamplerConfig
+    from multivae_tpu_torch.tools import workloads
+
+    start = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    launches = {k: 0 for k in KERNELS}
+    record = {"phase": "resident_data", "rows": rows, "cpu_count": os.cpu_count()}
+    try:
+        # 1. the full-size cache
+        t0 = time.perf_counter()
+        poly = {f"m{i}": workloads.POLYMNIST for i in range(5)}
+        data, masks = workloads._incomplete(np.random.default_rng(workloads.SEED), rows, poly)
+        ds = IncompleteDataset(data, masks)
+        record["make_data_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        cache = build_device_cache(ds, device, int(8e9))
+        torch.cuda.synchronize()
+        record["cache_build_s"] = time.perf_counter() - t0
+        check(cache is not None, "the full-size cache came back None")
+        record["cache_bytes"] = cache_per_device_nbytes(cache)
+        record["cache_allocated_bytes"] = torch.cuda.memory_allocated() - held
+        record["dataset_bytes"] = sum(v.nbytes for v in data.values())
+        loader = DataLoader(ds, workloads.BATCH["mvtcae_conv"], shuffle=True, seed=0)
+        t0 = time.perf_counter()
+        record["batches_checked"] = _check_epoch_batches(cache, loader, device)
+        record["batch_check_s"] = time.perf_counter() - t0
+
+        idx = np.random.default_rng(1).permutation(rows)[:GATHER_ROWS]
+        idx_dev = torch.from_numpy(idx.astype(np.int64)).to(device)
+        weights = torch.ones(GATHER_ROWS, device=device)
+
+        def host_batch():
+            raw = ds.get_batch(idx)
+            return batch_from_arrays(raw["data"], masks=raw["masks"])
+
+        gather = {"rows": GATHER_ROWS,
+                  "batch_bytes": GATHER_ROWS * sum(v[0].nbytes for v in data.values()),
+                  "card_ms": 1e3 * _median_s(lambda: cache.gather(idx_dev, weights)),
+                  "host_gather_ms": 1e3 * _median_s(host_batch),
+                  "host_gather_pageable_copy_ms": 1e3 * _median_s(
+                      lambda: host_batch().to(device, non_blocking=True))}
+        if torch.device(device).type == "cuda":
+            from multivae_tpu_torch.data.prefetch import _PinnedSlot
+
+            slot = _PinnedSlot()
+
+            def pinned():
+                staged = slot.stage(host_batch(), ())
+                moved = staged.to(device, non_blocking=True)
+                slot.copied = torch.cuda.Event()
+                slot.copied.record()
+                return moved
+
+            gather["host_gather_pinned_copy_ms"] = 1e3 * _median_s(pinned)
+        record["gather_256"] = gather
+        print(json.dumps({"phase": "resident_data", "step": "gather", **gather}))
+
+        check(native_gather.native_available(), "the native gather did not build")
+        src = data["m0"]
+        native = native_gather.gather_rows(src, idx)
+        check(np.array_equal(native, src[idx]), "native gather vs numpy")
+        record["native_gather_256"] = {
+            "modality_bytes": int(native.nbytes),
+            "native_ms": 1e3 * _median_s(lambda: native_gather.gather_rows(src, idx), 50),
+            "numpy_ms": 1e3 * _median_s(lambda: src[idx], 50),
+            "library": cuda_build.library_path("gather").name}
+        # the gather's time by thread count, at a batch and at a cache chunk
+        by_threads = {}
+        for n_rows in (GATHER_ROWS, 4096):
+            rows_idx = np.random.default_rng(2).permutation(rows)[:n_rows]
+            by_threads[n_rows] = {"numpy_ms": 1e3 * _median_s(lambda: src[rows_idx], 20)}
+            for n_threads in (1, 2, 4, 8):
+                by_threads[n_rows][f"threads_{n_threads}_ms"] = 1e3 * _median_s(
+                    lambda: native_gather.gather_rows(src, rows_idx, n_threads=n_threads), 20)
+        record["native_gather_by_threads"] = by_threads
+        del cache
+        t0 = time.perf_counter()
+        full, _, counts = _host_vs_cached(
+            mx, "mvtcae_conv", lambda: _resident_workload("mvtcae_conv", ds, device=device),
+            1, device)
+        check(not any(counts.values()), f"mvtcae_conv launched {counts}")
+        full["seconds"] = time.perf_counter() - t0
+        record["mvtcae_conv_full"] = full
+        print(json.dumps({"phase": "resident_data", "step": "mvtcae_conv_full", **full}))
+        del ds, data, masks
+
+        # 2. cached against host at the workloads' size
+        trained = {}
+        for name, per_step in (("mvtcae_conv", None),
+                               ("mmvaeplus_partial", {"fwd": 2, "bwd_dz": 1}),
+                               ("dmvae_mnist_svhn", None)):
+            t0 = time.perf_counter()
+            rec, trained[name], counts = _host_vs_cached(
+                mx, name, lambda name=name: workloads.build(name, n=small_rows, device=device),
+                2, device, per_step=per_step)
+            rec["seconds"] = time.perf_counter() - t0
+            for k in KERNELS:
+                launches[k] += counts[k]
+            if name != "mmvaeplus_partial":
+                check(not any(counts.values()), f"{name} launched {counts}")
+            record[name] = rec
+            print(json.dumps({"phase": "resident_data", "step": name, **rec}))
+
+        # 3. an evaluator cached against host
+        w = trained["mvtcae_conv"]
+        test = workloads.labelled_polymnist(eval_rows, 11)
+        clfs = random_classifiers(device)
+        coherence = {}
+        for cached in (False, True):
+            ev = CoherenceEvaluator(w.model, clfs, test, eval_config=CoherenceEvaluatorConfig(
+                batch_size=512, num_classes=10, cache_on_device=cached),
+                generator=torch.Generator(device=device).manual_seed(3))
+            check(type(ev.test_loader).__name__ == ("DeviceCachedLoader" if cached
+                                                    else "PrefetchLoader"),
+                  f"coherence loader {type(ev.test_loader).__name__}")
+            value, stats, counts = _measured(mx, ev.eval)
+            ev.finish()
+            coherence["cached" if cached else "host"] = dict(stats, metrics=dict(value))
+        check(coherence["cached"]["metrics"] == coherence["host"]["metrics"],
+              "coherences cached vs host differ")
+        record["coherence"] = {"rows": eval_rows, **{
+            k: {"seconds": v["seconds"], "peak_above_held_bytes": v["peak_above_held_bytes"]}
+            for k, v in coherence.items()},
+            "mean_coherence_1": coherence["cached"]["metrics"]["mean_coherence_1"]}
+
+        # 4. a sampler through the trainer's cache
+        ds = w.train
+        shared = getattr(ds, "_sampler_device_cache", None)
+        check(shared is not None, "the trainer left no cache on its train set")
+        sampler = GaussianMixtureSampler(w.model, GaussianMixtureSamplerConfig(n_components=2))
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        z, _ = sampler._collect_latents(ds, batch_size=256, device=True,
+                                        generator=torch.Generator(device=device).manual_seed(5))
+        torch.cuda.synchronize()
+        collect_s = time.perf_counter() - t0
+        grew = torch.cuda.memory_allocated() - before
+        check(ds._sampler_device_cache is shared, "the sampler built a cache of its own")
+        check(grew < cache_per_device_nbytes(shared) // 2,
+              f"device memory grew {grew} bytes: a second upload?")
+        t0 = time.perf_counter()
+        z_host, _ = sampler._collect_latents(
+            ds, batch_size=256, generator=torch.Generator(device=device).manual_seed(5))
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        check(torch.equal(z, z_host), "device-collected latents differ from the host loop's")
+        _, stats, counts = _measured(mx, lambda: sampler.fit(ds))
+        check(sampler.is_fitted and not any(counts.values()), f"the GMM fit launched {counts}")
+        record["sampler"] = {"rows": len(ds), "collect_device_s": collect_s,
+                             "collect_host_s": host_s, "memory_growth_bytes": grew,
+                             "shared_cache_bytes": cache_per_device_nbytes(shared),
+                             "gmm_fit": stats}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    record["seconds"] = time.perf_counter() - start
+    record["launches"] = launches
+    return record, launches
+
+
 def main():
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2203,8 +2511,10 @@ def main():
         t0 = time.perf_counter()
         reports = cuda_build.build()
         print(f"build: {time.perf_counter() - t0:.1f} s "
-              f"({', '.join(cuda_build.SOURCES)})")
+              f"({', '.join(cuda_build.SOURCES + cuda_build.HOST_SOURCES)})")
         for name, report in reports.items():
+            if name in cuda_build.HOST_SOURCES:
+                continue
             rows = ptxas_summary(report)
             spilling = [r for r in rows if r[2] or r[3]]
             print(f"  {name}: {len(rows)} kernel instances, {len(spilling)} "
@@ -2339,6 +2649,9 @@ def main():
         add(counts)
         del trained, moe, poe, joint, jnf, mhvae, nexus
         record, counts = datasets_phase(mx, random_records)
+        print(json.dumps(record))
+        add(counts)
+        record, counts = resident_data(mx)
         print(json.dumps(record))
         add(counts)
     except SmokeFailure as e:

@@ -78,16 +78,22 @@ class MultimodalBatch:
         return first_leaf(next(iter(self.data.values()))).shape[0]
 
     def to(self, device, non_blocking: bool = False) -> "MultimodalBatch":
-        def mv(t):
-            return None if t is None else t.to(device, non_blocking=non_blocking)
+        return map_tensors(lambda t: t.to(device, non_blocking=non_blocking), self)
 
-        return MultimodalBatch(
-            data={k: map_leaves(mv, v) for k, v in self.data.items()},
-            masks={k: mv(v) for k, v in self.masks.items()},
-            weights=mv(self.weights),
-            labels=mv(self.labels),
-            incomplete=self.incomplete,
-        )
+
+def map_tensors(fn, batch: MultimodalBatch, skip=()) -> MultimodalBatch:
+    """A batch with ``fn`` applied to each of its tensors, in a fixed order
+    (the data's, the masks', the weights, the labels), those of the fields
+    named in ``skip`` left as they are."""
+    def apply(field, value):
+        return value if field in skip or value is None else fn(value)
+
+    return MultimodalBatch(
+        data={k: map_leaves(lambda t: apply("data", t), v) for k, v in batch.data.items()},
+        masks={k: apply("masks", v) for k, v in batch.masks.items()},
+        weights=apply("weights", batch.weights),
+        labels=apply("labels", batch.labels),
+        incomplete=batch.incomplete)
 
 
 def batch_from_arrays(data: dict, masks: Optional[dict] = None, labels=None,

@@ -1,10 +1,12 @@
 """Multimodal dataset bases (numpy-backed, batch-gather oriented).
 
 Counterpart of ``multivae_tpu/data/datasets/base.py``: storage is host
-numpy and batches are gathered with one fancy-indexing call per modality
-(``get_batch``). ``IncompleteDataset`` keeps the reference convention:
-missing entries are zero-filled at the right shape and a boolean mask per
-modality carries availability. A modality may be a dict of arrays with a
+numpy and batches are gathered with one row gather per modality
+(``get_batch``): the threaded native gather (``data/native_gather.py``)
+for rows of 512 bytes or more, numpy's fancy indexing otherwise.
+``IncompleteDataset`` keeps the reference convention: missing entries are
+zero-filled at the right shape and a boolean mask per modality carries
+availability. A modality may be a dict of arrays with a
 common leading axis (CUB's ``{"tokens", "padding_mask"}`` text): its rows
 are taken from each array. ``ResampleDataset`` is an index view over
 another dataset, and ``random_split`` cuts a dataset into such views (the
@@ -13,6 +15,7 @@ case studies' 90/10 train/eval split).
 
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import numpy as np
@@ -37,8 +40,19 @@ def _length(value) -> int:
     return len(first_leaf(value))
 
 
+def _take_rows(v, index):
+    if (isinstance(v, np.ndarray) and isinstance(index, np.ndarray)
+            and index.ndim == 1 and v.ndim >= 2
+            and v.dtype.itemsize * math.prod(v.shape[1:]) >= 512):
+        # rows of 512 bytes or more: the threaded native gather
+        from ..native_gather import gather_rows
+
+        return gather_rows(v, index)
+    return v[index]
+
+
 def _take(value, index):
-    return map_leaves(lambda v: v[index], value)
+    return map_leaves(lambda v: _take_rows(v, index), value)
 
 
 class MultimodalBaseDataset:

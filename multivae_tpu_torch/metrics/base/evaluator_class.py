@@ -3,7 +3,12 @@
 file logger, the optional wandb run and the sampler check.
 
 The test loader keeps the order of the dataset and pads the last batch
-with rows of zero weight, which every evaluator leaves out. The
+with rows of zero weight, which every evaluator leaves out. With
+``cache_on_device`` (the default) it gathers the batches from a copy of
+the test set on the model's device (``DeviceCachedLoader``); otherwise, or
+where that cache falls back, a ``PrefetchLoader`` thread reads them from
+the host ahead of use. Either way a batch's data and masks are on the
+model's device and its weights and labels on the host. The
 evaluators' draws go through the model's ``draw_noise`` (and the other
 draw hooks), from ``generator`` when one is given.
 """
@@ -18,7 +23,9 @@ from typing import Optional
 
 import torch
 
+from ...data.device_cache import DeviceCachedLoader, build_device_cache
 from ...data.loader import DataLoader
+from ...data.prefetch import PrefetchLoader
 
 
 class Evaluator:
@@ -46,8 +53,14 @@ class Evaluator:
         self.test_dataset = test_dataset
         self.eval_config = eval_config
         self.generator = generator
-        self.test_loader = DataLoader(test_dataset, self.batch_size, shuffle=False,
-                                      drop_last=False)
+        loader = DataLoader(test_dataset, self.batch_size, shuffle=False, drop_last=False)
+        cache = None
+        if eval_config.cache_on_device:
+            cache = build_device_cache(test_dataset, model.device,
+                                       int(eval_config.device_cache_budget_gb * 1e9))
+        self.test_loader = (DeviceCachedLoader(loader, cache) if cache is not None else
+                            PrefetchLoader(loader, model.device, depth=2,
+                                           host_fields=("weights", "labels")))
         if output is not None:
             Path(output).mkdir(parents=True, exist_ok=True)
         self.output = output

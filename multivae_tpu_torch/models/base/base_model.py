@@ -13,10 +13,17 @@ the pickle, so load only folders you wrote.
 
 Every subclass registers itself by class name on definition
 (``get_model_class``, ``model_registry``), which ``AutoModel`` reads.
+
+``push_to_hf_hub`` uploads the saved files and a model card to a Hugging
+Face hub repo (creating it when the first commit fails), and
+``load_from_hf_hub`` reads them back; ``huggingface_hub`` is imported
+only there, and pickled custom architectures load only with
+``allow_pickle=True``.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import sys
 from typing import Dict, Optional, Type
@@ -26,6 +33,8 @@ from torch import nn
 
 from ...ops.gaussian import rsample_from_gaussian
 from ...utils.config import EnvironmentConfig, get_config_class
+
+logger = logging.getLogger(__name__)
 
 _MODEL_REGISTRY: Dict[str, Type["BaseModel"]] = {}
 
@@ -112,6 +121,106 @@ class BaseModel(nn.Module):
     @classmethod
     def config_class(cls):
         return get_config_class(cls.__name__ + "Config")
+
+    # ------------------------------------------------------- HF hub (opt.)
+    MODEL_CARD_TEMPLATE = """---
+language: en
+tags:
+- multivae_tpu_torch
+license: apache-2.0
+---
+
+### Downloading this model from the Hub
+This model was trained with multivae_tpu_torch. It can be downloaded or
+reloaded using the method `load_from_hf_hub`
+```python
+>>> from multivae_tpu_torch.models import AutoModel
+>>> model = AutoModel.load_from_hf_hub(hf_hub_path="your_hf_username/repo_name")
+```
+"""
+
+    @staticmethod
+    def _hf_hub_is_available() -> bool:
+        import importlib.util
+
+        return importlib.util.find_spec("huggingface_hub") is not None
+
+    def push_to_hf_hub(self, hf_hub_path: str):
+        """Upload the saved model (``model_config.json``, ``model.pt``, a
+        ``<group>.pkl`` per custom architecture, ``environment.json``) and a
+        model card as ``README.md`` to the hub repo ``hf_hub_path``, which is
+        created when the first commit fails. Needs ``huggingface_hub`` and
+        a logged-in account."""
+        if not self._hf_hub_is_available():
+            raise ModuleNotFoundError(
+                "`huggingface_hub` package must be installed to push your model to "
+                "the HF hub. Run `python -m pip install huggingface_hub` and log in "
+                "with `huggingface-cli login`.")
+        import shutil
+        import tempfile
+
+        from huggingface_hub import CommitOperationAdd, HfApi
+
+        logger.info("Uploading %s model to %s repo in HF hub...", self.model_name,
+                    hf_hub_path)
+        tempdir = tempfile.mkdtemp()
+        try:
+            self.save(tempdir)
+            operations = [CommitOperationAdd(path_in_repo=f,
+                                             path_or_fileobj=os.path.join(tempdir, f))
+                          for f in os.listdir(tempdir)]
+            card = os.path.join(tempdir, "model_card.md")
+            with open(card, "w") as f:
+                f.write(self.MODEL_CARD_TEMPLATE)
+            operations.append(CommitOperationAdd(path_in_repo="README.md",
+                                                 path_or_fileobj=card))
+            api = HfApi()
+            message = f"Uploading {self.model_name} in {hf_hub_path}"
+            try:
+                api.create_commit(commit_message=message, repo_id=hf_hub_path,
+                                  operations=operations)
+            except Exception:
+                from huggingface_hub import create_repo
+
+                repo_name = os.path.basename(os.path.normpath(hf_hub_path))
+                logger.info("Creating %s in the HF hub since it does not exist...",
+                            repo_name)
+                create_repo(repo_id=repo_name)
+                api.create_commit(commit_message=message, repo_id=hf_hub_path,
+                                  operations=operations)
+        finally:
+            shutil.rmtree(tempdir)
+
+    @classmethod
+    def load_from_hf_hub(cls, hf_hub_path: str, allow_pickle: bool = False,
+                         device="cuda") -> "BaseModel":
+        """Download a model pushed with ``push_to_hf_hub`` and load it onto
+        ``device``. Pickled custom architectures run code when loaded: they
+        are refused unless ``allow_pickle=True``."""
+        if not cls._hf_hub_is_available():
+            raise ModuleNotFoundError(
+                "`huggingface_hub` package must be installed to load models from "
+                "the HF hub. Run `python -m pip install huggingface_hub`.")
+        import json
+        import tempfile
+
+        from huggingface_hub import hf_hub_download
+
+        logger.info("Downloading %s files for rebuilding...", hf_hub_path)
+        tempdir = tempfile.mkdtemp()
+        config_path = hf_hub_download(repo_id=hf_hub_path, filename="model_config.json",
+                                      local_dir=tempdir)
+        with open(config_path) as f:
+            custom = json.load(f).get("custom_architectures", [])
+        if custom and not allow_pickle:
+            raise RuntimeError(
+                "The model on the hub contains pickled custom architectures. Loading "
+                "them executes arbitrary code; pass allow_pickle=True only if you "
+                "trust the source.")
+        hf_hub_download(repo_id=hf_hub_path, filename="model.pt", local_dir=tempdir)
+        for arch in sorted(set(custom)):
+            hf_hub_download(repo_id=hf_hub_path, filename=f"{arch}.pkl", local_dir=tempdir)
+        return cls.load_from_folder(os.path.dirname(config_path), device=device)
 
     @classmethod
     def load_from_folder(cls, dir_path: str, device="cuda") -> "BaseModel":

@@ -53,7 +53,8 @@ class GaussianMixtureSampler(BaseSampler):
 
     def fit(self, train_data, **kwargs):
         """Encode the train set and fit a GMM per latent space."""
-        z, mod_z = self._collect_latents(train_data)
+        # the torch fit takes the latents where they are: collect them on the device
+        z, mod_z = self._collect_latents(train_data, device=self.fit_backend == "torch")
         if self.n_components > z.shape[0]:
             self.n_components = z.shape[0]
             logger.warning("Setting the number of components to %d since n_components "

@@ -96,7 +96,7 @@ class MAFSampler(BaseSampler):
             learning_rate: float = 1e-3, seed: int = 0, **kwargs):
         """Encode the train set, draw the flows' weights from ``seed`` and
         fit one flow per latent space."""
-        z, mod_z = self._collect_latents(train_data, batch_size=batch_size)
+        z, mod_z = self._collect_latents(train_data, batch_size=batch_size, device=True)
         latents = {"shared": z, **(mod_z or {})}
         generator = torch.Generator().manual_seed(seed)
         for flow in self.flows_models.cpu().values():

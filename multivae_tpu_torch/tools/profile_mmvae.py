@@ -18,10 +18,13 @@ epoch with ``torch.profiler`` and prints:
 - device time by kernel class (mixture kernels, convolutions, matmul,
   optimizer, reductions, the rest) and the top kernels by device time.
 
+``--cache`` trains with ``cache_on_device`` (the batches gathered from the
+dataset on the card) instead of the host path.
+
 Run from the root of a checkout:
 
     python3 -m multivae_tpu_torch.tools.profile_mmvae [--steps 8] [--model mvtcae_conv]
-        [--stage 2]
+        [--stage 2] [--cache]
 """
 
 from __future__ import annotations
@@ -73,6 +76,8 @@ def main():
     parser.add_argument("--model", choices=workloads.NAMES, default="mmvae")
     parser.add_argument("--stage", type=int, default=1,
                         help="the stage of a two-stage model (telbo_conv, jnf_conv)")
+    parser.add_argument("--cache", action="store_true",
+                        help="train with cache_on_device (the data on the card)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_mmvae needs a CUDA device")
@@ -85,7 +90,7 @@ def main():
     trainer = (w.trainer_cls or BaseTrainer)(
         w.model, w.train, training_config=BaseTrainerConfig(
             output_dir=os.path.join("build", "profile_mmvae"), num_epochs=2,
-            **w.trainer_kwargs))
+            cache_on_device=args.cache, **w.trainer_kwargs))
     if hasattr(w.model, "set_stage"):
         w.model.set_stage(args.stage)
     trainer.train_step(1)  # warm-up: kernel builds, cuBLAS heuristics, allocator
@@ -111,6 +116,7 @@ def main():
         "device": torch.cuda.get_device_name(0),
         **({} if args.model == "mmvae" else {"model": args.model}),
         **({"stage": args.stage} if hasattr(w.model, "set_stage") else {}),
+        "data": "device cache" if trainer._train_cache is not None else "host",
         "steps": args.steps,
         "wall_ms_per_step": wall_us / args.steps / 1e3,
         "device_busy_ms_per_step": busy_us / args.steps / 1e3,

@@ -34,10 +34,22 @@ where it writes msgpack, and the generator's state where it re-derives
 its noise from the step count. A trainer built with ``checkpoint=`` goes
 on from epoch N + 1 as the uninterrupted run would.
 
-The JAX trainer's fused epoch blocks, device cache, prefetch, pipelined
-finalization, sharded (orbax) checkpoints and bfloat16 mode exist to
-amortize TPU launch costs or to spread over a TPU mesh and are not part of
-the port. ``history`` holds each epoch's logged metrics.
+Batches reach the device in one of two ways. With ``cache_on_device``
+the train and eval sets are uploaded at construction
+(``data/device_cache.py``; the eval set gets what the train set leaves
+of the budget), each epoch uploads its index plan, and each step gathers
+its rows on the device; the train cache is also left on
+``train_dataset._sampler_device_cache`` for the samplers' fit. Otherwise
+(or where a cache falls back) a ``PrefetchLoader`` thread gathers the next
+batches on the host and copies them ahead of the step. Both give the host
+loader's batches, bit for bit. ``train(log_output_dir=...)`` also writes
+the training parameters and each checkpoint's line to
+``training_logs_<training dir>.log`` there.
+
+The JAX trainer's fused epoch blocks, pipelined finalization, sharded
+(orbax) checkpoints and bfloat16 mode exist to amortize TPU launch costs
+or to spread over a TPU mesh and are not part of the port. ``history``
+holds each epoch's logged metrics.
 """
 
 from __future__ import annotations
@@ -55,7 +67,9 @@ import numpy as np
 import torch
 
 from ...data.batch import batch_from_arrays
+from ...data.device_cache import build_device_cache, cache_per_device_nbytes, upload_plan
 from ...data.loader import DataLoader
+from ...data.prefetch import PrefetchLoader
 from ...data.utils import adapt_shape, grid_to_image, make_grid, write_png
 from ...models.base.base_ae_model import BaseMultiVAE
 from ...models.base.base_model import BaseModel
@@ -145,6 +159,28 @@ class BaseTrainer:
         self._best_state = None
         self.start_keep_best_epoch = getattr(model, "start_keep_best_epoch", 0)
         self.history = []
+        self._file_logger = None
+
+        self._train_cache = self._eval_cache = None
+        if cfg.cache_on_device:
+            budget = int(cfg.device_cache_budget_gb * 1e9)
+            layout = cfg.device_cache_layout
+            self._train_cache = build_device_cache(train_dataset, self.device, budget,
+                                                   layout=layout)
+            if self._train_cache is not None:
+                # a sampler fitted on this dataset reuses the upload
+                train_dataset._sampler_device_cache = self._train_cache
+            if eval_dataset is not None:
+                # the eval set has a budget of its own: what the train cache
+                # leaves, all of it when the train set fell back
+                used = (0 if self._train_cache is None
+                        else cache_per_device_nbytes(self._train_cache))
+                self._eval_cache = build_device_cache(eval_dataset, self.device,
+                                                      max(budget - used, 0), layout=layout)
+        self._prefetch = {
+            "train": PrefetchLoader(self.train_loader, self.device, depth=2),
+            "eval": (PrefetchLoader(self.eval_loader, self.device, depth=2)
+                     if self.eval_loader is not None else None)}
 
         self._run_model_sanity_check()
 
@@ -199,14 +235,25 @@ class BaseTrainer:
         return best_train_loss, best_eval_loss
 
     # ------------------------------------------------------------- stepping
+    def _epoch_batches(self, which: str):
+        """The epoch's batches on the device: gathered from the device cache
+        by the uploaded plan, or prefetched from the host loader."""
+        cache = self._train_cache if which == "train" else self._eval_cache
+        if cache is None:
+            yield from self._prefetch[which]
+            return
+        loader = self.train_loader if which == "train" else self.eval_loader
+        idx, weights = upload_plan(loader, self.device)
+        for i in range(len(idx)):
+            yield cache.gather(idx[i], weights[i])
+
     def _run_epoch(self, loader, epoch: int, generator, train: bool):
         n_batches = len(loader)
         dataset_size = len(loader.dataset)
         n_micro = self.training_config.microbatch_steps
         loss_sum = torch.zeros((), device=self.device)
         metric_sums = {}
-        for batch_idx, batch in enumerate(loader):
-            batch = batch.to(self.device, non_blocking=True)
+        for batch_idx, batch in enumerate(self._epoch_batches("train" if train else "eval")):
             # the eval pass leaves batch_ratio at 0, as the JAX trainer does
             info = StepInfo(epoch=epoch, batch_ratio=batch_idx / n_batches if train else 0.0,
                             dataset_size=dataset_size)
@@ -301,35 +348,67 @@ class BaseTrainer:
         if cfg.steps_saving is not None and epoch % cfg.steps_saving == 0:
             self.save_checkpoint(dir_path=self.training_dir, epoch=epoch)
             logger.info("Saved checkpoint at epoch %s", epoch)
+            if self._file_logger is not None:
+                self._file_logger.info(f"Saved checkpoint at epoch {epoch}\n")
 
         self.callback_handler.on_log(cfg, metrics, logger=logger, global_step=epoch)
         self.history.append(metrics)
 
-    def train(self):
+    def train(self, log_output_dir: Optional[str] = None):
         """Main training loop, from epoch ``trained_epochs + 1`` (0 unless
-        resumed)."""
+        resumed). With ``log_output_dir``, the training parameters and each
+        checkpoint's line also go to
+        ``<log_output_dir>/training_logs_<training dir name>.log``."""
         cfg = self.training_config
         self.callback_handler.on_train_begin(cfg, model_config=self.model_config)
-        logger.info("Training on %s: %d epochs, batch %d, checkpoint every %s, %s "
-                    "(lr=%g), scheduler %s", self.device, cfg.num_epochs,
-                    cfg.per_device_train_batch_size, cfg.steps_saving,
-                    cfg.optimizer_cls, cfg.learning_rate, cfg.scheduler_cls)
-        for epoch in range(self.trained_epochs + 1, cfg.num_epochs + 1):
-            self.callback_handler.on_epoch_begin(
-                cfg, epoch=epoch, train_loader=self.train_loader,
-                eval_loader=self.eval_loader)
-            self.best_train_loss, self.best_eval_loss = self.prepare_train_step(
-                epoch, self.best_train_loss, self.best_eval_loss)
-            train_loss, train_metrics = self.train_step(epoch)
-            eval_loss = eval_metrics = None
-            if self.eval_dataset is not None:
-                eval_loss, eval_metrics = self.eval_step(epoch)
-            self._finalize_epoch(epoch, train_loss, train_metrics, eval_loss,
-                                 eval_metrics)
+        msg = (
+            f"Training params:\n - max_epochs: {cfg.num_epochs}\n"
+            f" - per_device_train_batch_size: {cfg.per_device_train_batch_size}\n"
+            f" - per_device_eval_batch_size: {cfg.per_device_eval_batch_size}\n"
+            f" - checkpoint saving every: {cfg.steps_saving}\n"
+            f" - device: {self.device}\n"
+            f"Optimizer: {cfg.optimizer_cls} (lr={cfg.learning_rate})\n"
+            f"Scheduler: {cfg.scheduler_cls}\n"
+        )
+        logger.info(msg)
+        if log_output_dir is not None:
+            self._file_logger, handler = self._get_file_logger(log_output_dir)
+            self._file_logger.info(msg)
+        logger.info("Successfully launched training !\n")
+        try:
+            for epoch in range(self.trained_epochs + 1, cfg.num_epochs + 1):
+                self.callback_handler.on_epoch_begin(
+                    cfg, epoch=epoch, train_loader=self.train_loader,
+                    eval_loader=self.eval_loader)
+                self.best_train_loss, self.best_eval_loss = self.prepare_train_step(
+                    epoch, self.best_train_loss, self.best_eval_loss)
+                train_loss, train_metrics = self.train_step(epoch)
+                eval_loss = eval_metrics = None
+                if self.eval_dataset is not None:
+                    eval_loss, eval_metrics = self.eval_step(epoch)
+                self._finalize_epoch(epoch, train_loss, train_metrics, eval_loss,
+                                     eval_metrics)
+        finally:
+            if self._file_logger is not None:
+                # another trainer of this process must not write to this file
+                self._file_logger.removeHandler(handler)
+                handler.close()
+                self._file_logger = None
         final_dir = os.path.join(self.training_dir, "final_model")
         self.save_model(final_dir)
         logger.info("Training ended! Saved final model in %s", final_dir)
         self.callback_handler.on_train_end(cfg)
+
+    def _get_file_logger(self, log_output_dir: str):
+        """(the logger of ``training_logs_<training dir name>.log`` in
+        ``log_output_dir``, its file handler)."""
+        os.makedirs(log_output_dir, exist_ok=True)
+        log_name = f"training_logs_{os.path.basename(self.training_dir)}"
+        file_logger = logging.getLogger(log_name)
+        file_logger.setLevel(logging.INFO)
+        handler = logging.FileHandler(os.path.join(log_output_dir, f"{log_name}.log"))
+        file_logger.addHandler(handler)
+        return file_logger, handler
 
     # ---------------------------------------------------------- kept weights
     def _restore_best(self):

@@ -2,10 +2,11 @@
 ``multivae_tpu/trainers/base/base_trainer_config.py``).
 
 Keeps the JAX package's field names for the options the port's
-synchronous loop implements. The TPU-only fields (meshes, FSDP, device
-caches, fused epoch blocks, pipelining, orbax) are not part of the port; a
-``training_config.json`` holding them does not load here.
-Optimizer and scheduler specs are validated eagerly.
+synchronous loop implements, the device cache's three among them. The
+other TPU-only fields (meshes, FSDP, fused epoch blocks and
+``steps_per_execution``, pipelining, orbax checkpoints, bfloat16) are not
+part of the port; a ``training_config.json`` holding them does not load
+here. Optimizer and scheduler specs are validated eagerly.
 """
 
 from __future__ import annotations
@@ -48,6 +49,15 @@ class BaseTrainerConfig(BaseConfig):
             objectives that are sums over the rows (the model declares
             ``loss_is_sum = True``: MMVAE, MMVAE+, CMVAE); each chunk draws
             its own noise, in chunk order. 1 (default) is off.
+        cache_on_device: upload the train and eval sets to the device once
+            (``data/device_cache.py``) and gather each batch there; the
+            batches are bit-identical to the host loader's. A set that does
+            not fit ``device_cache_budget_gb`` (the eval set: what the
+            train set leaves of it) or cannot be indexed in bulk is read
+            from the host, with a warning.
+        device_cache_budget_gb: device memory the caches may take.
+        device_cache_layout: "auto", "replicated" or "sharded" (all keep
+            the whole set on the one device).
     """
 
     output_dir: Optional[str] = None
@@ -65,12 +75,20 @@ class BaseTrainerConfig(BaseConfig):
     seed: int = 8
     drop_last: bool = False
     microbatch_steps: int = 1
+    cache_on_device: bool = False
+    device_cache_budget_gb: float = 8.0
+    device_cache_layout: str = "auto"
 
     def __post_init__(self):
         if self.microbatch_steps < 1:
             raise AttributeError(
                 "microbatch_steps must be a positive integer, got "
                 f"{self.microbatch_steps}."
+            )
+        if self.device_cache_layout not in ("auto", "replicated", "sharded"):
+            raise AttributeError(
+                "device_cache_layout must be 'auto', 'replicated' or "
+                f"'sharded', got {self.device_cache_layout!r}."
             )
         check_specs(self.optimizer_cls, self.learning_rate,
                     self.optimizer_params, self.scheduler_cls,
