@@ -217,7 +217,34 @@ Phases (any failure exits non-zero and prints no result line):
     metrics); a GMM fitted through the trainer's cache, whose collected
     latents equal the host loop's, with no second upload (device memory
     grows by the latents only);
-23. the seconds the whole run took, a ``kernels`` JSON line (launches
+23. ``graphed_steps``: ``steps_per_execution`` as CUDA graphs, under
+    cuDNN's deterministic algorithms: ``mmvaeplus_partial`` (1,024 rows;
+    the mixture kernels inside the graphs), ``mvtcae_conv``,
+    ``dmvae_mnist_svhn``, ``mvae_conv`` (the warm-up from ``batch_ratio``,
+    the random subsets; 2,048 rows each) and ``telbo_conv`` (4,096 rows;
+    the optimizer reset and the stage flip drop the graphs; 4 epochs, so
+    that stage 2 replays), each on its cached rows for 3 epochs: eager,
+    with ``steps_per_execution`` 8, and with the epoch's batch count and
+    ``pipeline_epochs``; beside them the eager run with the capturable
+    optimizer the graphs use, the eager run with cuDNN free (the card's
+    own spread) and the 8-step run resumed from its checkpoint of the
+    epoch before the last. Each graphed run must replay train and eval
+    graphs and equal the capturable eager run within ``GRAPHED_RTOL`` on
+    every epoch's train and eval loss and on the weights' moves, as must
+    the resume the uninterrupted graphed run; every run's losses and moves
+    lie within ten times the spread of the plain eager run's (no tighter
+    than the resume gates), and the mixture launches are their count a
+    step on every train and eval step. One replay of ``mmvaeplus_partial``'s
+    8-step graph under torch.profiler must launch the mixture kernels the
+    counters add for it. ``dmvae_mnist_svhn`` (the one workload the
+    pipelined finalization takes) then runs 12 epochs under a StepLR,
+    keeping the best weights on the train loss, whole-epoch graphs with
+    ``pipeline_epochs`` off, on, off, on, each within ``GRAPHED_RTOL`` of
+    the capturable eager run, its kept weights too; their walls and peaks
+    are printed. Steps/s over the steady epochs come from CUDA events
+    at each train pass's start and after its last step; capture seconds and
+    the growth of reserved memory (the graphs' pools);
+24. the seconds the whole run took, a ``kernels`` JSON line (launches
     summed over every training and inference phase that runs the kernels),
     then the last line
     ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -2486,6 +2513,379 @@ def resident_data(mx, device="cuda", rows=RESIDENT_ROWS, small_rows=RESIDENT_SMA
     return record, launches
 
 
+
+GRAPHED_ROWS = 2048
+GRAPHED_EPOCHS = 3
+GRAPHED_CHUNK = 8
+# The graphed runs against the eager run with the capturable optimizer the
+# graphs use: the same steps on the same draws, batches and arithmetic,
+# each epoch's train and eval loss and the weights' moves over the run
+# (equal in earlier runs of this phase). Against the plain eager run the
+# capturable optimizer's bias corrections, in float32 on the card where
+# the eager one takes them in float64 on the host, move the weights by an
+# ulp a step, which the later gates below allow for.
+GRAPHED_RTOL = 1e-6
+# The later epochs and the weights' moves over the run against the eager
+# run's: within ten times the card's own spread (the eager run again with
+# cuDNN free to pick nondeterministic algorithms), and never tighter than
+# the resume gates RESUME_RTOL and RESUME_MOVE_RTOL, which an MLP-only
+# workload, deterministic either way, would otherwise set to 0.
+GRAPHED_SPREAD_FACTOR = 10.0
+# (workload, rows, mixture launches a train step, epochs). MMVAE+ (batch
+# 32) on 1,024 rows: 32 steps an epoch, as its whole-epoch graph's capture
+# takes ~0.2 s a step; TELBO takes 16 steps an epoch, so that graphs are
+# captured within each stage around its reset, and a fourth epoch: its
+# reset (epoch 2) and stage flip (3) drop the graphs, so the whole-epoch
+# run replays only in epoch 4
+GRAPHED_WORKLOADS = (("mmvaeplus_partial", GRAPHED_ROWS // 2, {"fwd": 2, "bwd_dz": 1},
+                      GRAPHED_EPOCHS),
+                     ("mvtcae_conv", GRAPHED_ROWS, None, GRAPHED_EPOCHS),
+                     ("dmvae_mnist_svhn", GRAPHED_ROWS, None, GRAPHED_EPOCHS),
+                     ("mvae_conv", GRAPHED_ROWS, None, GRAPHED_EPOCHS),
+                     ("telbo_conv", 2 * GRAPHED_ROWS, None, GRAPHED_EPOCHS + 1))
+# The pipelined finalization on and off: dmvae_mnist_svhn (no
+# ReduceLROnPlateau, no eval set) for 12 epochs of whole-epoch graphs under
+# a StepLR that halves the rate every 4 epochs, so that two rate changes
+# must reach the replayed graphs, keeping the best weights on the train
+# loss, so that the pipelined window's candidate copy is made on the card
+PIPELINE_WORKLOAD = "dmvae_mnist_svhn"
+PIPELINE_EPOCHS = 12
+PIPELINE_SETTINGS = dict(scheduler_cls="StepLR", scheduler_params={"step_size": 4, "gamma": 0.5},
+                         keep_best_on_train=True)
+
+
+def _graphed_run(mx, name, rows, epochs, device, steps, pipeline, out, checkpoint=None,
+                 steps_saving=None, capturable=False, overrides=None):
+    """``name`` of ``tools/workloads.py`` on ``rows`` cached rows (seeded
+    weights and data), trained ``epochs`` epochs with ``steps_per_execution``
+    = ``steps`` (0: the epoch's batch count), its optimizer made
+    ``capturable`` on request, ``overrides`` of its trainer settings.
+    Returns (record, trainer, the live weights
+    before training, the final ones). The train steps' span
+    of each epoch comes from CUDA events at the start of its train pass and
+    after its last step (replay): the optimizer's step hook would fire only
+    at a capture."""
+    from multivae_tpu_torch.tools import workloads
+    from multivae_tpu_torch.trainers import BaseTrainer, BaseTrainerConfig
+    from multivae_tpu_torch.trainers.base.callbacks import TrainingCallback
+
+    class Spans(TrainingCallback):
+        def __init__(self):
+            self.spans, self.count, self.start = [], 0, None
+
+        def graph_state(self):
+            return (self.graphs.captures, self.graphs.warm)
+
+        def on_train_step_begin(self, training_config, **kwargs):
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.start.record()
+            self.count = 0
+            self.state = self.graph_state()
+
+        def on_train_step_end(self, training_config, **kwargs):
+            self.count += 1
+            if self.count == self.n_batches:
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+                # steady: no capture and no eager warm-up chunk in the span
+                steady = self.graph_state() == self.state and (
+                    self.state[1] or training_config.steps_per_execution == 1)
+                self.spans.append((self.start, end, steady))
+
+    w = workloads.build(name, n=rows, device=device)
+    spans = Spans()
+    spans.graphs = None
+    n_batches = -(-rows // w.trainer_kwargs["per_device_train_batch_size"])
+    spans.n_batches = n_batches
+    cfg = BaseTrainerConfig(output_dir=out, num_epochs=epochs, seed=0, cache_on_device=True,
+                            steps_per_execution=steps or n_batches, pipeline_epochs=pipeline,
+                            steps_saving=steps_saving,
+                            **{**w.trainer_kwargs, **(overrides or {})})
+    trainer = (w.trainer_cls or BaseTrainer)(w.model, w.train, w.eval, training_config=cfg,
+                                             callbacks=[spans], checkpoint=checkpoint,
+                                             device=device)
+    check(trainer._train_cache is not None and (w.eval is None or trainer._eval_cache is not None),
+          f"{name}: a cache came back None")
+    spans.graphs = trainer._graphs["train"]
+    if capturable and torch.device(device).type == "cuda":
+        from multivae_tpu_torch.trainers.base.optim import make_capturable
+
+        build = trainer._build_optimizer
+
+        def build_capturable():   # a MultistageTrainer's reset builds anew
+            build()
+            make_capturable(trainer.optimizer)
+
+        trainer._build_optimizer = build_capturable
+        make_capturable(trainer.optimizer)
+    start = {k: v.detach().clone() for k, v in w.model.state_dict().items()}
+    trainer_start = len(trainer.history)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved, held = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mx.reset_launches()   # the sanity check's forward at construction stays out
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    ms = [a.elapsed_time(b) for a, b, _ in spans.spans]
+    # the first epoch holds the cuDNN and allocator warm-up; a graphed epoch
+    # with a capture or an eager chunk is no steady state either
+    steady = [t for i, (t, (_, _, ok)) in enumerate(zip(ms, spans.spans)) if i and ok]
+    graphs = trainer._graphs
+    record = {
+        "steps_per_execution": cfg.steps_per_execution, "pipeline_epochs": pipeline,
+        "pipelined": trainer._pipeline_epochs_eligible(),
+        "cudnn_deterministic": torch.backends.cudnn.deterministic,
+        "n_batches": n_batches, "epochs_run": len(trainer.history) - trainer_start,
+        "eval_batches": 0 if w.eval is None else len(trainer.eval_loader),
+        "epoch_losses": [h["train_epoch_loss"] for h in trainer.history],
+        "eval_losses": [h["eval_epoch_loss"] for h in trainer.history if "eval_epoch_loss" in h],
+        "train_span_ms": ms, "steady_epochs": len(steady),
+        "steps_per_s": (len(steady) * n_batches / (sum(steady) / 1e3)) if steady else None,
+        "wall_s": wall_s, "launches": dict(mx.launches),
+        "captures": {k: g.captures for k, g in graphs.items()},
+        "replays": {k: g.replays for k, g in graphs.items()},
+        "capture_s": sum(g.capture_s for g in graphs.values()),
+        "reserved_growth_bytes": torch.cuda.memory_reserved() - reserved,
+        "peak_above_held_bytes": torch.cuda.max_memory_allocated() - held}
+    check(all(np.isfinite(record["epoch_losses"])), f"{name}: non-finite losses {record}")
+    end = {k: v.detach().clone() for k, v in w.model.state_dict().items()}
+    return record, trainer, start, end
+
+
+def _move_gap(start, ours, ref):
+    """The weights' moves from ``start`` to ``ours`` against those to
+    ``ref``: their difference's norm over the reference move's, over every
+    floating tensor."""
+    num = den = 0.0
+    for k, s in start.items():
+        if not s.is_floating_point():
+            continue
+        move = (ref[k] - s).double()
+        num += float((ours[k] - s - move).double().norm()) ** 2
+        den += float(move.norm()) ** 2
+    return (num / den) ** 0.5 if den else 0.0
+
+
+def _replayed_kernels(trainer, n):
+    """(the mixture kernels one replay of ``trainer``'s ``n``-step train
+    graph launches, as torch.profiler sees them, by the kernel's mode; the
+    launches the counters add for each replay of that graph). The replay
+    goes to the graph itself, so the counters do not move."""
+    from torch.profiler import ProfilerActivity, profile
+
+    (graph, captured), = [v for k, v in trainer._graphs["train"].graphs.items() if k[0] == n]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    modes = {"0": "fwd", "1": "bwd_dz", "2": "bwd"}   # csrc/mixture.cu's Mode
+    seen = {k: 0 for k in KERNELS}
+    for e in prof.events():
+        found = (e.device_type == torch.autograd.DeviceType.CUDA
+                 and re.search(r"mixture_kernel<([^>]*)>", e.name))
+        if found:
+            seen[modes[found.group(1).split(",")[3].strip()]] += 1
+    return seen, {k: captured.get(k, 0) for k in KERNELS}
+
+
+def _loss_gaps(run, ref, start, ours_end, ref_end):
+    """``run``'s train losses (first epoch, later ones), eval losses and
+    weights' moves from ``start`` against ``ref``'s: relative gaps."""
+    check(len(run["epoch_losses"]) == len(ref["epoch_losses"])
+          and len(run["eval_losses"]) == len(ref["eval_losses"]),
+          f"runs of unequal length: {run['epoch_losses']} {ref['epoch_losses']}")
+    train = [_rel(a, b) for a, b in zip(run["epoch_losses"], ref["epoch_losses"])]
+    return {"first_epoch_rel_gap": train[0], "later_epochs_rel_gap": max(train[1:], default=0.0),
+            "eval_epochs_rel_gap": max((_rel(a, b) for a, b in zip(
+                run["eval_losses"], ref["eval_losses"])), default=0.0),
+            "move_rel_gap": _move_gap(start, ours_end, ref_end)}
+
+
+def _tight(gaps):
+    return max(gaps.values()) <= GRAPHED_RTOL
+
+
+def graphed_steps(mx, device="cuda", workloads_=GRAPHED_WORKLOADS, chunk=GRAPHED_CHUNK):
+    """The ``graphed_steps`` phase: each workload on its cached rows for its
+    epochs, under cuDNN's deterministic algorithms, eager
+    (``steps_per_execution=1``, ``pipeline_epochs=False``), then as CUDA
+    graphs of ``chunk`` steps, then of the epoch's batch count with
+    ``pipeline_epochs=True``. Beside them: the eager run with the
+    capturable optimizer the graphs use (the graphs' arithmetic without
+    the graphs), which every graphed run must equal, the eager run with
+    cuDNN free (the card's own spread) and, from the ``chunk`` run's
+    checkpoint of the epoch before its last, a resumed graphed run. Then
+    the pipelined finalization off and on under a StepLR. Every run's
+    record is printed before the checks. Returns (record, mixture
+    launches)."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    out = os.path.join(ROOT, "build", "chip_smoke", "graphed")
+    shutil.rmtree(out, ignore_errors=True)
+    deterministic = torch.backends.cudnn.deterministic
+    launches = {k: 0 for k in KERNELS}
+    record = {"phase": "graphed_steps", "chunk": chunk}
+    graphed = (f"graphed_{chunk}", "graphed_epoch")
+    cuda = torch.device(device).type == "cuda"
+    try:
+        for name, rows, per_step, epochs in workloads_:
+            t0 = time.perf_counter()
+            runs, weights = {}, {}
+            # label: steps a chunk (0: the epoch), pipelined, deterministic
+            # cuDNN, checkpoint epoch, capturable optimizer at N = 1
+            for label, steps, pipeline, det, saving, capturable in (
+                    ("eager", 1, False, True, None, False),
+                    ("eager_capturable", 1, False, True, None, True),
+                    ("eager_nondeterministic", 1, False, False, None, False),
+                    (graphed[0], chunk, False, True, epochs - 1, False),
+                    (graphed[1], 0, True, True, None, False)):
+                torch.backends.cudnn.deterministic = det
+                run, trainer, start, end = _graphed_run(
+                    mx, name, rows, epochs, device, steps, pipeline,
+                    os.path.join(out, name, label), steps_saving=saving,
+                    capturable=capturable)
+                runs[label], weights[label] = run, (start, end)
+                if saving:
+                    ckpt = os.path.join(trainer.training_dir, f"checkpoint_epoch_{epochs - 1}")
+                if label == graphed[0] and per_step and cuda:
+                    run["replayed_kernels"], run["counted_a_replay"] = _replayed_kernels(
+                        trainer, chunk)
+                del trainer
+            # the graphed run resumed from its checkpoint: the last epoch again
+            torch.backends.cudnn.deterministic = True
+            runs["resumed"], _, _, resumed_end = _graphed_run(
+                mx, name, rows, epochs, device, chunk, False,
+                os.path.join(out, name, "resumed"), checkpoint=ckpt)
+            ckpt_live = torch.load(os.path.join(ckpt, "live_params.pt"), map_location=device,
+                                   weights_only=True)
+            for run in runs.values():
+                for k in KERNELS:
+                    launches[k] += run["launches"][k]
+
+            eager = runs["eager"]
+            start = weights["eager"][0]
+
+            def gaps(label, ref="eager"):
+                return _loss_gaps(runs[label], runs[ref], start, weights[label][1],
+                                  weights[ref][1])
+
+            spread = gaps("eager_nondeterministic")
+            loss_tol = max(GRAPHED_SPREAD_FACTOR * spread["later_epochs_rel_gap"], RESUME_RTOL)
+            move_tol = max(GRAPHED_SPREAD_FACTOR * spread["move_rel_gap"], RESUME_MOVE_RTOL)
+            rec = {"rows": rows, "epochs": epochs, "n_batches": eager["n_batches"],
+                   "spread": spread, "loss_tol": loss_tol, "move_tol": move_tol,
+                   "capturable_optimizer_vs_eager": gaps("eager_capturable")}
+            keys = ("steps_per_execution", "pipelined", "steps_per_s", "steady_epochs",
+                    "wall_s", "captures", "replays", "capture_s", "reserved_growth_bytes",
+                    "peak_above_held_bytes", "launches", "epoch_losses", "eval_losses",
+                    "train_span_ms")
+            for label, run in runs.items():
+                rec[label] = {k: run[k] for k in keys}
+            for label in graphed:
+                rate = runs[label]["steps_per_s"]
+                rec[label].update(gaps(label), vs_eager_capturable=gaps(label, "eager_capturable"),
+                                  steps_per_s_over_eager=rate and rate / eager["steps_per_s"])
+            if "replayed_kernels" in runs[graphed[0]]:
+                rec[graphed[0]].update({k: runs[graphed[0]][k] for k in (
+                    "replayed_kernels", "counted_a_replay")})
+            # the resumed last epoch against the uninterrupted graphed run's
+            last = {k: runs[graphed[0]][k][-1:] for k in ("epoch_losses", "eval_losses")}
+            resume = _loss_gaps(runs["resumed"], last, ckpt_live, resumed_end,
+                                weights[graphed[0]][1])
+            rec["resumed"].update(resume)
+            rec["seconds"] = time.perf_counter() - t0
+            record[name] = rec
+            print(json.dumps({"phase": "graphed_steps", "workload": name, **rec}), flush=True)
+
+            # the mixture kernels: their count a step on every train and eval
+            # step, whichever way the steps ran
+            per_step = per_step or {}
+            for label, run in runs.items():
+                expected = {k: per_step.get(k, 0) * run["epochs_run"] * run["n_batches"]
+                            for k in KERNELS}
+                expected["fwd"] += per_step.get("fwd", 0) * run["epochs_run"] * run["eval_batches"]
+                check(run["launches"] == expected,
+                      f"{name} {label}: expected {expected} launches, got {run['launches']}")
+            if per_step and cuda:
+                # what a replay launches, seen by the profiler, is what the
+                # counters add for it
+                want = {k: per_step.get(k, 0) * chunk for k in KERNELS}
+                got = runs[graphed[0]]
+                check(got["replayed_kernels"] == got["counted_a_replay"] == want,
+                      f"{name}: one replay of the {chunk}-step graph launched "
+                      f"{got['replayed_kernels']}, counted {got['counted_a_replay']}, "
+                      f"expected {want}")
+            check(runs["resumed"]["epochs_run"] == 1,
+                  f"{name}: the resume ran {runs['resumed']['epochs_run']} epochs")
+            for label in graphed:
+                replays = runs[label]["replays"]
+                check(not cuda or (replays["train"] > 0 and (
+                    runs[label]["eval_batches"] == 0 or replays["eval"] > 0)),
+                      f"{name} {label}: a kind of graph never replayed {replays}")
+                tight = rec[label]["vs_eager_capturable"]
+                check(_tight(tight), f"{name} {label}: off the eager run with the capturable "
+                      f"optimizer by {tight} > {GRAPHED_RTOL}")
+            check(_tight(resume), f"{name}: the resumed graphed run is off the "
+                  f"uninterrupted one by {resume} > {GRAPHED_RTOL}")
+            for label in graphed + ("eager_capturable",):
+                got = gaps(label)
+                check(max(got["first_epoch_rel_gap"], got["later_epochs_rel_gap"]) <= loss_tol,
+                      f"{name} {label}: losses off the eager run's by {got} > {loss_tol}")
+                check(got["move_rel_gap"] <= move_tol,
+                      f"{name} {label}: moves off the eager run's by {got} > {move_tol}")
+            del runs, weights
+        record["pipeline"] = _pipeline_runs(mx, device, os.path.join(out, "pipeline"))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(out, ignore_errors=True)
+    record["seconds"] = time.perf_counter() - t_phase
+    record["launches"] = launches
+    return record, launches
+
+
+def _pipeline_runs(mx, device, out):
+    """``PIPELINE_WORKLOAD`` under ``PIPELINE_SETTINGS`` for
+    ``PIPELINE_EPOCHS`` epochs: eager with the capturable optimizer, then
+    whole-epoch graphs with ``pipeline_epochs`` off, on, off, on, each of
+    which must replay and equal the eager run within ``GRAPHED_RTOL``, its
+    kept weights too. Prints and returns the walls and peaks of each."""
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    args = (mx, PIPELINE_WORKLOAD, GRAPHED_ROWS, PIPELINE_EPOCHS, device)
+    ref, trainer, start, ref_end = _graphed_run(
+        *args, 1, False, os.path.join(out, "eager_capturable"), capturable=True,
+        overrides=PIPELINE_SETTINGS)
+    ref_kept = trainer._best_state
+    del trainer
+    keys = ("pipelined", "wall_s", "steps_per_s", "captures", "replays",
+            "peak_above_held_bytes", "reserved_growth_bytes")
+    runs = []
+    for i, pipeline in enumerate((False, True, False, True)):
+        run, trainer, _, end = _graphed_run(
+            *args, 0, pipeline, os.path.join(out, str(i)), overrides=PIPELINE_SETTINGS)
+        gaps = _loss_gaps(run, ref, start, end, ref_end)
+        gaps["kept_move_rel_gap"] = _move_gap(start, trainer._best_state, ref_kept)
+        del trainer
+        runs.append({**{k: run[k] for k in keys}, "vs_eager_capturable": gaps})
+    wall = {p: sum(r["wall_s"] for r in runs if r["pipelined"] == p) for p in (False, True)}
+    rec = {"workload": PIPELINE_WORKLOAD, "rows": GRAPHED_ROWS, "epochs": PIPELINE_EPOCHS,
+           "settings": PIPELINE_SETTINGS, "eager_capturable_wall_s": ref["wall_s"],
+           "runs": runs, "pipelined_over_sync_wall": wall[True] / wall[False] if wall[False] else None,
+           "seconds": time.perf_counter() - t0}
+    print(json.dumps({"phase": "graphed_steps", "pipeline": rec}), flush=True)
+    for pipeline, run in zip((False, True, False, True), runs):
+        check(run["pipelined"] == pipeline, f"pipeline_epochs={pipeline} ran {run['pipelined']}")
+        check(torch.device(device).type != "cuda" or run["replays"]["train"] > 0,
+              f"no train graph replayed {run['replays']}")
+        check(_tight(run["vs_eager_capturable"]),
+              f"{PIPELINE_WORKLOAD} whole-epoch graphs (pipeline_epochs={pipeline}) off the "
+              f"eager run by {run['vs_eager_capturable']} > {GRAPHED_RTOL}")
+    return rec
+
 def main():
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2653,6 +3053,10 @@ def main():
         add(counts)
         record, counts = resident_data(mx)
         print(json.dumps(record))
+        add(counts)
+        record, counts = graphed_steps(mx)
+        print(json.dumps({k: v for k, v in record.items() if k in (
+            "phase", "seconds", "launches", "chunk")}))
         add(counts)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

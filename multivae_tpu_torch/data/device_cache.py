@@ -89,11 +89,34 @@ class DeviceDataCache:
 
 
 def upload_plan(loader, device):
-    """The loader's current ``epoch_plan`` on ``device``: (int64 indices,
-    float32 weights), each (n_batches, batch)."""
-    idx, weights = loader.epoch_plan()
-    return (torch.from_numpy(idx.astype(np.int64)).to(device),
-            torch.from_numpy(weights).to(device))
+    """The loader's current ``epoch_plan`` on ``device``, in a new
+    ``PlanBuffer``: (int64 indices, float32 weights), each (n_batches, batch)."""
+    return PlanBuffer(loader, device).upload()
+
+
+class PlanBuffer:
+    """A loader's epoch plan held on ``device`` at fixed addresses:
+    ``idx`` (n_batches, batch) int64 and ``weights`` float32, which
+    ``upload`` overwrites in place with the loader's current
+    ``epoch_plan``. A captured CUDA graph that gathers its batches through
+    them reads each epoch's plan; on CUDA the copy goes from pinned memory
+    without waiting for the device, so it queues behind the epoch before."""
+
+    def __init__(self, loader, device):
+        self.loader = loader
+        n_batches, batch = len(loader), loader.batch_size
+        self.idx = torch.empty((n_batches, batch), dtype=torch.int64, device=device)
+        self.weights = torch.empty((n_batches, batch), dtype=torch.float32, device=device)
+
+    def upload(self):
+        idx, weights = self.loader.epoch_plan()
+        for dst, src in ((self.idx, torch.from_numpy(idx.astype(np.int64))),
+                         (self.weights, torch.from_numpy(weights))):
+            if dst.is_cuda:
+                dst.copy_(src.pin_memory(), non_blocking=True)
+            else:
+                dst.copy_(src)
+        return self.idx, self.weights
 
 
 class DeviceCachedLoader:

@@ -23,7 +23,7 @@ from ...data.batch import MultimodalBatch
 from ...ops.gaussian import rsample_from_gaussian, stable_poe, sum_f32
 from ...utils.model_output import ModelOutput
 from ..base.base_ae_model import sum_except_batch
-from ..base.step import StepInfo
+from ..base.step import StepInfo, f32
 from ..joint_models.joint_model import BaseJointModel
 from .jmvae_config import JMVAEConfig
 
@@ -72,10 +72,11 @@ class JMVAE(BaseJointModel):
             ljm = ljm + (sum_f32(term) * w).sum()
         reg_loss = kld + ljm * self.alpha
 
-        annealing = 1.0 if step.epoch >= self.warmup else step.epoch / max(self.warmup, 1)
+        epoch = f32(step.epoch, mu.device)
+        annealing = torch.where(epoch >= self.warmup, 1.0, epoch / max(self.warmup, 1))
         loss_sum = recon_loss + annealing * reg_loss
         metrics = {"loss_no_ponderation": reg_loss + recon_loss,
-                   "beta": torch.tensor(annealing, dtype=torch.float32, device=mu.device),
+                   "beta": annealing,
                    "elbo": (recon_loss + kld) / n_data}
         return ModelOutput(loss=loss_sum / n_data, loss_sum=loss_sum, metrics=metrics)
 

@@ -34,7 +34,7 @@ from ...ops.gaussian import rsample_from_gaussian, stable_poe, sum_f32
 from ...ops.subsets import all_subsets, subsets_to_mask
 from ...utils.model_output import ModelOutput
 from ..base.base_ae_model import BaseMultiVAE, sum_except_batch
-from ..base.step import StepInfo
+from ..base.step import StepInfo, f32
 from .mvae_config import MVAEConfig
 
 
@@ -61,9 +61,11 @@ class MVAE(BaseMultiVAE):
 
     def draw_subsets(self, n_candidates: int, k: int,
                      generator: Optional[torch.Generator] = None):
-        """``k`` distinct indices in [0, n_candidates)."""
+        """``k`` distinct indices in [0, n_candidates): the head of a random
+        permutation, the ranks of uniform draws (graph-safe on CUDA, where
+        ``randperm`` is not)."""
         device = self.device if generator is None else generator.device
-        return torch.randperm(n_candidates, generator=generator, device=device)[:k]
+        return torch.rand(n_candidates, generator=generator, device=device).argsort()[:k]
 
     # --------------------------------------------------------- subset pieces
     def _subset_posteriors(self, mus, log_vars, mask, rows):
@@ -101,9 +103,12 @@ class MVAE(BaseMultiVAE):
     def loss_function(self, batch: MultimodalBatch, step: Optional[StepInfo] = None,
                       generator: Optional[torch.Generator] = None) -> ModelOutput:
         step = step or StepInfo()
-        beta = (self.beta if step.epoch >= self.warmup else
-                (step.epoch - 1.0 + step.batch_ratio) / max(self.warmup, 1) * self.beta)
         mus, log_vars, mask = self.stacked_gaussian_params(batch)
+        # per-batch warm-up, in float32 tensor ops as the JAX package's jnp.where
+        epoch = f32(step.epoch, mus.device)
+        beta = torch.where(epoch >= self.warmup, self.beta,
+                           (epoch - 1.0 + f32(step.batch_ratio, mus.device))
+                           / max(self.warmup, 1) * self.beta)
         M, mods = self.n_modalities, list(self.encoders)
 
         # the joint subset, each unimodal subset, then k random subsets
@@ -118,7 +123,7 @@ class MVAE(BaseMultiVAE):
         elbos, klds, recs, n_effs = self._elbo_subsets(
             batch, mus, log_vars, mask, torch.cat(rows), beta, generator)
 
-        metrics = {"beta": torch.tensor(beta, dtype=torch.float32, device=mus.device)}
+        metrics = {"beta": beta}
         names = ["_".join(sorted(mods))] + (mods if self.subsampling else [])
         for i, name in enumerate(names):
             metrics[name] = elbos[i]

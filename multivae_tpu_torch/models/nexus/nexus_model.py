@@ -40,7 +40,7 @@ from ...nn.default_architectures import BaseAEConfig, Decoder_AE_MLP, Encoder_VA
 from ...ops.gaussian import gaussian_log_prob, sum_f32
 from ...utils.model_output import ModelOutput
 from ..base.base_ae_model import BaseMultiVAE, sum_except_batch
-from ..base.step import StepInfo
+from ..base.step import StepInfo, f32
 from .nexus_config import NexusConfig
 
 
@@ -178,7 +178,7 @@ class Nexus(BaseMultiVAE):
         return drop, size, scores
 
     # ---------------------------------------------------------------- loss
-    def _compute_bottom_elbos(self, batch: MultimodalBatch, annealing: float,
+    def _compute_bottom_elbos(self, batch: MultimodalBatch, annealing: torch.Tensor,
                               generator: Optional[torch.Generator]):
         msgs, first_level_z, metrics = {}, {}, {}
         bottom_loss = 0.0
@@ -217,7 +217,8 @@ class Nexus(BaseMultiVAE):
     def loss_function(self, batch: MultimodalBatch, step: Optional[StepInfo] = None,
                       generator: Optional[torch.Generator] = None) -> ModelOutput:
         step = step or StepInfo()
-        annealing = min(step.epoch / max(self.model_config.warmup, 1), 1.0)
+        annealing = torch.clamp(f32(step.epoch, self.device) / max(self.model_config.warmup, 1),
+                                max=1.0)
         bottom_loss, msgs, first_level_z, metrics = self._compute_bottom_elbos(
             batch, annealing, generator)
         joint = self.joint_encoder(self._aggregate_during_training(batch, msgs, generator))
@@ -242,7 +243,7 @@ class Nexus(BaseMultiVAE):
         top_loss = z_recon_loss + self.model_config.top_beta * joint_kld * annealing
         total = (top_loss + bottom_loss) * batch.weights
         n_data = batch.weights.sum().clamp_min(1.0)
-        metrics.update({"annealing": torch.tensor(annealing), "bottom_loss": bottom_loss.mean(),
+        metrics.update({"annealing": annealing, "bottom_loss": bottom_loss.mean(),
                         "top_loss": top_loss.mean(), "joint_KLD": joint_kld.mean()})
         return ModelOutput(loss=total.sum() / n_data, loss_sum=total.sum(), metrics=metrics)
 

@@ -23,7 +23,11 @@ with f Laplace or Normal, NOT divided by the expert count.
   the C entries ``mixture_fwd`` and ``mixture_bwd`` compute, with the same
   arguments and outputs, so the CPU tests can drive the autograd glue.
 
-``launches`` counts kernel launches, one per launch of each kernel.
+``launches`` counts kernel launches, one per launch of each kernel. A
+launch captured in a CUDA graph (the trainer's ``steps_per_execution``)
+counts at each replay of the graph, not at its capture
+(``trainers/base/graphs.py``). The launches go to the current stream,
+which is the capturing one under a capture.
 """
 
 from __future__ import annotations

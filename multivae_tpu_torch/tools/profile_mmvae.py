@@ -19,12 +19,14 @@ epoch with ``torch.profiler`` and prints:
   optimizer, reductions, the rest) and the top kernels by device time.
 
 ``--cache`` trains with ``cache_on_device`` (the batches gathered from the
-dataset on the card) instead of the host path.
+dataset on the card) instead of the host path. ``--steps-per-execution N``
+(with the cache) runs the steps as CUDA graphs of N steps: a second
+warm-up epoch captures them, so the profiled epoch only replays.
 
 Run from the root of a checkout:
 
     python3 -m multivae_tpu_torch.tools.profile_mmvae [--steps 8] [--model mvtcae_conv]
-        [--stage 2] [--cache]
+        [--stage 2] [--cache] [--steps-per-execution 8]
 """
 
 from __future__ import annotations
@@ -78,7 +80,10 @@ def main():
                         help="the stage of a two-stage model (telbo_conv, jnf_conv)")
     parser.add_argument("--cache", action="store_true",
                         help="train with cache_on_device (the data on the card)")
+    parser.add_argument("--steps-per-execution", type=int, default=1,
+                        help="steps a CUDA graph (implies --cache)")
     args = parser.parse_args()
+    graphed = args.steps_per_execution > 1
     if not torch.cuda.is_available():
         raise SystemExit("profile_mmvae needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -89,18 +94,21 @@ def main():
     w = workloads.build(args.model, n=workloads.BATCH[args.model] * args.steps, n_eval=0)
     trainer = (w.trainer_cls or BaseTrainer)(
         w.model, w.train, training_config=BaseTrainerConfig(
-            output_dir=os.path.join("build", "profile_mmvae"), num_epochs=2,
-            cache_on_device=args.cache, **w.trainer_kwargs))
+            output_dir=os.path.join("build", "profile_mmvae"), num_epochs=3,
+            cache_on_device=args.cache or graphed,
+            steps_per_execution=args.steps_per_execution, **w.trainer_kwargs))
     if hasattr(w.model, "set_stage"):
         w.model.set_stage(args.stage)
     trainer.train_step(1)  # warm-up: kernel builds, cuBLAS heuristics, allocator
+    if graphed:
+        trainer.train_step(2)  # the captures
     torch.cuda.synchronize()
 
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        trainer.train_step(2)
+        trainer.train_step(3 if graphed else 2)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
 
@@ -117,6 +125,8 @@ def main():
         **({} if args.model == "mmvae" else {"model": args.model}),
         **({"stage": args.stage} if hasattr(w.model, "set_stage") else {}),
         "data": "device cache" if trainer._train_cache is not None else "host",
+        "steps_per_execution": args.steps_per_execution,
+        "graph_replays": trainer._graphs["train"].replays,
         "steps": args.steps,
         "wall_ms_per_step": wall_us / args.steps / 1e3,
         "device_busy_ms_per_step": busy_us / args.steps / 1e3,

@@ -46,10 +46,38 @@ loader's batches, bit for bit. ``train(log_output_dir=...)`` also writes
 the training parameters and each checkpoint's line to
 ``training_logs_<training dir>.log`` there.
 
-The JAX trainer's fused epoch blocks, pipelined finalization, sharded
-(orbax) checkpoints and bfloat16 mode exist to amortize TPU launch costs
-or to spread over a TPU mesh and are not part of the port. ``history``
-holds each epoch's logged metrics.
+With the cache and ``steps_per_execution`` N > 1 an epoch runs in chunks
+of N steps and a remainder, the JAX trainer's ``lax.scan`` chunks: each
+chunk reads its first plan row from a device scalar, gathers each step's
+rows from the persistent plan (``data/device_cache.PlanBuffer``), runs the
+steps and sums the loss and metrics into fixed device buffers. On CUDA a
+chunk is a CUDA graph, captured once per length and replayed
+(``graphs.py``; the optimizer is made capturable, its learning rate a
+device tensor); on the CPU it runs eagerly. The per-step callbacks fire N
+times after each chunk, as in the JAX trainer. The graphs are dropped and
+captured again after an optimizer reset, a stage change and a resume.
+
+``pipeline_epochs`` (the JAX default, on) defers each epoch's host side
+(the loss fetch, NaN guard, best-model tracking, grids, checkpoint,
+``on_epoch_end``, logging) by up to ``pipeline_depth`` epochs, so the host
+queues the next epochs while the device works; the deferred epochs' sums
+come back in one transfer and are finalized in order with the values of
+the synchronous loop. The weights best-model tracking may keep wait in one
+candidate copy on the device, which an epoch's end overwrites where that
+epoch beats the best loss so far (``_track_best``): one copy of the
+weights however deep the window. Checkpoint and prediction epochs, the epoch
+before a ``prepare_train_step`` boundary (the ``MultistageTrainer``'s
+``_prepare_boundaries``) and the last epoch finalize at once. A
+deterministic scheduler steps when its epoch is queued. The synchronous
+loop stays where the JAX trainer keeps it (``ReduceLROnPlateau``, a
+subclass's ``train_step``/``eval_step``, an undeclared
+``prepare_train_step``, a callback with its own ``on_epoch_end``) and
+where an instance's hooks were replaced.
+
+The JAX trainer's fused whole-epoch blocks (and the in-graph plateau
+scheduler they carry), sharded (orbax) checkpoints and bfloat16 mode
+exist to amortize TPU launch costs or to spread over a TPU mesh and are
+not part of the port. ``history`` holds each epoch's logged metrics.
 """
 
 from __future__ import annotations
@@ -67,7 +95,7 @@ import numpy as np
 import torch
 
 from ...data.batch import batch_from_arrays
-from ...data.device_cache import build_device_cache, cache_per_device_nbytes, upload_plan
+from ...data.device_cache import PlanBuffer, build_device_cache, cache_per_device_nbytes
 from ...data.loader import DataLoader
 from ...data.prefetch import PrefetchLoader
 from ...data.utils import adapt_shape, grid_to_image, make_grid, write_png
@@ -83,10 +111,19 @@ from .callbacks import (
     ProgressBarCallback,
     TrainingCallback,
 )
-from .optim import make_optimizer, make_scheduler
+from .graphs import ChunkGraphs
+from .optim import make_capturable, make_optimizer, make_scheduler
 from .utils import set_seed, update_dict
 
 logger = logging.getLogger(__name__)
+
+
+def _tensor_item(obj):
+    """JSON of a 0-d tensor (a capturable optimizer's rate in a scheduler's
+    state) as its number."""
+    if isinstance(obj, torch.Tensor):
+        return obj.item()
+    raise TypeError(f"{type(obj).__name__} is not JSON serializable")
 
 
 class BaseTrainer:
@@ -147,16 +184,16 @@ class BaseTrainer:
                     f"{cfg.microbatch_steps}."
                 )
 
-        self.optimizer = make_optimizer(cfg.optimizer_cls, model.parameters(),
-                                        cfg.learning_rate, cfg.optimizer_params)
-        self.scheduler = make_scheduler(cfg.scheduler_cls, self.optimizer,
-                                        cfg.scheduler_params)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        # one generator for every eval pass, seeded anew each epoch, so that
+        # the eval graphs can register it
+        self._eval_generator = torch.Generator(device=self.device)
 
         self.trained_epochs = 0
         self.best_train_loss = math.inf
         self.best_eval_loss = math.inf
         self._best_state = None
+        self._candidate = None   # the pipelined window's, see _track_best
         self.start_keep_best_epoch = getattr(model, "start_keep_best_epoch", 0)
         self.history = []
         self._file_logger = None
@@ -181,6 +218,18 @@ class BaseTrainer:
             "train": PrefetchLoader(self.train_loader, self.device, depth=2),
             "eval": (PrefetchLoader(self.eval_loader, self.device, depth=2)
                      if self.eval_loader is not None else None)}
+        self._plans = {which: PlanBuffer(loader, self.device) for which, loader, cache in (
+            ("train", self.train_loader, self._train_cache),
+            ("eval", self.eval_loader, self._eval_cache)) if cache is not None}
+        # the chunked path: its graphs, device inputs and sums
+        self._graphs = {"train": ChunkGraphs(self.device, self.generator, "train"),
+                        "eval": ChunkGraphs(self.device, self._eval_generator, "eval")}
+        self._chunk_start = {w: torch.zeros((), dtype=torch.int64, device=self.device)
+                             for w in self._plans}
+        self._chunk_epoch = {w: torch.zeros((), dtype=torch.float32, device=self.device)
+                             for w in self._plans}
+        self._chunk_sums = {w: {} for w in self._plans}
+        self._build_optimizer()
 
         self._run_model_sanity_check()
 
@@ -228,11 +277,48 @@ class BaseTrainer:
                 f"exception: {e}"
             ) from e
 
+    def _build_optimizer(self):
+        """The optimizer and scheduler of the config over the model's
+        parameters; capturable where the steps run as CUDA graphs. Drops
+        the graphs of the optimizer before."""
+        cfg = self.training_config
+        self.optimizer = make_optimizer(cfg.optimizer_cls, self.model.parameters(),
+                                        cfg.learning_rate, cfg.optimizer_params)
+        self.scheduler = make_scheduler(cfg.scheduler_cls, self.optimizer,
+                                        cfg.scheduler_params)
+        if self._graphed:
+            make_capturable(self.optimizer)
+        self._drop_graphs()
+
+    @property
+    def _graphed(self) -> bool:
+        """Do the train steps run as CUDA graphs?"""
+        return (self.device.type == "cuda" and "train" in self._plans
+                and self.training_config.steps_per_execution > 1)
+
+    def _drop_graphs(self):
+        """Forget the captured chunks (a new optimizer, a stage change, a
+        resume): the next chunk runs eagerly and the ones after it are
+        captured again. The gradients, which may live in a dropped graph's
+        memory pool, go back to None."""
+        for graphs in self._graphs.values():
+            graphs.drop()
+        if hasattr(self, "optimizer"):
+            self.optimizer.zero_grad(set_to_none=True)
+
     def prepare_train_step(self, epoch, best_train_loss, best_eval_loss):
         """Hook for changes between epochs (the ``MultistageTrainer``'s
         optimizer reset); returns the best train and eval losses to go on
         with."""
         return best_train_loss, best_eval_loss
+
+    def _prepare_boundaries(self):
+        """The epochs at which ``prepare_train_step`` does real work: none
+        for this class's hook, None (unknown) for a subclass's hook that
+        does not declare them. The epoch before each finalizes at once."""
+        if type(self).prepare_train_step is BaseTrainer.prepare_train_step:
+            return set()
+        return None
 
     # ------------------------------------------------------------- stepping
     def _epoch_batches(self, which: str):
@@ -242,18 +328,20 @@ class BaseTrainer:
         if cache is None:
             yield from self._prefetch[which]
             return
-        loader = self.train_loader if which == "train" else self.eval_loader
-        idx, weights = upload_plan(loader, self.device)
+        idx, weights = self._plans[which].upload()
         for i in range(len(idx)):
             yield cache.gather(idx[i], weights[i])
 
-    def _run_epoch(self, loader, epoch: int, generator, train: bool):
+    def _run_epoch(self, loader, epoch: int, generator, train: bool) -> dict:
+        """The epoch's device sums, ``loss_sum`` first, then each metric."""
+        which = "train" if train else "eval"
+        if which in self._plans and self.training_config.steps_per_execution > 1:
+            return self._run_chunked_epoch(which, loader, epoch, generator)
         n_batches = len(loader)
         dataset_size = len(loader.dataset)
         n_micro = self.training_config.microbatch_steps
-        loss_sum = torch.zeros((), device=self.device)
-        metric_sums = {}
-        for batch_idx, batch in enumerate(self._epoch_batches("train" if train else "eval")):
+        sums = {"loss_sum": torch.zeros((), device=self.device)}
+        for batch_idx, batch in enumerate(self._epoch_batches(which)):
             # the eval pass leaves batch_ratio at 0, as the JAX trainer does
             info = StepInfo(epoch=epoch, batch_ratio=batch_idx / n_batches if train else 0.0,
                             dataset_size=dataset_size)
@@ -268,35 +356,118 @@ class BaseTrainer:
             else:
                 out = self.model.loss_function(batch, info, generator=generator)
                 self.callback_handler.on_eval_step_end(self.training_config)
-            loss_sum += out["loss_sum"].detach()
-            update_dict(metric_sums, {k: v.detach()
-                                      for k, v in out.get("metrics", {}).items()})
-        epoch_loss = loss_sum.item() / dataset_size
-        metrics = {k: float(v) / n_batches for k, v in metric_sums.items()}
-        return epoch_loss, metrics
+            sums["loss_sum"] += out["loss_sum"].detach()
+            update_dict(sums, {k: v.detach() for k, v in out.get("metrics", {}).items()})
+        return sums
 
-    def train_step(self, epoch: int):
-        """One epoch over the train loader; returns (epoch_loss, metrics)."""
+    def _run_chunked_epoch(self, which: str, loader, epoch: int, generator) -> dict:
+        """The epoch in chunks of ``steps_per_execution`` steps and a
+        remainder (JAX ``_run_cached_train_epoch`` /
+        ``_run_cached_eval_epoch``); the per-step callbacks fire after each
+        chunk, once a step."""
+        self._plans[which].upload()
+        self._chunk_epoch[which].fill_(epoch)
+        for acc in self._chunk_sums[which].values():
+            acc.zero_()
+        n_batches, chunk = len(loader), self.training_config.steps_per_execution
+        event = (self.callback_handler.on_train_step_end if which == "train"
+                 else self.callback_handler.on_eval_step_end)
+        b = 0
+        while b < n_batches:
+            n = min(chunk, n_batches - b)
+            self._chunk_start[which].fill_(b)
+            self._graphs[which].run(
+                n, lambda n=n: self._chunk(which, loader, n, generator),
+                baked=self._baked_rates() if which == "train" else ())
+            for _ in range(n):
+                event(self.training_config)
+            b += n
+        return dict(self._chunk_sums[which])
+
+    def _baked_rates(self) -> tuple:
+        """The learning rates a graph holds as numbers (an optimizer without
+        a capturable mode): a change means a new capture."""
+        return tuple(g["lr"] for g in self.optimizer.param_groups
+                     if not isinstance(g["lr"], torch.Tensor))
+
+    def _chunk(self, which: str, loader, n: int, generator):
+        """``n`` steps from the plan row in ``_chunk_start``, their loss and
+        metrics added to ``_chunk_sums``: the body a CUDA graph captures.
+        ``batch_ratio`` is computed in float32 on the device, as the JAX
+        chunk does."""
+        cache = self._train_cache if which == "train" else self._eval_cache
+        plan = self._plans[which]
+        rows = self._chunk_start[which] + torch.arange(n, device=self.device)
+        idx, weights = plan.idx.index_select(0, rows), plan.weights.index_select(0, rows)
+        train = which == "train"
+        ratio = rows.to(torch.float32) / len(loader)
+        sums = self._chunk_sums[which]
+        for i in range(n):
+            info = StepInfo(epoch=self._chunk_epoch[which],
+                            batch_ratio=ratio[i] if train else 0.0,
+                            dataset_size=len(loader.dataset))
+            batch = cache.gather(idx[i], weights[i])
+            if train:
+                # as in the eager loop: under a capture, backward then
+                # allocates each gradient from the graph's pool, where every
+                # replay writes it again
+                self.optimizer.zero_grad(set_to_none=True)
+                out = microbatched_backward(
+                    lambda part: self.model.loss_function(part, info, generator=generator),
+                    batch, self.training_config.microbatch_steps)
+                self.optimizer.step()
+            else:
+                out = self.model.loss_function(batch, info, generator=generator)
+            values = {"loss_sum": out["loss_sum"], **out.get("metrics", {})}
+            for k, v in values.items():
+                if k not in sums:
+                    sums[k] = torch.zeros((), device=self.device)
+                sums[k] += v.detach()
+
+    def _dispatch_train(self, epoch: int) -> dict:
+        """Queue one train epoch; its device sums."""
         self.callback_handler.on_train_step_begin(
             self.training_config, train_loader=self.train_loader, epoch=epoch)
         self.model.train()
         self.train_loader.set_epoch(epoch)
-        epoch_loss, metrics = self._run_epoch(self.train_loader, epoch,
-                                              self.generator, train=True)
+        return self._run_epoch(self.train_loader, epoch, self.generator, train=True)
+
+    def _dispatch_eval(self, epoch: int) -> dict:
+        """Queue one eval epoch (no grad); its device sums."""
+        self.callback_handler.on_eval_step_begin(
+            self.training_config, eval_loader=self.eval_loader, epoch=epoch)
+        self.model.eval()
+        self._eval_generator.manual_seed(self.training_config.seed + 1000 + epoch)
+        with torch.no_grad():
+            return self._run_epoch(self.eval_loader, epoch, self._eval_generator, train=False)
+
+    @staticmethod
+    def _pack(sums: dict):
+        """(one device vector of the sums, their names): a copy, so that the
+        chunks' buffers may be zeroed for the next epoch."""
+        return torch.stack([v.double() for v in sums.values()]), list(sums)
+
+    @staticmethod
+    def _epoch_values(values, names, loader):
+        """The epoch loss and metrics from the host values of ``_pack``:
+        the loss sum over the dataset size, each metric sum over the batch
+        count."""
+        sums = dict(zip(names, values))
+        loss = sums.pop("loss_sum") / len(loader.dataset)
+        return loss, {k: v / len(loader) for k, v in sums.items()}
+
+    def train_step(self, epoch: int):
+        """One epoch over the train loader; returns (epoch_loss, metrics)."""
+        vec, names = self._pack(self._dispatch_train(epoch))
+        epoch_loss, metrics = self._epoch_values(vec.tolist(), names, self.train_loader)
         if not math.isfinite(epoch_loss):
             raise ArithmeticError("NaN detected in train loss")
         return epoch_loss, metrics
 
     def eval_step(self, epoch: int):
         """One epoch over the eval loader (no grad)."""
-        self.callback_handler.on_eval_step_begin(
-            self.training_config, eval_loader=self.eval_loader, epoch=epoch)
-        self.model.eval()
-        generator = torch.Generator(device=self.device).manual_seed(
-            self.training_config.seed + 1000 + epoch)
-        with torch.no_grad():
-            epoch_loss, metrics = self._run_epoch(self.eval_loader, epoch,
-                                                  generator, train=False)
+        vec, names = self._pack(self._dispatch_eval(epoch))
+        epoch_loss, metrics = self._epoch_values(vec.tolist(), names, self.eval_loader)
         if not math.isfinite(epoch_loss):
             raise ArithmeticError("NaN detected in eval loss")
         return epoch_loss, metrics
@@ -305,33 +476,43 @@ class BaseTrainer:
         return {k: v.detach().clone() for k, v in self.model.state_dict().items()}
 
     def _finalize_epoch(self, epoch, train_loss, train_metrics, eval_loss,
-                        eval_metrics):
+                        eval_metrics, candidate=None, deferred=False):
         """Scheduler step, best-model tracking, prediction grids,
-        checkpoint and logging of one epoch."""
+        checkpoint and logging of one epoch. A ``deferred`` epoch's
+        scheduler stepped when it was queued, and ``candidate`` holds the
+        weights its window keeps (``_track_best``; None where no tracking
+        can keep any); else the live weights are the epoch's."""
         cfg = self.training_config
         metrics = {"train_" + k: v for k, v in train_metrics.items()}
         metrics["train_epoch_loss"] = train_loss
         if eval_loss is not None:
             metrics["eval_epoch_loss"] = eval_loss
             metrics.update({"eval_" + k: v for k, v in eval_metrics.items()})
-        if self.scheduler is not None:
+        if self.scheduler is not None and not deferred:
             if isinstance(self.scheduler, torch.optim.lr_scheduler.ReduceLROnPlateau):
                 self.scheduler.step(train_loss if eval_loss is None else eval_loss)
             else:
                 self.scheduler.step()
 
+        def snapshot():
+            if not deferred:
+                return self._snapshot()
+            if candidate is None:
+                raise RuntimeError(f"epoch {epoch} was deferred without its weights")
+            return candidate
+
         if eval_loss is None:
             eval_loss = self.best_eval_loss
         if epoch <= self.start_keep_best_epoch:
-            self._best_state = self._snapshot()
+            self._best_state = snapshot()
             logger.info("New model saved!")
         elif eval_loss < self.best_eval_loss and not cfg.keep_best_on_train:
             self.best_eval_loss = eval_loss
-            self._best_state = self._snapshot()
+            self._best_state = snapshot()
             logger.info("New best model on eval saved!")
         elif train_loss < self.best_train_loss and cfg.keep_best_on_train:
             self.best_train_loss = train_loss
-            self._best_state = self._snapshot()
+            self._best_state = snapshot()
             logger.info("New best model on train saved!")
 
         if cfg.steps_predict is not None and (epoch % cfg.steps_predict == 0
@@ -375,6 +556,8 @@ class BaseTrainer:
             self._file_logger, handler = self._get_file_logger(log_output_dir)
             self._file_logger.info(msg)
         logger.info("Successfully launched training !\n")
+        pipelined = self._pipeline_epochs_eligible()
+        pending = []
         try:
             for epoch in range(self.trained_epochs + 1, cfg.num_epochs + 1):
                 self.callback_handler.on_epoch_begin(
@@ -382,12 +565,29 @@ class BaseTrainer:
                     eval_loader=self.eval_loader)
                 self.best_train_loss, self.best_eval_loss = self.prepare_train_step(
                     epoch, self.best_train_loss, self.best_eval_loss)
-                train_loss, train_metrics = self.train_step(epoch)
-                eval_loss = eval_metrics = None
-                if self.eval_dataset is not None:
-                    eval_loss, eval_metrics = self.eval_step(epoch)
-                self._finalize_epoch(epoch, train_loss, train_metrics, eval_loss,
-                                     eval_metrics)
+                if not pipelined:
+                    train_loss, train_metrics = self.train_step(epoch)
+                    eval_loss = eval_metrics = None
+                    if self.eval_dataset is not None:
+                        eval_loss, eval_metrics = self.eval_step(epoch)
+                    self._finalize_epoch(epoch, train_loss, train_metrics, eval_loss,
+                                         eval_metrics)
+                    continue
+                train_sums = self._pack(self._dispatch_train(epoch))
+                eval_sums = (self._pack(self._dispatch_eval(epoch))
+                             if self.eval_dataset is not None else None)
+                if not pending:
+                    self._open_window()
+                self._track_best(epoch, train_sums, eval_sums)
+                if self.scheduler is not None:   # deterministic: its epoch's rate now
+                    self.scheduler.step()
+                pending.append((epoch, train_sums, eval_sums))
+                if (epoch == cfg.num_epochs or self._epoch_needs_sync_finalize(epoch)
+                        or len(pending) >= cfg.pipeline_depth):
+                    self._finalize_pending(pending)
+                    pending = []
+            if pending:
+                self._finalize_pending(pending)
         finally:
             if self._file_logger is not None:
                 # another trainer of this process must not write to this file
@@ -398,6 +598,136 @@ class BaseTrainer:
         self.save_model(final_dir)
         logger.info("Training ended! Saved final model in %s", final_dir)
         self.callback_handler.on_train_end(cfg)
+
+    # ------------------------------------------------ pipelined finalization
+    def _pipeline_epochs_eligible(self) -> bool:
+        """May the epochs' host side lag behind the device (JAX
+        ``_pipeline_epochs_eligible`` / ``_deferred_finalize_safe``)? Not
+        with ``ReduceLROnPlateau``, which needs each epoch's loss before the
+        next epoch's rate; not where a subclass replaced ``train_step`` or
+        ``eval_step``, or ``prepare_train_step`` without declaring its
+        boundary epochs; not where an instance replaced one of these hooks
+        or ``_finalize_epoch``; and not with a callback other than the
+        display ones that has its own ``on_epoch_end``, which would see a
+        later epoch's state."""
+        if not self.training_config.pipeline_epochs:
+            return False
+        if isinstance(self.scheduler, torch.optim.lr_scheduler.ReduceLROnPlateau):
+            return False
+        cls = type(self)
+        if not (cls.train_step is BaseTrainer.train_step
+                and cls.eval_step is BaseTrainer.eval_step):
+            return False
+        hooks = ("train_step", "eval_step", "prepare_train_step", "_finalize_epoch")
+        if any(name in vars(self) for name in hooks):
+            return False
+        if self._prepare_boundaries() is None:
+            return False
+        for cb in self.callback_handler.callbacks:
+            if isinstance(cb, (ProgressBarCallback, MetricConsolePrinterCallback)):
+                continue
+            if type(cb).on_epoch_end is not TrainingCallback.on_epoch_end:
+                return False
+        return True
+
+    def _open_window(self):
+        """Start a window of deferred epochs: its candidate starts from the
+        host's best loss, in a new buffer where the last window's became the
+        kept weights."""
+        cfg = self.training_config
+        best = self.best_train_loss if cfg.keep_best_on_train else self.best_eval_loss
+        state = None if self._candidate is None else self._candidate["state"]
+        if state is self._best_state:
+            state = None
+        self._candidate = {"state": state, "best": torch.full(
+            (), best, dtype=torch.float64, device=self.device),
+            # 0: no epoch of this window held yet
+            "epoch": torch.zeros((), dtype=torch.float64, device=self.device)}
+
+    def _track_best(self, epoch: int, train_sums, eval_sums):
+        """Best-model tracking's copy of a deferred epoch's weights, made on
+        the device when the epoch is queued (its finalization may come
+        epochs later), into the window's one candidate buffer: always in the
+        model's keep-best warm-up, else where the tracked loss (eval, or
+        train with ``keep_best_on_train``) beats the best so far, the
+        comparison the finalization then makes on the host in the same
+        float64. The buffer ends the window holding the weights the
+        finalization keeps last, and ``epoch`` names their epoch."""
+        cfg = self.training_config
+        if epoch <= self.start_keep_best_epoch:
+            tracked = None
+        elif cfg.keep_best_on_train:
+            tracked = (train_sums, self.train_loader)
+        elif eval_sums is not None:
+            tracked = (eval_sums, self.eval_loader)
+        else:   # no eval loss: no later epoch beats the best
+            return
+        cand = self._candidate
+        live = self.model.state_dict()
+        if cand["state"] is None:
+            cand["state"] = {k: torch.empty_like(v) for k, v in live.items()}
+        if tracked is None:
+            for k, v in live.items():
+                cand["state"][k].copy_(v)
+            cand["epoch"].fill_(epoch)
+            return
+        (vec, names), loader = tracked
+        loss = vec[names.index("loss_sum")] / len(loader.dataset)
+        better = loss < cand["best"]
+        cand["best"] = torch.where(better, loss, cand["best"])
+        cand["epoch"].masked_fill_(better, epoch)
+        for k, v in live.items():
+            cand["state"][k].copy_(torch.where(better, v.detach(), cand["state"][k]))
+
+    def _epoch_needs_sync_finalize(self, epoch: int) -> bool:
+        """Checkpoint and prediction epochs read the live state on the host,
+        as does the boundary's ``prepare_train_step`` after the epoch
+        before it: these finalize at once."""
+        cfg = self.training_config
+        if cfg.steps_saving is not None and epoch % cfg.steps_saving == 0:
+            return True
+        if (epoch + 1) in self._prepare_boundaries():
+            return True
+        return cfg.steps_predict is not None and (epoch % cfg.steps_predict == 0
+                                                  or epoch == 1)
+
+    def _finalize_pending(self, pending):
+        """Finalize the deferred epochs ``(epoch, train sums, eval sums)``
+        in order, their sums and the candidate's epoch fetched in one
+        transfer; the epoch whose weights the host keeps last must be the
+        candidate's."""
+        vecs = [sums[0] for _, train, ev in pending for sums in (train, ev)
+                if sums is not None]
+        values = torch.cat(vecs + [self._candidate["epoch"].view(1)]).tolist()
+        held = int(values.pop())
+        pos = 0
+
+        def take(packed, loader):
+            nonlocal pos
+            n = len(packed[1])
+            out = self._epoch_values(values[pos:pos + n], packed[1], loader)
+            pos += n
+            return out
+
+        kept = None
+        for epoch, train, ev in pending:
+            train_loss, train_metrics = take(train, self.train_loader)
+            if not math.isfinite(train_loss):
+                raise ArithmeticError("NaN detected in train loss")
+            eval_loss = eval_metrics = None
+            if ev is not None:
+                eval_loss, eval_metrics = take(ev, self.eval_loader)
+                if not math.isfinite(eval_loss):
+                    raise ArithmeticError("NaN detected in eval loss")
+            best = (self.best_train_loss, self.best_eval_loss)
+            self._finalize_epoch(epoch, train_loss, train_metrics, eval_loss, eval_metrics,
+                                 self._candidate["state"], deferred=True)
+            if epoch <= self.start_keep_best_epoch or best != (self.best_train_loss,
+                                                               self.best_eval_loss):
+                kept = epoch
+        if kept is not None and kept != held:
+            raise RuntimeError(f"best-model tracking kept epoch {kept} on the host, "
+                               f"but the device's candidate holds epoch {held}")
 
     def _get_file_logger(self, log_output_dir: str):
         """(the logger of ``training_logs_<training dir name>.log`` in
@@ -463,7 +793,8 @@ class BaseTrainer:
                    os.path.join(checkpoint_dir, "generator.pt"))
         if self.scheduler is not None:
             with open(os.path.join(checkpoint_dir, "scheduler.json"), "w") as f:
-                json.dump(self.scheduler.state_dict(), f)
+                # a capturable optimizer's rates are 0-d tensors
+                json.dump(self.scheduler.state_dict(), f, default=_tensor_item)
         self.model.save(checkpoint_dir, state_dict=self._best_state)
         self.training_config.save_json(checkpoint_dir, "training_config")
         info = dict(training_dir=self.training_dir, trained_epochs=epoch,
@@ -505,6 +836,9 @@ class BaseTrainer:
         gen_path = os.path.join(checkpoint_dir, "generator.pt")
         if os.path.exists(gen_path):
             self.generator.set_state(torch.load(gen_path, weights_only=True))
+        if self._graphed:   # the loaded state may be a synchronous run's
+            make_capturable(self.optimizer)
+        self._drop_graphs()
 
     # ----------------------------------------------------------- prediction
     @torch.no_grad()

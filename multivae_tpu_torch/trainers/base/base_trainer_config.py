@@ -1,12 +1,15 @@
 """Trainer config (counterpart of
 ``multivae_tpu/trainers/base/base_trainer_config.py``).
 
-Keeps the JAX package's field names for the options the port's
-synchronous loop implements, the device cache's three among them. The
-other TPU-only fields (meshes, FSDP, fused epoch blocks and
-``steps_per_execution``, pipelining, orbax checkpoints, bfloat16) are not
-part of the port; a ``training_config.json`` holding them does not load
-here. Optimizer and scheduler specs are validated eagerly.
+Keeps the JAX package's field names for the options the port implements:
+the device cache's three, ``steps_per_execution`` (CUDA graphs of the
+cached step on the card) and the pipelined finalization's two. The other
+TPU-only fields (``n_devices`` and the mesh fields ``n_model_devices``,
+``coordinator_address``, ``num_processes``, ``process_id``; ``fsdp``;
+the orbax ``checkpoint_backend`` and ``async_checkpointing``; bfloat16's
+``mixed_precision``) are not part of the port; a ``training_config.json``
+holding them does not load here. Optimizer and scheduler specs are
+validated eagerly.
 """
 
 from __future__ import annotations
@@ -58,6 +61,26 @@ class BaseTrainerConfig(BaseConfig):
         device_cache_budget_gb: device memory the caches may take.
         device_cache_layout: "auto", "replicated" or "sharded" (all keep
             the whole set on the one device).
+        steps_per_execution: run the train and eval steps of an epoch in
+            chunks of this many over the device cache (requires
+            ``cache_on_device``): on CUDA each chunk is one replayed CUDA
+            graph, so the host launches once a chunk; the per-step
+            callbacks fire after each chunk. 1 (default): a step at a time.
+            A set that fell back to the host loader steps one at a time.
+        pipeline_epochs: defer each epoch's host side (loss fetch, NaN
+            guard, best-model tracking, logging, ``on_epoch_end``) by up to
+            ``pipeline_depth`` epochs, so the host queues the next epochs
+            while the device works. Logged values equal the synchronous
+            loop's; they arrive in bursts, and a NaN shows up to
+            ``pipeline_depth`` epochs late. Checkpoint and prediction
+            epochs, the epoch before a ``prepare_train_step`` boundary and
+            the last epoch finalize at once. Off by itself with
+            ``ReduceLROnPlateau``, with replaced step hooks and with a
+            callback that has its own ``on_epoch_end``. On by default, as
+            in the JAX package.
+        pipeline_depth: the most epochs finalization may lag; each keeps a
+            copy of the weights on the device until then where best-model
+            tracking may keep them.
     """
 
     output_dir: Optional[str] = None
@@ -78,17 +101,35 @@ class BaseTrainerConfig(BaseConfig):
     cache_on_device: bool = False
     device_cache_budget_gb: float = 8.0
     device_cache_layout: str = "auto"
+    steps_per_execution: int = 1
+    pipeline_epochs: bool = True
+    pipeline_depth: int = 8
 
     def __post_init__(self):
+        if self.steps_per_execution < 1:
+            raise AttributeError(
+                "steps_per_execution must be a positive integer, got "
+                f"{self.steps_per_execution}."
+            )
         if self.microbatch_steps < 1:
             raise AttributeError(
                 "microbatch_steps must be a positive integer, got "
                 f"{self.microbatch_steps}."
             )
+        if self.pipeline_depth < 1:
+            raise AttributeError(
+                "pipeline_depth must be a positive integer, got "
+                f"{self.pipeline_depth}."
+            )
         if self.device_cache_layout not in ("auto", "replicated", "sharded"):
             raise AttributeError(
                 "device_cache_layout must be 'auto', 'replicated' or "
                 f"'sharded', got {self.device_cache_layout!r}."
+            )
+        if self.steps_per_execution > 1 and not self.cache_on_device:
+            raise AttributeError(
+                "steps_per_execution > 1 requires cache_on_device=True "
+                "(fused multi-step dispatch gathers batches on device)."
             )
         check_specs(self.optimizer_cls, self.learning_rate,
                     self.optimizer_params, self.scheduler_cls,

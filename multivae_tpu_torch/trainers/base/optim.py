@@ -15,6 +15,12 @@ optax's ``eps_root``, Adam's ``nesterov`` and RAdam's ``threshold``, and
 optax's Adagrad and RMSprop (their defaults, and ``eps`` inside the square
 root). Schedulers are ``torch.optim.lr_scheduler`` classes by name, stepped
 once per epoch.
+
+``make_capturable`` readies an optimizer for CUDA graph capture (the
+trainer's ``steps_per_execution``): the step counts live on the device and
+the bias corrections are tensor ops on them, and each learning rate is a
+0-d device tensor that the schedulers fill in place. SGD has no such mode:
+its learning rate stays a number, which a graph bakes in.
 """
 
 from __future__ import annotations
@@ -44,11 +50,20 @@ _SCHEDULERS = ("StepLR", "MultiStepLR", "ExponentialLR", "LinearLR",
                "CosineAnnealingWarmRestarts", "ReduceLROnPlateau")
 
 
+def _add_scaled_(xs, ys, c):
+    """xs += c * ys for a number or a 0-d tensor ``c``."""
+    if isinstance(c, torch.Tensor):
+        torch._foreach_add_(xs, torch._foreach_mul(ys, c))
+    else:
+        torch._foreach_add_(xs, ys, alpha=c)
+
+
 def _adam_rule(ps, gs, states, h, t):
     """optax ``scale_by_adam`` / ``scale_by_amsgrad`` / ``scale_by_radam``
     times -lr, with torch's coupled ``weight_decay`` for Adam and RAdam and
     optax's decoupled one (``add_decayed_weights``) for AdamW; over the
-    parameters ``ps`` at step ``t`` with ``torch._foreach_*`` ops."""
+    parameters ``ps`` at step ``t`` (a number, or a 0-d device tensor when
+    capturable) with ``torch._foreach_*`` ops."""
     b1, b2 = h["b1"], h["b2"]
     if h["weight_decay"] and not h["decoupled"]:
         gs = torch._foreach_add(gs, ps, alpha=h["weight_decay"])
@@ -64,7 +79,7 @@ def _adam_rule(ps, gs, states, h, t):
     torch._foreach_addcmul_(nus, gs, gs, value=1 - b2)
     if h["nesterov"]:
         mu_hat = torch._foreach_mul(mus, b1 / (1 - b1 ** (t + 1)))
-        torch._foreach_add_(mu_hat, gs, alpha=(1 - b1) / (1 - b1 ** t))
+        _add_scaled_(mu_hat, gs, (1 - b1) / (1 - b1 ** t))
     else:
         mu_hat = torch._foreach_div(mus, 1 - b1 ** t)
     nu_hat = torch._foreach_div(nus, 1 - b2 ** t)
@@ -78,7 +93,12 @@ def _adam_rule(ps, gs, states, h, t):
     if h["threshold"] is not None:   # RAdam: rectify while the variance is tractable
         ro_inf = 2.0 / (1.0 - b2) - 1.0
         ro = ro_inf - 2 * t * b2 ** t / (1 - b2 ** t)
-        if ro >= h["threshold"]:
+        if isinstance(ro, torch.Tensor):
+            rect = torch.sqrt((ro - 4.0) * (ro - 2.0) * ro_inf
+                              / ((ro_inf - 4.0) * (ro_inf - 2.0) * ro))
+            keep = ro >= h["threshold"]
+            update = [torch.where(keep, u * rect, m) for u, m in zip(update, mu_hat)]
+        elif ro >= h["threshold"]:
             torch._foreach_mul_(update, math.sqrt((ro - 4.0) * (ro - 2.0) * ro_inf
                                                   / ((ro_inf - 4.0) * (ro_inf - 2.0) * ro)))
         else:
@@ -127,8 +147,10 @@ def _rmsprop_rule(p, g, state, h, t):
         nu = nu - mu * mu
     update = -h["lr"] * torch.rsqrt(nu + h["eps"]) * g
     if h["momentum"]:
-        update = state["trace"] = (update if "trace" not in state
-                                   else update + h["momentum"] * state["trace"])
+        if "trace" not in state:
+            state["trace"] = update
+        else:   # in place: a captured graph reads the trace where it was
+            update = state["trace"].mul_(h["momentum"]).add_(update)
     return update
 
 
@@ -136,10 +158,16 @@ class OptaxRule(torch.optim.Optimizer):
     """An optax update rule as a ``torch.optim.Optimizer``: the parameters
     of a group that have a gradient, taken together where they are at the
     same step t (counted from 1 in ``state["step"]``), get
-    ``rule(params, grads, states, group, t)``, the updates to add."""
+    ``rule(params, grads, states, group, t)``, the updates to add.
 
-    def __init__(self, params, rule, lr: float, **hyper):
-        super().__init__(params, dict(lr=lr, **hyper))
+    A ``capturable`` group keeps ``state["step"]`` as a 0-d float32 tensor
+    on the parameter's device, handed to the rule as t, and counts the
+    steps the host has run in ``state["host_step"]``, by which it groups
+    the parameters (a captured graph repeats the grouping of its capture).
+    """
+
+    def __init__(self, params, rule, lr: float, capturable: bool = False, **hyper):
+        super().__init__(params, dict(lr=lr, capturable=capturable, **hyper))
         self.rule = rule
 
     @torch.no_grad()
@@ -149,16 +177,27 @@ class OptaxRule(torch.optim.Optimizer):
             with torch.enable_grad():
                 loss = closure()
         for group in self.param_groups:
+            capturable = group.get("capturable", False)
             by_step = {}
             for p in group["params"]:
                 if p.grad is None:
                     continue
                 state = self.state[p]
-                state["step"] = state.get("step", 0) + 1
-                by_step.setdefault(state["step"], []).append(p)
+                if capturable:
+                    if "step" not in state:
+                        state["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+                    state["host_step"] = state.get("host_step", 0) + 1
+                    by_step.setdefault(state["host_step"], []).append(p)
+                else:
+                    state["step"] = state.get("step", 0) + 1
+                    by_step.setdefault(state["step"], []).append(p)
             for t, ps in by_step.items():
-                updates = self.rule(ps, [p.grad for p in ps],
-                                    [self.state[p] for p in ps], group, t)
+                states = [self.state[p] for p in ps]
+                if capturable:
+                    steps = [s["step"] for s in states]
+                    torch._foreach_add_(steps, 1.0)
+                    t = steps[0]
+                updates = self.rule(ps, [p.grad for p in ps], states, group, t)
                 torch._foreach_add_(ps, updates)
         return loss
 
@@ -227,6 +266,31 @@ def make_optimizer(optimizer_cls: str, parameters, learning_rate: float,
             f"Error in optimizer's parameters. Unknown parameters {unknown} "
             f"for `{optimizer_cls}` (allowed: {sorted(allowed)}).")
     return _build(optimizer_cls, parameters, learning_rate, {**defaults, **params})
+
+
+def make_capturable(optimizer):
+    """Ready ``optimizer`` (built by ``make_optimizer``, maybe loaded from a
+    state dict) for CUDA graph capture, in place: every group that has a
+    ``capturable`` mode gets it, its learning rate becomes a 0-d float32
+    tensor on its parameters' device (the schedulers then ``fill_`` it)
+    and its step counts device tensors. SGD's groups, which have no such
+    mode, are left as they are."""
+    for group in optimizer.param_groups:
+        if "capturable" not in group:
+            continue
+        group["capturable"] = True
+        device = group["params"][0].device
+        if not (isinstance(group["lr"], torch.Tensor) and group["lr"].device == device):
+            group["lr"] = torch.tensor(float(group["lr"]), dtype=torch.float32, device=device)
+        for p in group["params"]:
+            state = optimizer.state.get(p, {})
+            step = state.get("step")
+            if step is None or (isinstance(step, torch.Tensor) and step.device == p.device):
+                continue
+            if isinstance(optimizer, OptaxRule):
+                state["host_step"] = int(step)
+            state["step"] = torch.tensor(float(step), dtype=torch.float32, device=p.device)
+    return optimizer
 
 
 def make_scheduler(scheduler_cls: Optional[str], optimizer,

@@ -15,7 +15,10 @@ for JNF (``[warmup + 1]``) the reset and the flip come at the start of the
 same epoch, the stage set first.
 
 The optimizer is a new object after a reset: hooks registered on the old
-one do not carry over.
+one do not carry over. A reset and a stage change drop the captured CUDA
+graphs of ``steps_per_execution``. The epochs of both are the trainer's
+``_prepare_boundaries``, so the pipelined finalization finalizes the epoch
+before each at once and defers the others, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -23,7 +26,6 @@ from __future__ import annotations
 import logging
 
 from ..base.base_trainer import BaseTrainer
-from ..base.optim import make_optimizer, make_scheduler
 
 logger = logging.getLogger(__name__)
 
@@ -34,20 +36,30 @@ class MultistageTrainer(BaseTrainer):
     def checktrainer(self, model):
         return
 
+    def _prepare_boundaries(self):
+        """The reset epochs and the epochs whose stage differs from the one
+        before (JAX ``MultistageTrainer._prepare_boundaries``)."""
+        model = self.model
+        bounds = set(getattr(model, "reset_optimizer_epochs", []) or [])
+        if hasattr(model, "stage_for_epoch"):
+            for e in range(2, self.training_config.num_epochs + 1):
+                if model.stage_for_epoch(e) != model.stage_for_epoch(e - 1):
+                    bounds.add(e)
+        return bounds
+
     def prepare_train_step(self, epoch, best_train_loss, best_eval_loss):
         model = self.model
         if hasattr(model, "stage_for_epoch"):
-            model.set_stage(model.stage_for_epoch(epoch))
+            stage = model.stage_for_epoch(epoch)
+            if stage != getattr(model, "current_stage", None):
+                self._drop_graphs()
+            model.set_stage(stage)
         if epoch not in getattr(model, "reset_optimizer_epochs", []):
             return best_train_loss, best_eval_loss
         logger.info("Epoch %s: reset the optimizer and the best losses, going on "
                     "from the best model so far.", epoch)
-        cfg = self.training_config
         self.save_checkpoint(dir_path=self.training_dir, epoch=epoch - 1)
         self._restore_best()
-        self.optimizer = make_optimizer(cfg.optimizer_cls, model.parameters(),
-                                        cfg.learning_rate, cfg.optimizer_params)
-        self.scheduler = make_scheduler(cfg.scheduler_cls, self.optimizer,
-                                        cfg.scheduler_params)
+        self._build_optimizer()
         self._best_state = None
         return 1e12, 1e12
