@@ -244,7 +244,23 @@ Phases (any failure exits non-zero and prints no result line):
     are printed. Steps/s over the steady epochs come from CUDA events
     at each train pass's start and after its last step; capture seconds and
     the growth of reserved memory (the graphs' pools);
-24. the seconds the whole run took, a ``kernels`` JSON line (launches
+24. ``data_parallel``: training through a ``torch.distributed`` process
+    group (``parallel/mesh.py``), under cuDNN's deterministic algorithms:
+    ``mmvae_conv`` (1,024 incomplete rows, DReG: the mixture kernels in
+    every rank's step) and ``mvtcae_conv`` (1,000 rows: the last batch's 24
+    padding rows on rank 1; ReduceLROnPlateau on the global eval loss), 2
+    epochs at the global batch of 256, each (a) in one process with no
+    group, (b) in a group of one process over NCCL opened in this process,
+    equal to (a) bit for bit (every epoch's losses, the weights), and (c) by
+    two ranks on the one card over gloo, spawned (``--dp-rank``), at 128
+    rows each: within ``DP_RTOL`` of (a) on every epoch's train and eval
+    loss and ``DP_MOVE_RTOL`` on the weights' moves, the ranks' replicas
+    bit-equal, each rank's own counters at 2 mixture forwards and 1 dz-only
+    backward a step (and the forwards of each eval step); with more than one
+    card, also by min(cards, 4) ranks over NCCL, one card each. Steps/s of
+    each, the gradient bytes all-reduced a step and the all-reduce's ms a
+    step (CUDA events around it) under NCCL and gloo, the phase's seconds;
+25. the seconds the whole run took, a ``kernels`` JSON line (launches
     summed over every training and inference phase that runs the kernels),
     then the last line
     ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -257,6 +273,7 @@ import copy
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2886,6 +2903,341 @@ def _pipeline_runs(mx, device, out):
               f"eager run by {run['vs_eager_capturable']} > {GRAPHED_RTOL}")
     return rec
 
+# ---------------------------------------------------------- data_parallel
+# (workload, train rows, mixture launches a train step). mmvae_conv's 1,024
+# rows make 4 full global batches of 256; mvtcae_conv's 1,000 leave a last
+# batch of 232 rows and 24 padding rows, which fall on rank 1 of 2.
+DP_WORKLOADS = (("mmvae_conv", 1024, {"fwd": 2, "bwd_dz": 1}), ("mvtcae_conv", 1000, {}))
+DP_EPOCHS = 2
+DP_BATCH = 256                 # the global train and eval batch
+DP_RANK_TIMEOUT = 300          # seconds a spawned rank may take
+DP_GROUP_TIMEOUT = 120         # seconds a collective may wait for its partners
+# N ranks against one process on the global batch, under cuDNN's
+# deterministic algorithms on both sides: the same steps on the same draws
+# and batches, but each rank sums its half of every batch reduction (the
+# loss, the convolutions' weight gradients) before the all-reduce adds the
+# halves. On the CPU the tests (tests/test_torch_data_parallel.py: the 14
+# families at small widths under SGD) find that order moves the epoch
+# losses by at most 1.4e-5 relative and the weights by 3e-7. A CPU
+# rehearsal of this phase (batch 16 over 2 gloo ranks, 64 and 60 rows, 32
+# eval rows, 2 epochs, Adam) found gaps of 9.3e-6 (train) and 5.5e-6
+# (eval) in the epoch losses and 1.6e-2 in the weights' moves for
+# mmvae_conv, 1.3e-7, 2.1e-7 and 1.0e-3 for mvtcae_conv: Adam turns a
+# gradient entry near 0 into a step of the rate's size in a direction that
+# float32 noise sets, and MMVAE's DReG gradients hold many. The gates: the
+# losses within DP_RTOL (10x the larger loss gap), the moves within
+# DP_MOVE_RTOL (6x), which the wrong noise misses (a resume without the
+# generator's state moved mmvae_conv's weights by 0.40 in trainer_lifecycle).
+DP_RTOL = 1e-4
+DP_MOVE_RTOL = 0.1
+
+
+class _TimedReducer:
+    """The trainer's gradient reducer, each call bracketed by CUDA events
+    (and host time), counting its calls."""
+
+    def __init__(self, reducer):
+        self.reducer, self.events, self.host_s = reducer, [], []
+
+    def __call__(self):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        self.reducer()
+        b.record()
+        self.host_s.append(time.perf_counter() - t0)
+        self.events.append((a, b))
+
+    def summary(self) -> dict:
+        ms = [a.elapsed_time(b) for a, b in self.events]
+        return {"calls": len(ms), "ms_per_step": float(np.median(ms)),
+                "host_ms_per_step": 1e3 * float(np.median(self.host_s)),
+                "bytes_per_step": self.reducer.bytes_reduced}
+
+
+def _pass_launches(mx):
+    """A callback that counts the mixture launches of the train passes and
+    of the eval passes apart, reading the counters at the start of each
+    pass and at ``close``."""
+    from multivae_tpu_torch.trainers.base.callbacks import TrainingCallback
+
+    class PassLaunches(TrainingCallback):
+        def __init__(self):
+            self.current, self.mark = None, None
+            self.launches = {"train": {k: 0 for k in KERNELS},
+                             "eval": {k: 0 for k in KERNELS}}
+
+        def _switch(self, which):
+            if self.current is not None:
+                for k in KERNELS:
+                    self.launches[self.current][k] += mx.launches[k] - self.mark[k]
+            self.current, self.mark = which, dict(mx.launches)
+
+        def on_train_step_begin(self, training_config, **kwargs):
+            self._switch("train")
+
+        def on_eval_step_begin(self, training_config, **kwargs):
+            self._switch("eval")
+
+        def close(self):
+            self._switch(None)
+
+    return PassLaunches()
+
+
+def _dp_run(mx, name, rows, per_step, per_device, device="cuda", epochs=DP_EPOCHS):
+    """``name`` of ``tools/workloads.py`` on ``rows`` seeded rows, trained
+    ``epochs`` epochs by ``BaseTrainer`` at ``per_device`` rows a device,
+    alone or as this rank of the process group that exists; returns (its
+    record, the start and final weights on the host). The mixture kernels
+    must launch ``per_step`` times on each train step and its forwards on
+    each eval step, on this process's counters."""
+    from multivae_tpu_torch.tools import workloads
+    from multivae_tpu_torch.trainers import BaseTrainer, BaseTrainerConfig
+
+    w = workloads.build(name, n=rows, device=device)
+    kwargs = dict(w.trainer_kwargs, per_device_train_batch_size=per_device,
+                  per_device_eval_batch_size=per_device)
+    passes = _pass_launches(mx)
+    trainer = BaseTrainer(w.model, w.train, w.eval, device=device, callbacks=[passes],
+                          training_config=BaseTrainerConfig(
+                              output_dir=os.path.join(ROOT, "build", "chip_smoke", "dp"),
+                              num_epochs=epochs, seed=0, **kwargs))
+    start = {k: v.detach().cpu().clone() for k, v in w.model.state_dict().items()}
+    timer = None
+    if trainer._reducer is not None:
+        timer = trainer._reducer = _TimedReducer(trainer._reducer)
+    step_ends = []
+
+    def on_step(*_):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        step_ends.append((len(trainer.history), ev))
+
+    trainer.optimizer.register_step_post_hook(on_step)
+    torch.cuda.synchronize()
+    mx.reset_launches()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    passes.close()
+    launches = dict(mx.launches)
+    steps = epochs * len(trainer.train_loader)
+    eval_steps = 0 if w.eval is None else epochs * len(trainer.eval_loader)
+    check(len(step_ends) == steps, f"{name}: expected {steps} steps, ran {len(step_ends)}")
+    who = f"{name} (rank {trainer.mesh.rank} of {trainer.mesh.world_size})"
+    for which, n, want in (("train", steps, per_step),
+                           ("eval", eval_steps, {"fwd": per_step.get("fwd", 0)})):
+        expected = {k: want.get(k, 0) * n for k in KERNELS}
+        check(passes.launches[which] == expected,
+              f"{who}: expected {expected} launches in the {which} passes, "
+              f"got {passes.launches[which]}")
+    losses = [h["train_epoch_loss"] for h in trainer.history]
+    check(all(np.isfinite(losses)), f"{name}: non-finite epoch loss {losses}")
+    gaps = [a.elapsed_time(b) for (ea, a), (eb, b) in zip(step_ends, step_ends[1:]) if ea == eb]
+    record = {"world": trainer.mesh.world_size, "rank": trainer.mesh.rank,
+              "backend": trainer.mesh.backend, "device": str(trainer.device),
+              "per_device_batch": per_device, "steps": steps, "eval_steps": eval_steps,
+              "epoch_losses": losses, "eval_losses": [h["eval_epoch_loss"] for h in trainer.history],
+              "lr": trainer.optimizer.param_groups[0]["lr"],
+              "steps_per_s": len(gaps) / (sum(gaps) / 1e3), "wall_s": wall_s,
+              "launches": launches, "launches_per_step": {
+                  which: {k: v / n for k, v in passes.launches[which].items()}
+                  for which, n in (("train", steps), ("eval", eval_steps)) if n}}
+    if timer is not None:
+        record["all_reduce"] = timer.summary()
+        check(record["all_reduce"]["calls"] == steps,
+              f"{name}: {record['all_reduce']['calls']} gradient all-reduces in {steps} steps")
+    final = {k: v.detach().cpu().clone() for k, v in w.model.state_dict().items()}
+    if trainer.is_main_process:   # every rank has left train(): the final model is written
+        shutil.rmtree(trainer.training_dir, ignore_errors=True)
+    del trainer, w
+    torch.cuda.empty_cache()
+    return record, start, final
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_rank_main(argv, device="cuda"):
+    """A spawned rank: ``--dp-rank R WORLD PORT BACKEND OUT``. Joins the
+    group at ``tcp://127.0.0.1:PORT`` and runs every workload of
+    ``DP_WORKLOADS`` at its share of ``DP_BATCH``, saving each record and
+    final weights under ``OUT``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    rank, world, port, backend, out = int(argv[0]), int(argv[1]), argv[2], argv[3], argv[4]
+    from multivae_tpu_torch.ops import mixture as mx
+
+    if device == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=DP_GROUP_TIMEOUT))
+    try:
+        for name, rows, per_step in DP_WORKLOADS:
+            record, _, final = _dp_run(mx, name, rows, per_step, DP_BATCH // world, device)
+            torch.save(final, os.path.join(out, f"{name}_rank{rank}.pt"))
+            with open(os.path.join(out, f"{name}_rank{rank}.json"), "w") as f:
+                json.dump(record, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _spawn_ranks(world, backend, out, command):
+    """``world`` ranks of ``command`` (``dp_rank_main``'s) over ``backend``;
+    each must exit 0 within ``DP_RANK_TIMEOUT``, or the phase fails (every
+    rank is killed)."""
+    os.makedirs(out, exist_ok=True)
+    port = str(_free_port())
+    logs = [open(os.path.join(out, f"rank{r}.log"), "w") for r in range(world)]
+    procs = [subprocess.Popen(command + [str(r), str(world), port, backend, out],
+                              cwd=ROOT, stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(world)]
+    deadline = time.monotonic() + DP_RANK_TIMEOUT
+    try:
+        for r, p in enumerate(procs):
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 1))
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"{backend} rank {r} of {world} timed out")
+            if p.returncode:
+                with open(os.path.join(out, f"rank{r}.log")) as f:
+                    tail = f.read()[-3000:]
+                raise SmokeFailure(f"{backend} rank {r} of {world} exited {p.returncode}:\n{tail}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+
+
+def _dp_compare(label, ref, ref_start, ref_final, run, final, exact):
+    """``run`` (record, final weights) against the one-process ``ref``: gap 0
+    (``exact``) or within DP_RTOL / DP_MOVE_RTOL."""
+    gaps = {"train_rel_gap": max(_rel(a, b) for a, b in zip(run["epoch_losses"],
+                                                             ref["epoch_losses"])),
+            "eval_rel_gap": max(_rel(a, b) for a, b in zip(run["eval_losses"],
+                                                            ref["eval_losses"])),
+            "move_rel_gap": _move_gap(ref_start, final, ref_final)}
+    if exact:
+        same = all(torch.equal(final[k], v) for k, v in ref_final.items())
+        check(same and run["epoch_losses"] == ref["epoch_losses"]
+              and run["eval_losses"] == ref["eval_losses"],
+              f"{label}: not equal to the run with no group: {gaps}")
+    else:
+        check(gaps["train_rel_gap"] <= DP_RTOL and gaps["eval_rel_gap"] <= DP_RTOL
+              and gaps["move_rel_gap"] <= DP_MOVE_RTOL,
+              f"{label}: beyond {DP_RTOL} / {DP_MOVE_RTOL} of the run with no group: {gaps}")
+    check(run["lr"] == ref["lr"], f"{label}: rate {run['lr']} against {ref['lr']}")
+    return gaps
+
+
+def data_parallel(mx, device="cuda", one_process_backend="nccl", rank_command=None):
+    """The ``data_parallel`` phase: each workload of ``DP_WORKLOADS`` trained
+    (a) alone at batch ``DP_BATCH``, (b) in a group of one process over NCCL
+    opened here, which must equal (a) exactly, (c) by two ranks sharing the
+    card over gloo at half the batch each, spawned, which must equal (a)
+    within DP_RTOL / DP_MOVE_RTOL, their replicas bit-equal and each rank's
+    own counters at the workload's launches a step; with more than one card,
+    also by min(cards, 4) ranks over NCCL, one card each. cuDNN runs its
+    deterministic algorithms throughout. Returns (the record, the launches
+    of (a) and (b) and of every spawned rank). ``one_process_backend`` and
+    ``rank_command`` (the spawned ranks' command line before the rank's
+    arguments) let a CPU rehearsal run the phase over gloo."""
+    import datetime
+
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    out = os.path.join(ROOT, "build", "chip_smoke", "data_parallel")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    counts = {k: 0 for k in KERNELS}
+    record = {"phase": "data_parallel", "epochs": DP_EPOCHS, "global_batch": DP_BATCH}
+    try:
+        groups = [("gloo", 2, os.path.join(out, "gloo2"))]
+        n_cards = torch.cuda.device_count()
+        if n_cards > 1:
+            n = min(n_cards, 4)
+            groups.append(("nccl", n if DP_BATCH % n == 0 else 2,
+                           os.path.join(out, f"nccl{n_cards}")))
+        record["cards"] = n_cards
+        runs = {}
+        for name, rows, per_step in DP_WORKLOADS:
+            alone, start, final = _dp_run(mx, name, rows, per_step, DP_BATCH, device)
+            dist.init_process_group(one_process_backend, init_method=f"tcp://127.0.0.1:{_free_port()}",
+                                    world_size=1, rank=0,
+                                    timeout=datetime.timedelta(seconds=DP_GROUP_TIMEOUT))
+            try:
+                nccl1, _, nccl1_final = _dp_run(mx, name, rows, per_step, DP_BATCH, device)
+            finally:
+                dist.destroy_process_group()
+            for k in KERNELS:
+                counts[k] += alone["launches"][k] + nccl1["launches"][k]
+            runs[name] = dict(alone=(alone, start, final), nccl1=nccl1, gaps={
+                "nccl1": _dp_compare(f"{name} {one_process_backend} world 1", alone, start,
+                                     final, nccl1, nccl1_final, exact=True)})
+        for backend, world, group_out in groups:
+            t0 = time.perf_counter()
+            _spawn_ranks(world, backend, group_out, rank_command or [
+                sys.executable, os.path.abspath(__file__), "--dp-rank"])
+            spawn_s = time.perf_counter() - t0
+            for name, _, _ in DP_WORKLOADS:
+                alone, start, final = runs[name]["alone"]
+                ranks = []
+                for r in range(world):
+                    with open(os.path.join(group_out, f"{name}_rank{r}.json")) as f:
+                        ranks.append(json.load(f))
+                    weights = torch.load(os.path.join(group_out, f"{name}_rank{r}.pt"),
+                                         weights_only=True)
+                    if r == 0:
+                        first = weights
+                    else:
+                        check(all(torch.equal(weights[k], v) for k, v in first.items()),
+                              f"{name}: rank {r}'s replica differs from rank 0's")
+                    check(ranks[-1]["epoch_losses"] == ranks[0]["epoch_losses"],
+                          f"{name}: ranks logged different losses")
+                    for k in KERNELS:
+                        counts[k] += ranks[-1]["launches"][k]
+                label = f"{backend}{world}"
+                runs[name]["gaps"][label] = _dp_compare(f"{name} {label}", alone, start, final,
+                                                        ranks[0], first, exact=False)
+                runs[name][label] = ranks
+            record[f"{backend}{world}_spawn_and_train_s"] = spawn_s
+            shutil.rmtree(group_out, ignore_errors=True)
+        for name, run in runs.items():
+            alone = run["alone"][0]
+            summary = {"alone": {k: alone[k] for k in ("steps_per_s", "epoch_losses",
+                                                       "eval_losses", "launches_per_step")},
+                       "nccl1": {k: run["nccl1"][k] for k in (
+                           "steps_per_s", "all_reduce", "launches_per_step")},
+                       "gaps": run["gaps"]}
+            for label in (f"{b}{w}" for b, w, _ in groups):
+                summary[label] = [{k: r[k] for k in ("rank", "device", "per_device_batch",
+                                                     "steps_per_s", "all_reduce",
+                                                     "launches_per_step")}
+                                  for r in run[label]]
+            record[name] = summary
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    record["seconds"] = time.perf_counter() - t_phase
+    return record, counts
+
+
 def main():
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3058,6 +3410,9 @@ def main():
         print(json.dumps({k: v for k, v in record.items() if k in (
             "phase", "seconds", "launches", "chunk")}))
         add(counts)
+        record, counts = data_parallel(mx)
+        print(json.dumps(record))
+        add(counts)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3081,4 +3436,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:
+        sys.exit(dp_rank_main(sys.argv[2:]))
     sys.exit(main())

@@ -104,7 +104,7 @@ class PlanBuffer:
 
     def __init__(self, loader, device):
         self.loader = loader
-        n_batches, batch = len(loader), loader.batch_size
+        n_batches, batch = len(loader), loader.per_process_batch
         self.idx = torch.empty((n_batches, batch), dtype=torch.int64, device=device)
         self.weights = torch.empty((n_batches, batch), dtype=torch.float32, device=device)
 

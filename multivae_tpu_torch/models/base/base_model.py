@@ -23,6 +23,7 @@ only there, and pickled custom architectures load only with
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import sys
@@ -32,6 +33,7 @@ import torch
 from torch import nn
 
 from ...ops.gaussian import rsample_from_gaussian
+from ...parallel.shard import NO_SHARD, DataShard
 from ...utils.config import EnvironmentConfig, get_config_class
 
 logger = logging.getLogger(__name__)
@@ -68,6 +70,23 @@ class BaseModel(nn.Module):
     def device(self) -> torch.device:
         return next(self.parameters()).device
 
+    #: this process's part of a data-parallel step's global batch
+    #: (``parallel/shard.py``); the trainer sets it around its steps
+    data_shard: DataShard = NO_SHARD
+
+    @contextlib.contextmanager
+    def sharded(self, shard: Optional[DataShard]):
+        """``data_shard`` set to ``shard`` inside the block (None: no
+        change)."""
+        if shard is None:
+            yield
+            return
+        self.data_shard = shard
+        try:
+            yield
+        finally:
+            del self.data_shard
+
     def draw_noise(self, shape, generator: Optional[torch.Generator] = None):
         """Standard-normal noise of ``shape`` on the model's device: every
         sample the model draws comes from here, so a test can feed another
@@ -80,12 +99,16 @@ class BaseModel(nn.Module):
         return torch.rand(shape, generator=generator, device=self.device)
 
     def _sample(self, mu, log_var, N: int = 1, return_mean: bool = False,
-                flatten: bool = False, generator: Optional[torch.Generator] = None):
+                flatten: bool = False, generator: Optional[torch.Generator] = None,
+                row_blocks: int = 1):
         """``rsample_from_gaussian`` with its noise from ``draw_noise`` (none
-        drawn with ``return_mean``)."""
+        drawn with ``return_mean``); ``mu``'s first axis holds the rows, in
+        ``row_blocks`` blocks."""
         noise = None
         if not return_mean:
-            noise = self.draw_noise(mu.shape if N == 1 else (N, *mu.shape), generator)
+            noise = self.data_shard.draw(self.draw_noise,
+                                         mu.shape if N == 1 else (N, *mu.shape), generator,
+                                         axis=-mu.dim(), blocks=row_blocks)
         return rsample_from_gaussian(mu, log_var, N=N, return_mean=return_mean,
                                      flatten=flatten, noise=noise)
 

@@ -50,15 +50,16 @@ class CRMVAE(BaseMultiVAE):
                       generator: Optional[torch.Generator] = None) -> ModelOutput:
         joint_mu, joint_lv, (mus, log_vars, _) = self._joint_posterior(batch)
         mods, M = list(self.encoders), self.n_modalities
+        shard = self.data_shard
         w = batch.weights
-        n_data = w.sum().clamp_min(1.0)
+        n_data = shard.total(w.sum()).clamp_min(1.0)
         B = w.shape[0]
 
         # the joint code, then each modality's own (unmasked) code
         z = rsample_from_gaussian(torch.cat([joint_mu[None], mus]),
                                   torch.cat([joint_lv[None], log_vars]),
-                                  noise=self.draw_noise((M + 1, *joint_mu.shape),
-                                                        generator))
+                                  noise=shard.draw(self.draw_noise,
+                                                   (M + 1, *joint_mu.shape), generator))
         zeros = torch.zeros_like(joint_mu)
         divergence = kl_divergence(joint_mu, joint_lv, zeros, zeros)       # (B,)
         metrics = {"joint_divergence": (divergence * w).sum() / n_data}

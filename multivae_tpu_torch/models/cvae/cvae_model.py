@@ -123,13 +123,15 @@ class CVAE(BaseModel):
                       generator: Optional[torch.Generator] = None) -> ModelOutput:
         out = self.encoder(batch.data)
         mu, log_var = out["embedding"], out["log_covariance"]
-        z = rsample_from_gaussian(mu, log_var, noise=self.draw_noise(mu.shape, generator))
+        shard = self.data_shard
+        z = rsample_from_gaussian(mu, log_var, noise=shard.draw(self.draw_noise, mu.shape,
+                                                                generator))
         cond = self._cond(batch.data)
         prior_mu, prior_lv = self._prior(cond, mu)
         recon = self.decoder(z, cond)["reconstruction"]
         lp = -self.recon_log_prob(recon, batch.data[self.main_modality])
         w = batch.weights
-        n_data = w.sum().clamp_min(1.0)
+        n_data = shard.total(w.sum()).clamp_min(1.0)
         recon_loss = (lp.reshape(lp.shape[0], -1) * w[:, None]).sum() / n_data
         kl = (kl_divergence(mu, log_var, prior_mu, prior_lv) * w).sum() / n_data
         loss = recon_loss + kl * self.beta

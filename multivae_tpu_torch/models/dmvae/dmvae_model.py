@@ -114,14 +114,15 @@ class DMVAE(BaseMultiVAE):
         E = len(mods) + 1      # the joint ELBO, then one per modality
         q_mu = torch.stack([joint_mu] + [shared[m][0] for m in mods])       # (E, B, D)
         q_lv = torch.stack([joint_lv] + [shared[m][1] for m in mods])
-        shared_z = rsample_from_gaussian(q_mu, q_lv,
-                                         noise=self.draw_noise(q_mu.shape, generator))
+        shard = self.data_shard
+        shared_z = rsample_from_gaussian(q_mu, q_lv, noise=shard.draw(
+            self.draw_noise, q_mu.shape, generator))
         recon = 0.0
         kl = _std_normal_kl(q_mu, q_lv) * self.beta                          # (E, B)
         for m in mods:
             mu_p, lv_p = private[m]
-            z_p = rsample_from_gaussian(mu_p, lv_p, N=E, noise=self.draw_noise(
-                (E, *mu_p.shape), generator))
+            z_p = rsample_from_gaussian(mu_p, lv_p, N=E, noise=shard.draw(
+                self.draw_noise, (E, *mu_p.shape), generator))
             out = self.decode_mod(m, torch.cat([shared_z, z_p], -1))
             rec = sum_except_batch(self.recon_log_probs[m](out, add_axes(batch.data[m]))
                                    * self.rescale_factors[m], batch_ndims=2)
@@ -130,7 +131,7 @@ class DMVAE(BaseMultiVAE):
         elbos = kl - recon                                                  # (E, B)
 
         w = batch.weights
-        n_data = w.sum().clamp_min(1.0)
+        n_data = shard.total(w.sum()).clamp_min(1.0)
         loss = elbos[0]
         metrics = {"joint": (elbos[0] * w).sum() / n_data}
         for i, m in enumerate(mods):

@@ -49,9 +49,11 @@ class JMVAE(BaseJointModel):
         step = step or StepInfo()
         joint = self.encode_joint(batch.data)
         mu, log_var = joint["embedding"], joint["log_covariance"]
+        shard = self.data_shard
         w = batch.weights
-        n_data = w.sum().clamp_min(1.0)
-        z = rsample_from_gaussian(mu, log_var, noise=self.draw_noise(mu.shape, generator))
+        n_data = shard.total(w.sum()).clamp_min(1.0)
+        z = rsample_from_gaussian(mu, log_var, noise=shard.draw(self.draw_noise, mu.shape,
+                                                                generator))
 
         recon_loss = 0.0
         for m in self.decoders:
@@ -76,7 +78,7 @@ class JMVAE(BaseJointModel):
         annealing = torch.where(epoch >= self.warmup, 1.0, epoch / max(self.warmup, 1))
         loss_sum = recon_loss + annealing * reg_loss
         metrics = {"loss_no_ponderation": reg_loss + recon_loss,
-                   "beta": annealing,
+                   "beta": shard.share(annealing),
                    "elbo": (recon_loss + kld) / n_data}
         return ModelOutput(loss=loss_sum / n_data, loss_sum=loss_sum, metrics=metrics)
 

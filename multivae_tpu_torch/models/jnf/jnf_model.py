@@ -114,12 +114,13 @@ class JNF(BaseJointModel):
     # ----------------------------------------------------------------- loss
     def loss_function(self, batch: MultimodalBatch, step: Optional[StepInfo] = None,
                       generator: Optional[torch.Generator] = None) -> ModelOutput:
+        shard = self.data_shard
         w = batch.weights
-        n_data = w.sum().clamp_min(1.0)
+        n_data = shard.total(w.sum()).clamp_min(1.0)
         joint = self.encode_joint(batch.data)
         mu, log_var = joint["embedding"], joint["log_covariance"]
-        z_joint = rsample_from_gaussian(mu, log_var,
-                                        noise=self.draw_noise(mu.shape, generator))
+        z_joint = rsample_from_gaussian(mu, log_var, noise=shard.draw(
+            self.draw_noise, mu.shape, generator))
         recon_loss = 0.0
         for m in self.decoders:
             rec = sum_except_batch(-self.recon_log_probs[m](self.decode_mod(m, z_joint),

@@ -189,7 +189,7 @@ class MHVAE(BaseMultiVAE):
 
         def level(key, mu, lv, prior_mu, prior_lv):
             z_dict[f"z_{key}"] = self._sample(mu, lv, return_mean=return_mean,
-                                              generator=generator)
+                                              generator=generator, row_blocks=n_sub)
             kl = _sum_trailing(kl_divergence(mu, lv, prior_mu, prior_lv))
             kl_dict[f"kl_{key}"] = (kl.reshape(n_sub, n_rows) * batch.weights).sum(-1)
 

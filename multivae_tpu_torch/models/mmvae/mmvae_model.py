@@ -98,7 +98,7 @@ class MMVAE(BaseMultiVAE):
                            generator: Optional[torch.Generator] = None):
         zs = {}
         for m, (mu, sigma) in post_params.items():
-            u = self.draw_noise((K, *mu.shape), generator)
+            u = self.data_shard.draw(self.draw_noise, (K, *mu.shape), generator)
             zs[m] = dist_rsample_k(self.dist_name, mu, sigma, K, u=u)
         return zs
 

@@ -144,7 +144,7 @@ class MMVAEPlus(BaseMultiVAE):
                 mu, sigma = post[code]
                 zs[m][code] = dist_rsample_k(
                     self.dist_name, mu, sigma, K,
-                    u=self.draw_noise((K, *mu.shape), generator))
+                    u=self.data_shard.draw(self.draw_noise, (K, *mu.shape), generator))
         return zs
 
     def _cross_prior_draws(self, zs, K: int,
@@ -159,7 +159,8 @@ class MMVAEPlus(BaseMultiVAE):
             shape = (M, B, self.modalities_specific_dim)
             w_prior = dist_rsample_k(self.dist_name, p_mu.expand(shape),
                                      p_std.expand(shape), K,
-                                     u=self.draw_noise((K, *shape), generator))
+                                     u=self.data_shard.draw(self.draw_noise, (K, *shape),
+                                                            generator))
             cross_w[recon_mod] = w_prior.movedim(0, 1)  # (M, K, B, S)
         return cross_w
 

@@ -140,13 +140,17 @@ class MoPoE(BaseMultiVAE):
         incomplete data, the equal index-range split on complete data."""
         mus, log_vars, enc = self._all_subset_posteriors(batch)
         S, B = mus.shape[:2]
+        shard = self.data_shard
         if incomplete:
             avail = self._availabilities(batch)
             weights = avail / avail.sum(0).clamp_min(1e-12)
-            idx = self.draw_components(torch.log(weights.T.clamp_min(1e-12)), generator)
+            # drawn for the global batch's rows, this process's kept
+            idx = shard.own(self.draw_components(
+                shard.spread(torch.log(weights.T.clamp_min(1e-12))), generator))
         else:
+            # the split of the global batch's index range
             weights = torch.full((S, B), 1.0 / S, dtype=mus.dtype, device=mus.device)
-            idx = (torch.arange(B, device=mus.device) // max(B // S, 1)).clamp_max(S - 1)
+            idx = (shard.rows(B, mus.device) // max(B * shard.world // S, 1)).clamp_max(S - 1)
         rows = torch.arange(B, device=mus.device)
         return {"mus": mus, "log_vars": log_vars, "weights": weights,
                 "joint": (mus[idx, rows], log_vars[idx, rows]), "modalities": enc}
@@ -156,9 +160,11 @@ class MoPoE(BaseMultiVAE):
                       generator: Optional[torch.Generator] = None) -> ModelOutput:
         latents = self._inference(batch, batch.incomplete, generator)
         jmu, jlv = latents["joint"]
-        z = rsample_from_gaussian(jmu, jlv, noise=self.draw_noise(jmu.shape, generator))
+        shard = self.data_shard
+        z = rsample_from_gaussian(jmu, jlv, noise=shard.draw(self.draw_noise, jmu.shape,
+                                                             generator))
         w = batch.weights
-        n_data = w.sum().clamp_min(1.0)
+        n_data = shard.total(w.sum()).clamp_min(1.0)
         klds = _std_normal_kl(latents["mus"], latents["log_vars"])        # (S, B)
         kld = ((latents["weights"] * klds).sum(0) * w).sum() / n_data
         metrics = {"joint_divergence": kld}
@@ -170,7 +176,8 @@ class MoPoE(BaseMultiVAE):
                 o = latents["modalities"][m]
                 style_mu, style_lv = o["style_embedding"], o["style_log_covariance"]
                 style_z = rsample_from_gaussian(
-                    style_mu, style_lv, noise=self.draw_noise(style_mu.shape, generator))
+                    style_mu, style_lv, noise=shard.draw(self.draw_noise, style_mu.shape,
+                                                         generator))
                 emb = torch.cat([z, style_z], -1)
             m_rec = sum_except_batch(-self.recon_log_probs[m](self.decode_mod(m, emb),
                                                               batch.data[m])

@@ -83,11 +83,13 @@ class MVAE(BaseMultiVAE):
         """The S subset ELBOs of ``rows`` (S, M) in one stacked pass:
         (elbo, kld, recon, effective rows), each (S,)."""
         sub_mu, sub_lv = self._subset_posteriors(mus, log_vars, mask, rows)
-        z = rsample_from_gaussian(sub_mu, sub_lv,
-                                  noise=self.draw_noise(sub_mu.shape, generator))
+        shard = self.data_shard
+        z = rsample_from_gaussian(sub_mu, sub_lv, noise=shard.draw(
+            self.draw_noise, sub_mu.shape, generator))
         # a row counts for a subset when it holds one of its modalities
         w = (mask[None] * rows[:, :, None]).amax(1) * batch.weights[None]   # (S, B)
-        n_eff = w.sum(-1).clamp_min(1.0)
+        w_total = shard.total(w.sum(-1))
+        n_eff = w_total.clamp_min(1.0)
         recon_total = 0.0
         for i, m in enumerate(self.encoders):
             recon = self.decode_mod(m, z)                                   # (S, B, ...)
@@ -97,7 +99,7 @@ class MVAE(BaseMultiVAE):
             recon_total = recon_total + (rec_m * w).sum(-1)
         kld = (-0.5 * sum_f32(1.0 + sub_lv - sub_mu ** 2 - torch.exp(sub_lv)) * w).sum(-1)
         elbo = (recon_total + beta * kld) / n_eff
-        return elbo, kld / n_eff, recon_total / n_eff, w.sum(-1)
+        return elbo, kld / n_eff, recon_total / n_eff, w_total
 
     # ----------------------------------------------------------------- loss
     def loss_function(self, batch: MultimodalBatch, step: Optional[StepInfo] = None,
@@ -123,7 +125,7 @@ class MVAE(BaseMultiVAE):
         elbos, klds, recs, n_effs = self._elbo_subsets(
             batch, mus, log_vars, mask, torch.cat(rows), beta, generator)
 
-        metrics = {"beta": beta}
+        metrics = {"beta": self.data_shard.share(beta)}
         names = ["_".join(sorted(mods))] + (mods if self.subsampling else [])
         for i, name in enumerate(names):
             metrics[name] = elbos[i]

@@ -49,10 +49,11 @@ class MVTCAE(BaseMultiVAE):
     def loss_function(self, batch: MultimodalBatch, step: Optional[StepInfo] = None,
                       generator: Optional[torch.Generator] = None) -> ModelOutput:
         joint_mu, joint_log_var, (mus, log_vars, _) = self._joint_posterior(batch)
+        shard = self.data_shard
         w = batch.weights  # (B,), zero on padding rows
-        n_data = w.sum().clamp_min(1.0)
-        z = rsample_from_gaussian(joint_mu, joint_log_var,
-                                  noise=self.draw_noise(joint_mu.shape, generator))
+        n_data = shard.total(w.sum()).clamp_min(1.0)
+        z = rsample_from_gaussian(joint_mu, joint_log_var, noise=shard.draw(
+            self.draw_noise, joint_mu.shape, generator))
 
         # KL(joint || N(0, I)), summed over batch and dims
         joint_kld = (-0.5 * sum_f32(1.0 - torch.exp(joint_log_var) - joint_mu ** 2

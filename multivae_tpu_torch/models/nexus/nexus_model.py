@@ -193,8 +193,8 @@ class Nexus(BaseMultiVAE):
             m_elbo = nlogprob + kld * self.bottom_betas[m] * annealing
             first_level_z[m] = z_m.detach()
             msgs[m] = self.top_encoders[m](first_level_z[m])["embedding"]
-            metrics["recon_loss_" + m] = nlogprob.mean()
-            metrics["kl_" + m] = kld.mean()
+            metrics["recon_loss_" + m] = self.data_shard.mean(nlogprob)
+            metrics["kl_" + m] = self.data_shard.mean(kld)
             bottom_loss = bottom_loss + m_elbo * batch.masks[m]
         return bottom_loss, msgs, first_level_z, metrics
 
@@ -208,7 +208,10 @@ class Nexus(BaseMultiVAE):
             norm = mask.sum(0).clamp_min(1.0)
             return (stacked * mask[..., None]).sum(0) / norm[:, None]
         n_mods, n_rows = stacked.shape[:2]
-        drop, size, scores = self.draw_dropout(n_mods, n_rows, generator)
+        # drawn for the global batch's rows, this process's kept
+        shard = self.data_shard
+        drop, size, scores = self.draw_dropout(n_mods, n_rows * shard.world, generator)
+        drop, size, scores = shard.own(drop), shard.own(size), shard.own(scores, 1)
         ranks = scores.argsort(0).argsort(0)
         keep = (ranks < size[None, :]).to(stacked.dtype)
         keep = torch.where(drop[None, :], keep, torch.ones_like(keep))
@@ -225,26 +228,29 @@ class Nexus(BaseMultiVAE):
         j_mu, j_lv = joint["embedding"], joint["log_covariance"]
         joint_z = self._sample(j_mu, j_lv, generator=generator)
 
+        shard = self.data_shard
         z_recon_loss = 0.0
         for m in self.top_decoders:
             z_m_recon = self.top_decoders[m](joint_z)["reconstruction"]
             if m in self.adapt_top_decoder_variance:
-                scale = ((first_level_z[m] - z_m_recon) ** 2).mean(
-                    dim=(0, 1), keepdim=True).sqrt()
+                # the RMS error over the global batch
+                scale = shard.global_mean((first_level_z[m] - z_m_recon) ** 2
+                                          ).reshape(1, 1).sqrt()
                 log_var = 2.0 * torch.log(scale.clamp_min(1e-12))
             else:
                 log_var = torch.zeros((1, 1), dtype=z_m_recon.dtype, device=z_m_recon.device)
             lp = gaussian_log_prob(first_level_z[m], z_m_recon, log_var.expand_as(z_m_recon))
             z_m_loss = -sum_f32(lp) * self.gammas[m] * batch.masks[m]
             z_recon_loss = z_recon_loss + z_m_loss
-            metrics["recon_z_" + m] = z_m_loss.mean()
+            metrics["recon_z_" + m] = shard.mean(z_m_loss)
 
         joint_kld = -0.5 * sum_f32(1.0 + j_lv - j_mu ** 2 - torch.exp(j_lv))
         top_loss = z_recon_loss + self.model_config.top_beta * joint_kld * annealing
         total = (top_loss + bottom_loss) * batch.weights
-        n_data = batch.weights.sum().clamp_min(1.0)
-        metrics.update({"annealing": annealing, "bottom_loss": bottom_loss.mean(),
-                        "top_loss": top_loss.mean(), "joint_KLD": joint_kld.mean()})
+        n_data = shard.total(batch.weights.sum()).clamp_min(1.0)
+        metrics.update({"annealing": shard.share(annealing),
+                        "bottom_loss": shard.mean(bottom_loss),
+                        "top_loss": shard.mean(top_loss), "joint_KLD": shard.mean(joint_kld)})
         return ModelOutput(loss=total.sum() / n_data, loss_sum=total.sum(), metrics=metrics)
 
     # -------------------------------------------------------------- encode

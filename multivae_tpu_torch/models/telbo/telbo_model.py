@@ -72,14 +72,15 @@ class TELBO(BaseJointModel):
 
     def loss_function(self, batch: MultimodalBatch, step: Optional[StepInfo] = None,
                       generator: Optional[torch.Generator] = None) -> ModelOutput:
+        shard = self.data_shard
         w = batch.weights
-        n_data = w.sum().clamp_min(1.0)
+        n_data = shard.total(w.sum()).clamp_min(1.0)
         joint = self.encode_joint(batch.data)
         mu, log_var = joint["embedding"], joint["log_covariance"]
 
         if self.current_stage == 1:
-            z = rsample_from_gaussian(mu, log_var,
-                                      noise=self.draw_noise(mu.shape, generator))
+            z = rsample_from_gaussian(mu, log_var, noise=shard.draw(
+                self.draw_noise, mu.shape, generator))
             recon_loss = 0.0
             for m in self.decoders:
                 rec = sum_except_batch(-self.recon_log_probs[m](self.decode_mod(m, z),
@@ -96,8 +97,8 @@ class TELBO(BaseJointModel):
         outs = [self.encode_mod(m, batch.data[m]) for m in mods]
         mus = torch.stack([o["embedding"] for o in outs])
         log_vars = torch.stack([o["log_covariance"] for o in outs])
-        zs = rsample_from_gaussian(mus, log_vars,
-                                   noise=self.draw_noise(mus.shape, generator))
+        zs = rsample_from_gaussian(mus, log_vars, noise=shard.draw(
+            self.draw_noise, mus.shape, generator))
         loss = 0.0
         metrics = {}
         for i, m in enumerate(mods):

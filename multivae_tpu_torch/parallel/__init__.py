@@ -1,0 +1,20 @@
+from .mesh import (
+    DataMesh,
+    GradientReducer,
+    broadcast_module,
+    get_data_mesh,
+    maybe_init_distributed,
+    shard_batch,
+)
+from .shard import NO_SHARD, DataShard
+
+__all__ = [
+    "DataMesh",
+    "DataShard",
+    "GradientReducer",
+    "NO_SHARD",
+    "broadcast_module",
+    "get_data_mesh",
+    "maybe_init_distributed",
+    "shard_batch",
+]

@@ -1,5 +1,6 @@
-"""Single-device epoch trainer (counterpart of the synchronous loop of
-``multivae_tpu/trainers/base/base_trainer.py``).
+"""Epoch trainer (counterpart of the synchronous loop of
+``multivae_tpu/trainers/base/base_trainer.py``), on one device or data
+parallel over a process group, one process per card.
 
 Per epoch: the ``prepare_train_step`` hook (the ``MultistageTrainer``'s
 optimizer reset), the loader's seeded permutation, one optimizer step per
@@ -74,6 +75,25 @@ subclass's ``train_step``/``eval_step``, an undeclared
 ``prepare_train_step``, a callback with its own ``on_epoch_end``) and
 where an instance's hooks were replaced.
 
+Data parallelism (``parallel/mesh.py``): where a ``torch.distributed``
+group exists (opened from ``coordinator_address`` / ``num_processes`` /
+``process_id``, by torchrun, or by the caller), each of its N processes
+trains a replica of the model (rank 0's weights broadcast at
+construction) on its ``per_device_train_batch_size`` columns of a global
+batch N times that. The model's loss sees its part of the global batch
+through ``model.data_shard`` (``parallel/shard.py``): its normalizers are
+the global batch's and its draws the global batch's, this process's rows
+kept, so every value it returns is this process's share of what one
+process computes on the global batch. After each step's backward (after
+the last microbatch chunk) the gradients are summed over the group in one
+flat buffer; the epoch sums are summed once an epoch. So N processes give
+the run of one process on the global batch, up to float32 summation
+order. Only rank 0 logs, writes the prediction grids, the checkpoints, the
+final model and the file log, and fires ``on_prediction_step``,
+``on_save`` and ``on_save_checkpoint``; the other events fire on every
+rank. ``steps_per_execution`` > 1 and the ``"sharded"`` cache layout are
+refused under more than one process.
+
 The JAX trainer's fused whole-epoch blocks (and the in-graph plateau
 scheduler they carry), sharded (orbax) checkpoints and bfloat16 mode
 exist to amortize TPU launch costs or to spread over a TPU mesh and are
@@ -103,6 +123,13 @@ from ...models.base.base_ae_model import BaseMultiVAE
 from ...models.base.base_model import BaseModel
 from ...models.base.step import StepInfo
 from ...ops.microbatch import microbatched_backward
+from ...parallel.mesh import (
+    GradientReducer,
+    broadcast_module,
+    get_data_mesh,
+    maybe_init_distributed,
+)
+from ...parallel.shard import DataShard
 from ...utils.device import resolve_device
 from .base_trainer_config import BaseTrainerConfig
 from .callbacks import (
@@ -137,7 +164,8 @@ class BaseTrainer:
             printer are appended).
         checkpoint: a ``checkpoint_epoch_N`` folder to resume from.
         device: where training runs (default "cuda"; raises when CUDA is
-            absent).
+            absent). Under a process group, "cuda" means this process's
+            card, ``cuda:<local rank mod the visible cards>``.
 
     A model that defines ``reset_optimizer_epochs`` (TELBO, JNF) needs the
     ``MultistageTrainer`` and is refused here.
@@ -152,21 +180,33 @@ class BaseTrainer:
             training_config = BaseTrainerConfig()
         if training_config.output_dir is None:
             training_config.output_dir = "dummy_output_dir"
+        cfg = training_config
         self.device = resolve_device(device)
+        maybe_init_distributed(cfg.coordinator_address, cfg.num_processes,
+                               cfg.process_id, device=self.device)
+        self.mesh = get_data_mesh(cfg.n_devices, self.device)
+        self.device = self.mesh.device
+        self.is_main_process = self.mesh.is_main_process
+        world, rank = self.mesh.world_size, self.mesh.rank
+        if self.mesh.distributed:
+            self._check_data_parallel(cfg)
+            if self.device.type == "cuda":
+                torch.cuda.set_device(self.device)
         self.model = model.to(self.device)
         self.train_dataset = train_dataset
         self.eval_dataset = eval_dataset
         self.training_config = training_config
         self.model_config = getattr(model, "model_config", None)
-        cfg = training_config
 
         set_seed(cfg.seed)
         self.train_loader = DataLoader(
-            train_dataset, cfg.per_device_train_batch_size, shuffle=True,
-            seed=cfg.seed, drop_last=cfg.drop_last)
+            train_dataset, cfg.per_device_train_batch_size * world, shuffle=True,
+            seed=cfg.seed, drop_last=cfg.drop_last, num_processes=world,
+            process_index=rank, chunks=cfg.microbatch_steps)
         self.eval_loader = (
-            DataLoader(eval_dataset, cfg.per_device_eval_batch_size,
-                       shuffle=False, seed=cfg.seed, drop_last=cfg.drop_last)
+            DataLoader(eval_dataset, cfg.per_device_eval_batch_size * world,
+                       shuffle=False, seed=cfg.seed, drop_last=cfg.drop_last,
+                       num_processes=world, process_index=rank)
             if eval_dataset is not None else None)
 
         if cfg.microbatch_steps > 1:
@@ -177,12 +217,26 @@ class BaseTrainer:
                     f"exact for batch-sum losses); {type(model).__name__} "
                     "does not declare loss_is_sum = True."
                 )
-            if cfg.per_device_train_batch_size % cfg.microbatch_steps:
+            if self.train_loader.batch_size % cfg.microbatch_steps:
                 raise AttributeError(
-                    f"global train batch size {cfg.per_device_train_batch_size} "
+                    f"global train batch size {self.train_loader.batch_size} "
                     "is not divisible by microbatch_steps="
                     f"{cfg.microbatch_steps}."
                 )
+            if cfg.per_device_train_batch_size % cfg.microbatch_steps:
+                raise AttributeError(
+                    "per_device_train_batch_size "
+                    f"{cfg.per_device_train_batch_size} is not divisible by "
+                    f"microbatch_steps={cfg.microbatch_steps}: each process "
+                    "takes its share of every chunk.")
+
+        # data parallelism: the model's view of the global batch, the
+        # gradients' all-reduce and rank 0's weights on every rank
+        self._shard = self._reducer = None
+        if self.mesh.distributed:
+            self._shard = DataShard(rank, world, distributed=True)
+            self._reducer = GradientReducer(self.model.parameters(), self.device)
+            broadcast_module(self.model)
 
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         # one generator for every eval pass, seeded anew each epoch, so that
@@ -236,13 +290,16 @@ class BaseTrainer:
         if checkpoint is not None:
             self._resume_from_checkpoint(checkpoint)
 
-        signature = (str(datetime.datetime.now())[:19]
-                     .replace(" ", "_").replace(":", "-"))
+        signature = [str(datetime.datetime.now())[:19]
+                     .replace(" ", "_").replace(":", "-")]
+        if self.mesh.distributed:   # rank 0's: one training dir for all
+            torch.distributed.broadcast_object_list(signature, src=0)
         self.training_dir = os.path.join(
             cfg.output_dir,
             f"{getattr(model, 'model_name', type(model).__name__)}"
-            f"_training_{signature}")
-        os.makedirs(self.training_dir, exist_ok=True)
+            f"_training_{signature[0]}")
+        if self.is_main_process:
+            os.makedirs(self.training_dir, exist_ok=True)
 
         callbacks = list(callbacks) if callbacks is not None else []
         callbacks.append(ProgressBarCallback())
@@ -259,6 +316,21 @@ class BaseTrainer:
                 "reset_optimizer_epochs). Please use "
                 "multivae_tpu_torch.trainers.MultistageTrainer instead of "
                 "BaseTrainer.")
+
+    def _check_data_parallel(self, cfg):
+        """Refuse what the port does not run under a process group yet."""
+        if cfg.steps_per_execution > 1:
+            raise NotImplementedError(
+                "steps_per_execution > 1 under a process group: the gradient "
+                "all-reduce is not captured in the steps' CUDA graphs yet "
+                "(ROADMAP, Queue A: steps_per_execution under NCCL). Use "
+                "steps_per_execution=1.")
+        if (cfg.cache_on_device and cfg.device_cache_layout == "sharded"
+                and self.mesh.world_size > 1):
+            raise NotImplementedError(
+                "device_cache_layout='sharded' over more than one process: each "
+                "process caches the whole set ('replicated' or 'auto'); the "
+                "sharded layout waits (ROADMAP, Queue A).")
 
     def _run_model_sanity_check(self):
         """One forward of the loss on the first train batch. It runs under
@@ -347,14 +419,18 @@ class BaseTrainer:
                             dataset_size=dataset_size)
             if train:
                 self.optimizer.zero_grad(set_to_none=True)
-                out = microbatched_backward(
-                    lambda chunk: self.model.loss_function(chunk, info,
-                                                           generator=generator),
-                    batch, n_micro)
+                with self.model.sharded(self._shard):
+                    out = microbatched_backward(
+                        lambda chunk: self.model.loss_function(chunk, info,
+                                                               generator=generator),
+                        batch, n_micro)
+                if self._reducer is not None:
+                    self._reducer()
                 self.optimizer.step()
                 self.callback_handler.on_train_step_end(self.training_config)
             else:
-                out = self.model.loss_function(batch, info, generator=generator)
+                with self.model.sharded(self._shard):
+                    out = self.model.loss_function(batch, info, generator=generator)
                 self.callback_handler.on_eval_step_end(self.training_config)
             sums["loss_sum"] += out["loss_sum"].detach()
             update_dict(sums, {k: v.detach() for k, v in out.get("metrics", {}).items()})
@@ -441,11 +517,14 @@ class BaseTrainer:
         with torch.no_grad():
             return self._run_epoch(self.eval_loader, epoch, self._eval_generator, train=False)
 
-    @staticmethod
-    def _pack(sums: dict):
+    def _pack(self, sums: dict):
         """(one device vector of the sums, their names): a copy, so that the
-        chunks' buffers may be zeroed for the next epoch."""
-        return torch.stack([v.double() for v in sums.values()]), list(sums)
+        chunks' buffers may be zeroed for the next epoch; under a process
+        group, summed over it (each rank's sums are its shares)."""
+        vec = torch.stack([v.double() for v in sums.values()])
+        if self.mesh.distributed:
+            torch.distributed.all_reduce(vec)
+        return vec, list(sums)
 
     @staticmethod
     def _epoch_values(values, names, loader):
@@ -516,7 +595,7 @@ class BaseTrainer:
             logger.info("New best model on train saved!")
 
         if cfg.steps_predict is not None and (epoch % cfg.steps_predict == 0
-                                              or epoch == 1):
+                                              or epoch == 1) and self.is_main_process:
             reconstructions = self.predict(epoch)
             self.callback_handler.on_prediction_step(
                 cfg, reconstructions=reconstructions, global_step=epoch)
@@ -528,7 +607,8 @@ class BaseTrainer:
 
         if cfg.steps_saving is not None and epoch % cfg.steps_saving == 0:
             self.save_checkpoint(dir_path=self.training_dir, epoch=epoch)
-            logger.info("Saved checkpoint at epoch %s", epoch)
+            if self.is_main_process:
+                logger.info("Saved checkpoint at epoch %s", epoch)
             if self._file_logger is not None:
                 self._file_logger.info(f"Saved checkpoint at epoch {epoch}\n")
 
@@ -551,11 +631,12 @@ class BaseTrainer:
             f"Optimizer: {cfg.optimizer_cls} (lr={cfg.learning_rate})\n"
             f"Scheduler: {cfg.scheduler_cls}\n"
         )
-        logger.info(msg)
-        if log_output_dir is not None:
-            self._file_logger, handler = self._get_file_logger(log_output_dir)
-            self._file_logger.info(msg)
-        logger.info("Successfully launched training !\n")
+        if self.is_main_process:
+            logger.info(msg)
+            if log_output_dir is not None:
+                self._file_logger, handler = self._get_file_logger(log_output_dir)
+                self._file_logger.info(msg)
+            logger.info("Successfully launched training !\n")
         pipelined = self._pipeline_epochs_eligible()
         pending = []
         try:
@@ -595,9 +676,17 @@ class BaseTrainer:
                 handler.close()
                 self._file_logger = None
         final_dir = os.path.join(self.training_dir, "final_model")
-        self.save_model(final_dir)
-        logger.info("Training ended! Saved final model in %s", final_dir)
+        if self.is_main_process:
+            self.save_model(final_dir)
+            logger.info("Training ended! Saved final model in %s", final_dir)
+        self._barrier()   # the final model is on disk when train() returns
         self.callback_handler.on_train_end(cfg)
+
+    def _barrier(self):
+        """Wait for every process of the group (none: return)."""
+        if self.mesh.distributed:
+            torch.distributed.barrier(
+                device_ids=[self.device.index] if self.mesh.backend == "nccl" else None)
 
     # ------------------------------------------------ pipelined finalization
     def _pipeline_epochs_eligible(self) -> bool:
@@ -778,7 +867,13 @@ class BaseTrainer:
     def save_checkpoint(self, dir_path: str, epoch: int):
         """``<dir_path>/checkpoint_epoch_<epoch>``: the kept model, the live
         weights, the optimizer's, scheduler's and training generator's
-        states, the training config and the loop's counters."""
+        states, the training config and the loop's counters. Rank 0 writes
+        it; every rank leaves when it is on disk."""
+        if self.is_main_process:
+            self._write_checkpoint(dir_path, epoch)
+        self._barrier()
+
+    def _write_checkpoint(self, dir_path: str, epoch: int):
         checkpoint_dir = os.path.join(dir_path, f"checkpoint_epoch_{epoch}")
         os.makedirs(checkpoint_dir, exist_ok=True)
         torch.save(self.optimizer.state_dict(),

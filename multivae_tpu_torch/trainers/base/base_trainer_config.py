@@ -3,10 +3,12 @@
 
 Keeps the JAX package's field names for the options the port implements:
 the device cache's three, ``steps_per_execution`` (CUDA graphs of the
-cached step on the card) and the pipelined finalization's two. The other
-TPU-only fields (``n_devices`` and the mesh fields ``n_model_devices``,
-``coordinator_address``, ``num_processes``, ``process_id``; ``fsdp``;
-the orbax ``checkpoint_backend`` and ``async_checkpointing``; bfloat16's
+cached step on the card), the pipelined finalization's two and data
+parallelism's four (``n_devices``, ``coordinator_address``,
+``num_processes``, ``process_id``: one process per card over a
+``torch.distributed`` group, ``parallel/mesh.py``). The other TPU-only
+fields (the model axis ``n_model_devices``; ``fsdp``; the orbax
+``checkpoint_backend`` and ``async_checkpointing``; bfloat16's
 ``mixed_precision``) are not part of the port; a ``training_config.json``
 holding them does not load here. Optimizer and scheduler specs are
 validated eagerly.
@@ -28,7 +30,8 @@ class BaseTrainerConfig(BaseConfig):
     Args:
         output_dir: where the final model goes.
         per_device_train_batch_size / per_device_eval_batch_size: rows per
-            batch (one device).
+            batch on each device; the global batch is this times the number
+            of processes.
         num_epochs: training epochs.
         optimizer_cls: ``torch.optim`` optimizer by name (Adam, AdamW, SGD,
             RMSprop, Adagrad, Adadelta, Adamax, RAdam).
@@ -81,6 +84,13 @@ class BaseTrainerConfig(BaseConfig):
         pipeline_depth: the most epochs finalization may lag; each keeps a
             copy of the weights on the device until then where best-model
             tracking may keep them.
+        n_devices: the number of processes of data-parallel training, one
+            card each (None: the process group's size, 1 without one). A
+            value the group does not match raises.
+        coordinator_address / num_processes / process_id: open the process
+            group at ``host:port`` with this many processes, this one being
+            ``process_id``; unset, a group opened by the caller or by
+            torchrun (its ``env://`` variables) is joined.
     """
 
     output_dir: Optional[str] = None
@@ -104,6 +114,10 @@ class BaseTrainerConfig(BaseConfig):
     steps_per_execution: int = 1
     pipeline_epochs: bool = True
     pipeline_depth: int = 8
+    n_devices: Optional[int] = None
+    coordinator_address: Optional[str] = None
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
 
     def __post_init__(self):
         if self.steps_per_execution < 1:
@@ -121,6 +135,9 @@ class BaseTrainerConfig(BaseConfig):
                 "pipeline_depth must be a positive integer, got "
                 f"{self.pipeline_depth}."
             )
+        if self.n_devices is not None and self.n_devices < 1:
+            raise AttributeError(
+                f"n_devices must be a positive integer or None, got {self.n_devices}.")
         if self.device_cache_layout not in ("auto", "replicated", "sharded"):
             raise AttributeError(
                 "device_cache_layout must be 'auto', 'replicated' or "

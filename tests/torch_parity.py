@@ -1,21 +1,20 @@
 """Helpers of the tests that hold a port model to its JAX counterpart: the
 JAX package's noise as torch tensors, the port's trainer fed the JAX
-trainer's noise, parameter trees as port ``state_dict``s, and the torch
-copies of the MHVAE test blocks."""
+trainer's noise, parameter trees as port ``state_dict``s, and (from
+``torch_nets``) the torch copies of the MHVAE test blocks."""
 
 import itertools
 import math
 
 import numpy as np
 import torch
-from torch import nn
 
 import jax
 import jax.numpy as jnp
 
 from multivae_tpu.trainers.base.callbacks import TrainingCallback
 from multivae_tpu_torch.utils.convert import params_from_jax
-from multivae_tpu_torch.utils.model_output import ModelOutput
+from torch_nets import _MLP, mhvae_mlp_blocks  # noqa: F401  (re-exported)
 
 
 LAPLACE_LOW = -0.5 + float(jnp.finfo(jnp.float32).eps)
@@ -120,52 +119,6 @@ def assert_same_moves(ours: dict, ref: dict, start: dict, lr: float):
         err = (move - ref_move).norm().item()
         assert err <= 1e-3 * ref_move.norm().item() + 1e-7, (name, err)
         assert (move - ref_move).abs().max().item() <= 0.1 * lr, name
-
-
-class _MLP(nn.Module):
-    """The torch copy of a block of ``tests/mhvae_test_architectures.py``:
-    ReLU layers through ``widths``, then (embedding, log_covariance) heads
-    of ``heads`` when given, an embedding alone when ``embedding``, or the
-    hidden tensor itself."""
-
-    def __init__(self, widths, heads=None, out=None, embedding=False):
-        super().__init__()
-        layers = [nn.Linear(a, b) for a, b in zip(widths, widths[1:])]
-        if heads:
-            layers += [nn.Linear(widths[-1], heads), nn.Linear(widths[-1], heads)]
-        if out:
-            layers.append(nn.Linear(widths[-1], out))
-        self.dense = nn.ModuleList(layers)
-        self.n_hidden, self.heads, self.out = len(widths) - 1, heads, out
-        self.embedding = embedding
-
-    def forward(self, x):
-        h = x.flatten(1)
-        for layer in self.dense[:self.n_hidden]:
-            h = torch.relu(layer(h))
-        if self.heads:
-            return ModelOutput(embedding=self.dense[-2](h), log_covariance=self.dense[-1](h))
-        if self.out:
-            return ModelOutput(reconstruction=self.dense[-1](h))
-        return ModelOutput(embedding=h) if self.embedding else h
-
-
-def mhvae_mlp_blocks(dims: dict, latent: int, shared: bool = True):
-    """Torch copies of ``build_mhvae_blocks(dims, 3, latent, shared)``
-    (``tests/mhvae_test_architectures.py``): hidden 16, in MHVAE's argument
-    order."""
-    def head(n_in):
-        return _MLP([n_in, 16], heads=latent)
-
-    def posterior():
-        return [head(32), head(32)]
-
-    return ({m: _MLP([math.prod(d), 16], embedding=True) for m, d in dims.items()},
-            {m: _MLP([latent, 16], out=math.prod(d)) for m, d in dims.items()},
-            {m: [_MLP([16, 16]), head(16)] for m in dims},
-            [_MLP([latent, 16]), _MLP([latent, 16])],
-            posterior() if shared else {m: posterior() for m in dims},
-            [head(16), head(16)])
 
 
 def record_keys(jmodel):
