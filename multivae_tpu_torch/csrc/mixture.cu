@@ -112,16 +112,34 @@
 //    of blocks waits for them together), which keeps the kernels under half
 //    of their bound at R=50.
 //
+// bfloat16 (mixture_bf16.cu builds this file with MIXTURE_BF16: the C
+// entries then take z, mu, sig, mask, dz, dmu and dsig as bf16; the
+// trainer's mixed_precision hands them bf16). The element type In is a
+// template parameter of the kernel: a 16-byte cp.async now holds 8
+// coordinates, so a thread's 8 coordinates of a row are one copy (kW = 8),
+// and the ring takes half the shared memory. Values are widened to float
+// in registers; 1/sig and logc are formed in float in shared memory (mu
+// and sigma are widened there as they are staged, after z's first copies
+// are issued), and every sum and product stays float. out and logc are
+// written float, dz, dmu and dsig bf16. A single bf16 coordinate (the
+// scalar path, D % 8 != 0) is below cp.async's 4 bytes: the thread copies
+// it itself. The chunked path keeps its partial sums in float: in a
+// workspace (Args::acc_*) where float outputs would have held them. Bound
+// at the slice in bf16: forward 15.8 MB (4.7 us), dz-only 28.9 MB
+// (8.6 us), full 31.5 MB (9.4 us), all bytes.
+//
 // Tensor cores do not apply. The Laplace term |z - mu| has no product form.
 // For Normal, sum_d (z-mu)^2/sig^2 = sum z^2/sig^2 - 2 sum z mu/sig^2 + ...
 // would make the sum a GEMM with N = MQ = 5, but at |out| ~ 10^3 its terms
 // cancel catastrophically in float32, and TF32 inputs are not float32
 // parity. The kernels are bound by device memory either way.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <mutex>
 #include <set>
+#include <type_traits>
 #include <utility>
 
 namespace {
@@ -143,54 +161,113 @@ int padded_q(int MQ) {
 
 enum Mode { kFwd = 0, kBwdDz = 1, kBwdFull = 2 };
 
+// In: the element type of z, mu, sig, mask, dz, dmu and dsig (float or
+// __nv_bfloat16); out, logc, g and all arithmetic are float.
+template <typename In>
 struct Args {
-  const float* z;       // (R, B, D)
-  const float* mu;      // (MQ, B, D)
-  const float* sig;     // (MQ, B, D)
-  const float* mask;    // (MQ, B)
+  const In* z;          // (R, B, D)
+  const In* mu;         // (MQ, B, D)
+  const In* sig;        // (MQ, B, D)
+  const In* mask;       // (MQ, B)
   const float* out_in;  // (R, B), backward
   const float* g;       // (R, B), backward
   float* out;           // (R, B), forward
   float* logc;          // (MQ, B): written by the forward, read by the backward
-  float* dz;            // (R, B, D)
-  float* dmu;           // (MQ, B, D), full backward
-  float* dsig;          // (MQ, B, D), full backward
+  In* dz;               // (R, B, D)
+  In* dmu;              // (MQ, B, D), full backward
+  In* dsig;             // (MQ, B, D), full backward
+  // float partial sums of the chunked path, kept across expert chunks (dz,
+  // MQ > kMaxQ) and rows (dmu, dsig): dz, dmu and dsig themselves for float,
+  // a workspace for bf16 (mixture_workspace)
+  float* acc_dz;
+  float* acc_mu;
+  float* acc_sig;
   int R, B, D, MQ;
   int T, P, S, NT;      // threads per slice, slices per block, row splits,
                         // tiles of a row (chunked path)
   float dc;             // D * c
 };
 
-template <int kW>
-__device__ __forceinline__ void ld_vec(const float* p, float (&v)[kW]) {
-  if constexpr (kW == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+template <typename In>
+constexpr bool kIsF32 = std::is_same<In, float>::value;
+
+// Elements of In in one 16-byte access: 4 floats or 8 bf16 values.
+template <typename In>
+constexpr int kVecW = 16 / static_cast<int>(sizeof(In));
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename In>
+__device__ __forceinline__ In from_f(float x) {
+  if constexpr (kIsF32<In>) return x;
+  else return __float2bfloat16_rn(x);
+}
+
+// kW elements at p (one 16-byte access for kW = kVecW, else one element)
+// into floats; a float row of kW = 8 (bf16's width, staged mu and 1/sig) is
+// two 16-byte accesses.
+template <int kW, typename T>
+__device__ __forceinline__ void ld_vec(const T* p, float (&v)[kW]) {
+  if constexpr (kW == 1) {
+    v[0] = to_f(*p);
+  } else if constexpr (kIsF32<T>) {
+#pragma unroll
+    for (int h = 0; h < kW / 4; ++h) {
+      const float4 t = reinterpret_cast<const float4*>(p)[h];
+      v[4 * h] = t.x; v[4 * h + 1] = t.y; v[4 * h + 2] = t.z; v[4 * h + 3] = t.w;
+    }
   } else {
-    v[0] = *p;
+    static_assert(kW == 8, "bf16 rows are read 8 at a time");
+    const uint4 t = *reinterpret_cast<const uint4*>(p);
+    const unsigned w[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[h]));
+      v[2 * h] = f.x; v[2 * h + 1] = f.y;
+    }
   }
 }
 
-template <int kW>
-__device__ __forceinline__ void st_vec(float* p, const float (&v)[kW]) {
-  if constexpr (kW == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+template <int kW, typename T>
+__device__ __forceinline__ void st_vec(T* p, const float (&v)[kW]) {
+  if constexpr (kW == 1) {
+    *p = from_f<T>(v[0]);
+  } else if constexpr (kIsF32<T>) {
+#pragma unroll
+    for (int h = 0; h < kW / 4; ++h)
+      reinterpret_cast<float4*>(p)[h] =
+          make_float4(v[4 * h], v[4 * h + 1], v[4 * h + 2], v[4 * h + 3]);
   } else {
-    *p = v[0];
+    static_assert(kW == 8, "bf16 rows are written 8 at a time");
+    unsigned w[4];
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const __nv_bfloat162 b2 = __floats2bfloat162_rn(v[2 * h], v[2 * h + 1]);
+      w[h] = *reinterpret_cast<const unsigned*>(&b2);
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
   }
 }
 
-// Asynchronous copy of kW floats to shared memory; zero-filled when !ok.
-template <int kW>
-__device__ __forceinline__ void cp_async(float* dst, const float* src, bool ok) {
+// Asynchronous copy of kW elements to shared memory; zero-filled when !ok.
+// cp.async copies 4, 8 or 16 bytes: a single bf16 element (the scalar path)
+// is copied by the thread itself, which alone reads that slot later.
+template <int kW, typename In>
+__device__ __forceinline__ void cp_async(In* dst, const In* src, bool ok) {
+  constexpr int kBytes = kW * static_cast<int>(sizeof(In));
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = ok ? 4 * kW : 0;
-  if constexpr (kW == 4)
+  const int n = ok ? kBytes : 0;
+  if constexpr (kBytes == 16) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                  :: "r"(s), "l"(src), "r"(n) : "memory");
-  else
+  } else if constexpr (kBytes == 4) {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                  :: "r"(s), "l"(src), "r"(n) : "memory");
+  } else {
+    static_assert(kBytes == 2, "a copy of 2, 4 or 16 bytes");
+    *dst = ok ? *src : from_f<In>(0.f);
+  }
 }
 
 __device__ __forceinline__ void cp_commit() {
@@ -237,12 +314,13 @@ struct Layout {
 };
 
 // nq = max(MQ, kq): the experts with the padding of a register instance.
-// A ring stage holds the NT tiles of whole rows, or one tile when streaming.
+// A ring stage holds the NT tiles of whole rows, or one tile when streaming,
+// in elements of eb bytes (z's type); everything else is float.
 __host__ __device__ inline Layout layout(int P, int T, int NT, int kq, int MQ,
                                          int D, int mode, bool chunked,
-                                         bool stream) {
+                                         bool stream, int eb) {
   const int nq = MQ > kq ? MQ : kq;
-  const int ring = kStages * P * T * kG * kElems * (stream ? 1 : NT);
+  const int ring = kStages * P * T * kG * kElems * (stream ? 1 : NT) * eb / 4;
   const int exch = (mode == kBwdFull && !chunked) ? 2 * P * T * kq * kElems : 0;
   const int params = stream ? 0 : MQ * D;
   Layout l;
@@ -262,10 +340,13 @@ __host__ __device__ inline Layout layout(int P, int T, int NT, int kq, int MQ,
 // kStream (chunked path only): stream row tiles, mu and sigma unstaged. A
 // template parameter, not a flag: the instances that hold whole rows keep
 // the registers they had without the streaming code.
-template <bool kLaplace, int kQ, int kW, int kMode, bool kChunked, bool kStream>
+// In: the element type (float or bf16); kW: elements per access (kVecW<In>
+// or 1).
+template <typename In, bool kLaplace, int kQ, int kW, int kMode, bool kChunked,
+          bool kStream>
 __global__ void __launch_bounds__(kMaxThreads,
                                   (kMode != kBwdFull && kQ <= 6) ? 2 : 1)
-mixture_kernel(const Args a) {
+mixture_kernel(const Args<In> a) {
   constexpr int kV = kElems / kW;
   constexpr int kN = kG * kQ;
   constexpr bool kGrads = kMode == kBwdFull;
@@ -296,8 +377,9 @@ mixture_kernel(const Args a) {
   const int total = ngroups * nsteps;
   const int TS = stream ? 1 : NT;  // tiles a ring stage holds
 
-  const Layout L = layout(P, T, NT, kQ, MQ, D, kMode, kChunked, stream);
-  float* ring = smem;
+  const Layout L = layout(P, T, NT, kQ, MQ, D, kMode, kChunked, stream,
+                          static_cast<int>(sizeof(In)));
+  In* ring = reinterpret_cast<In*>(smem);
   float* s_mu = smem + L.mu;
   float* s_is = smem + L.is;
   float* s_red = smem + L.red;
@@ -322,7 +404,7 @@ mixture_kernel(const Args a) {
     for (int g = 0; g < kG; ++g) {
       const int r = row_of(gi, g);
       const bool rok = r < R;
-      const float* zr = a.z + ((size_t)(rok ? r : 0) * B + b) * D;
+      const In* zr = a.z + ((size_t)(rok ? r : 0) * B + b) * D;
       for (int j = j0; j < j0 + TS; ++j)
 #pragma unroll
         for (int v = 0; v < kV; ++v) {
@@ -346,21 +428,33 @@ mixture_kernel(const Args a) {
 
   // Stage the column's mu and sigma once per block (asynchronously, ahead
   // of z's first rows), then form logc (forward) and 1/sig in place; when
-  // streaming, they are read from device memory instead.
-  if (!stream)
+  // streaming, they are read from device memory instead. bf16 values are
+  // widened to float on the way, after z's first copies are issued.
+  auto stage_params = [&]() {
     for (int i = tid; i < MQ * Dv; i += PT) {
       const int q = i / Dv, dv = i - q * Dv;
       const size_t off = ((size_t)q * B + b) * D + (size_t)dv * kW;
-      cp_async<kW>(s_mu + q * D + dv * kW, a.mu + off, true);
-      cp_async<kW>(s_is + q * D + dv * kW, a.sig + off, true);
+      if constexpr (kIsF32<In>) {
+        cp_async<kW>(s_mu + q * D + dv * kW, a.mu + off, true);
+        cp_async<kW>(s_is + q * D + dv * kW, a.sig + off, true);
+      } else {
+        float m[kW], s[kW];
+        ld_vec<kW>(a.mu + off, m);
+        ld_vec<kW>(a.sig + off, s);
+        st_vec<kW>(s_mu + q * D + dv * kW, m);
+        st_vec<kW>(s_is + q * D + dv * kW, s);
+      }
     }
+  };
+  if (kIsF32<In> && !stream) stage_params();
   cp_commit();
   for (int i = 0; i < kStages - 1; ++i) {
     if (i < total) issue(i); else cp_commit();
   }
+  if (!kIsF32<In> && !stream) stage_params();
   for (int q = tid; q < nq; q += PT) {
     const bool real = q < MQ;
-    s_ok[q] = real && a.mask[(size_t)q * B + b] > 0.f ? 1.f : 0.f;
+    s_ok[q] = real && to_f(a.mask[(size_t)q * B + b]) > 0.f ? 1.f : 0.f;
     s_c[q] = real && kMode != kFwd ? a.logc[(size_t)q * B + b] : 0.f;
   }
   if (kGrads)
@@ -374,7 +468,7 @@ mixture_kernel(const Args a) {
     float ls = 0.f;
     for (int d = tid; d < D; d += PT) {
       if (stream) {
-        if (kMode == kFwd) ls += logf(a.sig[((size_t)q * B + b) * D + d]);
+        if (kMode == kFwd) ls += logf(to_f(a.sig[((size_t)q * B + b) * D + d]));
       } else {
         const float sg = s_is[q * D + d];
         if (kMode == kFwd) ls += logf(sg);
@@ -494,8 +588,8 @@ mixture_kernel(const Args a) {
           if (dv < Dv) {
             const float zero[kW] = {};
             const size_t off = ((size_t)q * B + b) * D + (size_t)dv * kW;
-            st_vec<kW>(a.dmu + off, zero);
-            st_vec<kW>(a.dsig + off, zero);
+            st_vec<kW>(a.acc_mu + off, zero);
+            st_vec<kW>(a.acc_sig + off, zero);
           }
         }
     }
@@ -616,13 +710,13 @@ mixture_kernel(const Args a) {
           for (int v = 0; v < kV; ++v) {
             const int jv = j * kV + v, dv = t + jv * T;
             const bool ok = dv < Dv;
-            float* dzp = a.dz + ((size_t)r * B + b) * D + (size_t)dv * kW;
+            const size_t zo = ((size_t)r * B + b) * D + (size_t)dv * kW;
             float zv[kW], s[kW];  // s = -dz
             ld_vec<kW>(ring_at(st, g, j, v), zv);
 #pragma unroll
             for (int e = 0; e < kW; ++e) s[e] = 0.f;
             if (kChunked && c > 0 && ok) {
-              ld_vec<kW>(dzp, s);
+              ld_vec<kW>(a.acc_dz + zo, s);
 #pragma unroll
               for (int e = 0; e < kW; ++e) s[e] = -s[e];
             }
@@ -655,7 +749,9 @@ mixture_kernel(const Args a) {
             if (ok) {
 #pragma unroll
               for (int e = 0; e < kW; ++e) s[e] = -s[e];
-              st_vec<kW>(dzp, s);
+              // a partial dz stays float until the last expert chunk
+              if (kChunked && c < nchunk - 1) st_vec<kW>(a.acc_dz + zo, s);
+              else st_vec<kW>(a.dz + zo, s);
             }
           }
         }
@@ -671,16 +767,16 @@ mixture_kernel(const Args a) {
               if (qq < MQ && dv < Dv) {
                 const size_t off = ((size_t)qq * B + b) * D + (size_t)dv * kW;
                 float m[kW], s[kW];
-                ld_vec<kW>(a.dmu + off, m);
-                ld_vec<kW>(a.dsig + off, s);
+                ld_vec<kW>(a.acc_mu + off, m);
+                ld_vec<kW>(a.acc_sig + off, s);
 #pragma unroll
                 for (int e = 0; e < kW; ++e) {
                   m[e] += smu[q][v * kW + e];
                   s[e] += sa[q][v * kW + e];
                   smu[q][v * kW + e] = sa[q][v * kW + e] = 0.f;
                 }
-                st_vec<kW>(a.dmu + off, m);
-                st_vec<kW>(a.dsig + off, s);
+                st_vec<kW>(a.acc_mu + off, m);
+                st_vec<kW>(a.acc_sig + off, s);
               }
             }
           }
@@ -696,12 +792,12 @@ mixture_kernel(const Args a) {
     // all slices (added in slice order), each (q, b, d) written once.
     auto finish = [&](int q, int d, float sm, float sg) {
       const size_t o = ((size_t)q * B + b) * D + d;
-      const float is = stream ? __frcp_rn(a.sig[o]) : s_is[q * D + d];
+      const float is = stream ? __frcp_rn(to_f(a.sig[o])) : s_is[q * D + d];
       const float isp = kLaplace ? is : is * is;
       float ws = 0.f;
       for (int p = 0; p < P; ++p) ws += s_wsum[p * MQ + q];
-      a.dmu[o] = sm * isp;
-      a.dsig[o] = (sg * isp - ws) * is;
+      a.dmu[o] = from_f<In>(sm * isp);
+      a.dsig[o] = from_f<In>((sg * isp - ws) * is);
     };
     if constexpr (kChunked) {
       for (int q = 0; q < MQ; ++q)
@@ -710,7 +806,7 @@ mixture_kernel(const Args a) {
           if (dv < Dv)
             for (int e = 0; e < kW; ++e) {
               const size_t o = ((size_t)q * B + b) * D + (size_t)dv * kW + e;
-              finish(q, dv * kW + e, a.dmu[o], a.dsig[o]);
+              finish(q, dv * kW + e, a.acc_mu[o], a.acc_sig[o]);
             }
         }
     } else {
@@ -754,11 +850,11 @@ struct Plan {
 };
 
 // The launch shape on a card with nsm SMs and smem_limit bytes of shared
-// memory per block; false for an empty input.
+// memory per block, for elements of eb bytes; false for an empty input.
 bool make_plan(int R, int B, int D, int MQ, int mode, int vec, int nsm,
-               int smem_limit, Plan* p) {
+               int smem_limit, int eb, Plan* p) {
   if (R < 1 || B < 1 || D < 1 || MQ < 1) return false;
-  const int kw = vec ? 4 : 1;
+  const int kw = vec ? 16 / eb : 1;
   const int kv = kElems / kw;
   // threads a row needs at kElems coordinates each; beyond kMaxThreads the
   // row is cut into NT tiles, each thread holding kElems coordinates of each
@@ -784,7 +880,7 @@ bool make_plan(int R, int B, int D, int MQ, int mode, int vec, int nsm,
   // the chunked path streams only where whole rows and staged parameters
   // do not fit
   auto bytes = [&](bool stream) {
-    return layout(P, T, NT, p->kq, MQ, D, mode, p->chunked, stream).total *
+    return layout(P, T, NT, p->kq, MQ, D, mode, p->chunked, stream, eb).total *
            sizeof(float);
   };
   p->stream = p->chunked && bytes(false) > (size_t)smem_limit;
@@ -792,18 +888,30 @@ bool make_plan(int R, int B, int D, int MQ, int mode, int vec, int nsm,
   return true;
 }
 
-template <int kMode, bool kLap>
+// Floats of workspace a bf16 launch needs for the chunked path's partial
+// sums (Args::acc_*): dz across expert chunks (MQ > kMaxQ), then dmu and
+// dsig across rows (full backward). A float launch needs none: it keeps
+// them in its outputs.
+size_t workspace_floats(const Plan& p, int R, int B, int D, int MQ, int mode,
+                        int eb) {
+  if (eb == 4 || !p.chunked || mode == kFwd) return 0;
+  const size_t dz = MQ > kMaxQ ? (size_t)R * B * D : 0;
+  return dz + (mode == kBwdFull ? 2 * (size_t)MQ * B * D : 0);
+}
+
+template <typename In, int kMode, bool kLap>
 const void* pick(int vec, int kq, bool chunked, bool stream) {
+  constexpr int kV = kVecW<In>;
   if (chunked && stream)
-    return vec ? (const void*)&mixture_kernel<kLap, kMaxQ, 4, kMode, true, true>
-               : (const void*)&mixture_kernel<kLap, kMaxQ, 1, kMode, true, true>;
+    return vec ? (const void*)&mixture_kernel<In, kLap, kMaxQ, kV, kMode, true, true>
+               : (const void*)&mixture_kernel<In, kLap, kMaxQ, 1, kMode, true, true>;
   if (chunked)
-    return vec ? (const void*)&mixture_kernel<kLap, kMaxQ, 4, kMode, true, false>
-               : (const void*)&mixture_kernel<kLap, kMaxQ, 1, kMode, true, false>;
+    return vec ? (const void*)&mixture_kernel<In, kLap, kMaxQ, kV, kMode, true, false>
+               : (const void*)&mixture_kernel<In, kLap, kMaxQ, 1, kMode, true, false>;
   switch (kq) {
-    case 2: return (const void*)&mixture_kernel<kLap, 2, 4, kMode, false, false>;
-    case 5: return (const void*)&mixture_kernel<kLap, 5, 4, kMode, false, false>;
-    case kMaxQ: return (const void*)&mixture_kernel<kLap, kMaxQ, 4, kMode, false, false>;
+    case 2: return (const void*)&mixture_kernel<In, kLap, 2, kV, kMode, false, false>;
+    case 5: return (const void*)&mixture_kernel<In, kLap, 5, kV, kMode, false, false>;
+    case kMaxQ: return (const void*)&mixture_kernel<In, kLap, kMaxQ, kV, kMode, false, false>;
   }
   return nullptr;
 }
@@ -813,8 +921,8 @@ const void* pick(int vec, int kq, bool chunked, bool stream) {
 std::mutex g_ready_mutex;
 std::set<std::pair<const void*, int>> g_ready;  // (kernel, device) set up
 
-template <int kMode>
-cudaError_t prepare(const Args& a, int laplace, int vec, Plan* p,
+template <typename In, int kMode>
+cudaError_t prepare(const Args<In>& a, int laplace, int vec, Plan* p,
                     const void** kernel) {
   int dev = 0, nsm = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -823,10 +931,10 @@ cudaError_t prepare(const Args& a, int laplace, int vec, Plan* p,
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  if (!make_plan(a.R, a.B, a.D, a.MQ, kMode, vec, nsm, optin, p))
+  if (!make_plan(a.R, a.B, a.D, a.MQ, kMode, vec, nsm, optin, sizeof(In), p))
     return cudaErrorInvalidValue;
-  *kernel = laplace ? pick<kMode, true>(vec, p->kq, p->chunked, p->stream)
-                    : pick<kMode, false>(vec, p->kq, p->chunked, p->stream);
+  *kernel = laplace ? pick<In, kMode, true>(vec, p->kq, p->chunked, p->stream)
+                    : pick<In, kMode, false>(vec, p->kq, p->chunked, p->stream);
   // Once per kernel and device: allow the largest dynamic shared memory a
   // block may have, and prefer shared memory over L1, so that two blocks'
   // rings fit on an SM.
@@ -840,16 +948,29 @@ cudaError_t prepare(const Args& a, int laplace, int vec, Plan* p,
   return err;
 }
 
-template <int kMode>
-int launch(Args a, int laplace, int vec, void* stream) {
+// ws: the caller's workspace of mixture_workspace floats (bf16 only).
+template <typename In, int kMode>
+int launch(Args<In> a, int laplace, int vec, float* ws, void* stream) {
   Plan p;
   const void* kernel = nullptr;
-  cudaError_t err = prepare<kMode>(a, laplace, vec, &p, &kernel);
+  cudaError_t err = prepare<In, kMode>(a, laplace, vec, &p, &kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
   a.T = p.T;
   a.P = p.P;
   a.S = p.S;
   a.NT = p.NT;
+  if constexpr (kIsF32<In>) {
+    a.acc_dz = a.dz;
+    a.acc_mu = a.dmu;
+    a.acc_sig = a.dsig;
+  } else {
+    const size_t n = workspace_floats(p, a.R, a.B, a.D, a.MQ, kMode, sizeof(In));
+    if (n > 0 && ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const size_t ndz = a.MQ > kMaxQ && p.chunked ? (size_t)a.R * a.B * a.D : 0;
+    a.acc_dz = ws;
+    a.acc_mu = n > 0 ? ws + ndz : nullptr;
+    a.acc_sig = n > 0 ? ws + ndz + (size_t)a.MQ * a.B * a.D : nullptr;
+  }
   void* params[] = {&a};
   err = cudaLaunchKernel(kernel, dim3(a.B, p.S), dim3(p.P * p.T), params, p.smem,
                          static_cast<cudaStream_t>(stream));
@@ -857,11 +978,11 @@ int launch(Args a, int laplace, int vec, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kMode>
-int occupancy(Args a, int laplace, int vec, int* out) {
+template <typename In, int kMode>
+int occupancy(Args<In> a, int laplace, int vec, int* out) {
   Plan p;
   const void* kernel = nullptr;
-  cudaError_t err = prepare<kMode>(a, laplace, vec, &p, &kernel);
+  cudaError_t err = prepare<In, kMode>(a, laplace, vec, &p, &kernel);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel, p.P * p.T,
                                                         p.smem);
@@ -872,6 +993,14 @@ int occupancy(Args a, int laplace, int vec, int* out) {
 }
 
 }  // namespace
+
+// The element type of this library's entries: float here; bf16 where
+// mixture_bf16.cu defines MIXTURE_BF16 and includes this file.
+#ifdef MIXTURE_BF16
+using Elem = __nv_bfloat16;
+#else
+using Elem = float;
+#endif
 
 extern "C" {
 
@@ -885,46 +1014,58 @@ const char* mixture_error_string(int err) {
 // before launching.
 size_t mixture_smem(int R, int B, int D, int MQ, int mode, int vec, int smem_limit) {
   Plan p;
-  return make_plan(R, B, D, MQ, mode, vec, 132, smem_limit, &p) ? p.smem : 0;
+  return make_plan(R, B, D, MQ, mode, vec, 132, smem_limit, sizeof(Elem), &p) ? p.smem
+                                                                             : 0;
 }
 
-// z (R,B,D), mu and sig (MQ,B,D), mask (MQ,B) -> out (R,B), logc (MQ,B).
-// vec: D % 4 == 0 and every pointer 16-byte aligned (float4 path).
-int mixture_fwd(const float* z, const float* mu, const float* sig,
-                const float* mask, float* out, float* logc, int R, int B,
+// Floats of workspace mixture_bwd needs at these shapes (0: pass NULL).
+size_t mixture_workspace(int R, int B, int D, int MQ, int mode, int vec,
+                         int smem_limit) {
+  Plan p;
+  if (!make_plan(R, B, D, MQ, mode, vec, 132, smem_limit, sizeof(Elem), &p)) return 0;
+  return workspace_floats(p, R, B, D, MQ, mode, sizeof(Elem));
+}
+
+// z (R,B,D), mu and sig (MQ,B,D), mask (MQ,B), all of Elem -> out (R,B),
+// logc (MQ,B), float. vec: 16-byte rows (D a multiple of 4 floats or 8 bf16
+// values) and every pointer 16-byte aligned.
+int mixture_fwd(const Elem* z, const Elem* mu, const Elem* sig,
+                const Elem* mask, float* out, float* logc, int R, int B,
                 int D, int MQ, float dc, int laplace, int vec, void* stream) {
-  Args a = {};
+  Args<Elem> a = {};
   a.z = z; a.mu = mu; a.sig = sig; a.mask = mask; a.out = out; a.logc = logc;
   a.R = R; a.B = B; a.D = D; a.MQ = MQ; a.dc = dc;
-  return launch<kFwd>(a, laplace, vec, stream);
+  return launch<Elem, kFwd>(a, laplace, vec, nullptr, stream);
 }
 
 // The forward's inputs, its logc and out, and g (R,B) -> dz (R,B,D), and
-// dmu and dsig (MQ,B,D) unless both are NULL (the dz-only kernel).
-int mixture_bwd(const float* z, const float* mu, const float* sig,
-                const float* logc, const float* mask, const float* out,
-                const float* g, float* dz, float* dmu, float* dsig, int R,
-                int B, int D, int MQ, int laplace, int vec, void* stream) {
-  Args a = {};
+// dmu and dsig (MQ,B,D) unless both are NULL (the dz-only kernel), of Elem;
+// ws: mixture_workspace floats, or NULL where that is 0.
+int mixture_bwd(const Elem* z, const Elem* mu, const Elem* sig,
+                const float* logc, const Elem* mask, const float* out,
+                const float* g, Elem* dz, Elem* dmu, Elem* dsig, int R,
+                int B, int D, int MQ, int laplace, int vec, float* ws,
+                void* stream) {
+  Args<Elem> a = {};
   a.z = z; a.mu = mu; a.sig = sig; a.mask = mask; a.out_in = out; a.g = g;
   a.logc = const_cast<float*>(logc); a.dz = dz; a.dmu = dmu; a.dsig = dsig;
   a.R = R; a.B = B; a.D = D; a.MQ = MQ;
   if (dmu == nullptr && dsig == nullptr)
-    return launch<kBwdDz>(a, laplace, vec, stream);
+    return launch<Elem, kBwdDz>(a, laplace, vec, ws, stream);
   if (dmu == nullptr || dsig == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch<kBwdFull>(a, laplace, vec, stream);
+  return launch<Elem, kBwdFull>(a, laplace, vec, ws, stream);
 }
 
 // The launch of mode 0, 1 or 2 at these shapes: out = {blocks per SM,
 // threads per block, row splits, shared memory bytes per block}.
 int mixture_launch_shape(int R, int B, int D, int MQ, int mode, int laplace,
                          int vec, int* out) {
-  Args a = {};
+  Args<Elem> a = {};
   a.R = R; a.B = B; a.D = D; a.MQ = MQ;
-  if (mode == kFwd) return occupancy<kFwd>(a, laplace, vec, out);
-  if (mode == kBwdDz) return occupancy<kBwdDz>(a, laplace, vec, out);
-  return occupancy<kBwdFull>(a, laplace, vec, out);
+  if (mode == kFwd) return occupancy<Elem, kFwd>(a, laplace, vec, out);
+  if (mode == kBwdDz) return occupancy<Elem, kBwdDz>(a, laplace, vec, out);
+  return occupancy<Elem, kBwdFull>(a, laplace, vec, out);
 }
 
 }  // extern "C"

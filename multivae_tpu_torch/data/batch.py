@@ -81,6 +81,13 @@ class MultimodalBatch:
         return map_tensors(lambda t: t.to(device, non_blocking=non_blocking), self)
 
 
+def floats_to(batch: MultimodalBatch, dtype: torch.dtype) -> MultimodalBatch:
+    """The batch with its float32 tensors (data, masks, weights, float
+    labels) in ``dtype`` and the others (integer tokens and labels) as they
+    are: JAX ``_to_bf16`` on a batch."""
+    return map_tensors(lambda t: t.to(dtype) if t.dtype == torch.float32 else t, batch)
+
+
 def map_tensors(fn, batch: MultimodalBatch, skip=()) -> MultimodalBatch:
     """A batch with ``fn`` applied to each of its tensors, in a fixed order
     (the data's, the masks', the weights, the labels), those of the fields

@@ -11,6 +11,12 @@ single module (``joint_encoder``, CVAE's ``encoder``) whole, and each is
 given back to the constructor in that form. Loading them runs code from
 the pickle, so load only folders you wrote.
 
+``param_dtype`` is the dtype of the parameters the model computes with:
+float32, or bfloat16 inside a train step of the trainer's
+``mixed_precision`` (which swaps bf16 copies in for the parameters). The
+constants a loss builds and the noise ``draw_noise`` draws follow it, as
+the JAX package's ``param_dtype`` and ``loc.dtype`` draws do.
+
 Every subclass registers itself by class name on definition
 (``get_model_class``, ``model_registry``), which ``AutoModel`` reads.
 
@@ -24,6 +30,7 @@ only there, and pickled custom architectures load only with
 from __future__ import annotations
 
 import contextlib
+import functools
 import logging
 import os
 import sys
@@ -70,6 +77,11 @@ class BaseModel(nn.Module):
     def device(self) -> torch.device:
         return next(self.parameters()).device
 
+    @property
+    def param_dtype(self) -> torch.dtype:
+        """The compute dtype: the parameters' (JAX ``param_dtype``)."""
+        return next(self.parameters()).dtype
+
     #: this process's part of a data-parallel step's global batch
     #: (``parallel/shard.py``); the trainer sets it around its steps
     data_shard: DataShard = NO_SHARD
@@ -87,16 +99,31 @@ class BaseModel(nn.Module):
         finally:
             del self.data_shard
 
-    def draw_noise(self, shape, generator: Optional[torch.Generator] = None):
-        """Standard-normal noise of ``shape`` on the model's device: every
-        sample the model draws comes from here, so a test can feed another
-        package's noise."""
-        return torch.randn(shape, generator=generator, device=self.device)
+    def draw_noise(self, shape, generator: Optional[torch.Generator] = None,
+                   dtype: Optional[torch.dtype] = None):
+        """Standard-normal noise of ``shape`` on the model's device, in
+        ``dtype`` (default ``param_dtype``, so bf16 in a mixed-precision
+        step): every sample the model draws comes from here, so a test can
+        feed another package's noise."""
+        return torch.randn(shape, generator=generator, device=self.device,
+                           dtype=dtype or self.param_dtype)
 
-    def draw_uniform(self, shape, generator: Optional[torch.Generator] = None):
-        """U[0, 1) draws of ``shape`` on the model's device (JNF's HMC
-        accept tests), a hook like ``draw_noise``."""
-        return torch.rand(shape, generator=generator, device=self.device)
+    def draw_uniform(self, shape, generator: Optional[torch.Generator] = None,
+                     dtype: Optional[torch.dtype] = None):
+        """U[0, 1) draws of ``shape`` on the model's device in ``dtype``
+        (default ``param_dtype``; JNF's HMC accept tests), a hook like
+        ``draw_noise``."""
+        return torch.rand(shape, generator=generator, device=self.device,
+                          dtype=dtype or self.param_dtype)
+
+    def noise_for(self, loc):
+        """``draw_noise``, drawing in ``loc``'s dtype as JAX draws: the
+        hook itself where that is ``param_dtype``, else with the dtype
+        given (a loss that promoted ``loc`` to float32 under bf16, as
+        MHVAE's and MoPoE's products of experts do)."""
+        if loc.dtype == self.param_dtype:
+            return self.draw_noise
+        return functools.partial(self.draw_noise, dtype=loc.dtype)
 
     def _sample(self, mu, log_var, N: int = 1, return_mean: bool = False,
                 flatten: bool = False, generator: Optional[torch.Generator] = None,
@@ -106,7 +133,7 @@ class BaseModel(nn.Module):
         ``row_blocks`` blocks."""
         noise = None
         if not return_mean:
-            noise = self.data_shard.draw(self.draw_noise,
+            noise = self.data_shard.draw(self.noise_for(mu),
                                          mu.shape if N == 1 else (N, *mu.shape), generator,
                                          axis=-mu.dim(), blocks=row_blocks)
         return rsample_from_gaussian(mu, log_var, N=N, return_mean=return_mean,

@@ -36,6 +36,7 @@ import torch
 from torch import nn
 
 from ...data.batch import MultimodalBatch, as_batch
+from ...ops.gaussian import sum_f32
 from ...ops.kdist import dist_log_prob, dist_rsample, log_var_to_std
 from ...utils.model_output import ModelOutput
 from ..mmvaePlus.mmvaePlus_model import MMVAEPlus
@@ -76,8 +77,10 @@ class CMVAE(MMVAEPlus):
         return log_var_to_std(log_var, self.dist_name)
 
     def _w_prior(self):
-        """(mean, std) of the private codes' fixed prior, (1, S)."""
-        mean = torch.zeros(1, self.modalities_specific_dim, device=self.device)
+        """(mean, std) of the private codes' fixed prior, (1, S), in
+        ``param_dtype``."""
+        mean = torch.zeros(1, self.modalities_specific_dim, device=self.device,
+                           dtype=self.param_dtype)
         return mean, log_var_to_std(mean, self.dist_name)
 
     def draw_clusters(self, logits, n_samples: int,
@@ -96,11 +99,11 @@ class CMVAE(MMVAEPlus):
         t = self._k_lw_terms(batch, posteriors, zs, recons, detach_posteriors,
                              unit_rescale)
         w_mu, w_std = self._w_prior()
-        lpw = dist_log_prob(self.dist_name, t["W"], w_mu, w_std).sum(-1)  # (M, K, B)
+        lpw = sum_f32(dist_log_prob(self.dist_name, t["W"], w_mu, w_std))  # (M, K, B)
         lpc = torch.log(torch.softmax(self.pc_params, -1))[:, None, None, None]
-        lpzc = dist_log_prob(self.dist_name, t["U"][None],
-                             self.mean_clusters[:, None, None, None, :],
-                             self._cluster_stds()[:, None, None, None, :]).sum(-1)
+        lpzc = sum_f32(dist_log_prob(self.dist_name, t["U"][None],
+                                     self.mean_clusters[:, None, None, None, :],
+                                     self._cluster_stds()[:, None, None, None, :]))
         qzc = torch.softmax(lpc + lpzc, 0) + 1e-20                        # (C, M, K, B)
         lw_c = t["lpx_z"][None] + beta * (lpc + lpzc + lpw[None] - t["lqu_x"][None]
                                           - t["lqw_x"][None] - torch.log(qzc))

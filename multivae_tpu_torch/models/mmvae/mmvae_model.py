@@ -32,6 +32,7 @@ from torch import nn
 
 from ...data.batch import MultimodalBatch, add_axes, as_batch
 from ...ops.dreg import scale_grad
+from ...ops.gaussian import sum_f32
 from ...ops.iwae import chunked_logsumexp, iwae_log_marginal
 from ...ops.kdist import (
     dist_log_prob,
@@ -73,8 +74,8 @@ class MMVAE(BaseMultiVAE):
         return {}
 
     def pz_params(self):
-        """(mean, std) of the prior."""
-        mean = torch.zeros(1, self.latent_dim, device=self.device)
+        """(mean, std) of the prior, in ``param_dtype``."""
+        mean = torch.zeros(1, self.latent_dim, device=self.device, dtype=self.param_dtype)
         log_var = self.prior_log_var if self.learn_prior else mean
         return mean, log_var_to_std(log_var, self.dist_name)
 
@@ -90,9 +91,10 @@ class MMVAE(BaseMultiVAE):
 
     def draw_noise(self, shape, generator: Optional[torch.Generator] = None):
         """The sampling noise of one modality's K latents (see
-        ``ops.kdist.sample_noise``); drawn in modality order."""
+        ``ops.kdist.sample_noise``) in ``param_dtype``; drawn in modality
+        order."""
         return sample_noise(self.dist_name, shape, generator=generator,
-                            device=self.device)
+                            dtype=self.param_dtype, device=self.device)
 
     def _sample_embeddings(self, post_params, K: int,
                            generator: Optional[torch.Generator] = None):
@@ -112,7 +114,7 @@ class MMVAE(BaseMultiVAE):
         prior_mu, prior_std = self.pz_params()
 
         Z = torch.stack([zs[m] for m in mods])               # (M, K, B, D)
-        lpz = dist_log_prob(self.dist_name, Z, prior_mu, prior_std).sum(-1)
+        lpz = sum_f32(dist_log_prob(self.dist_name, Z, prior_mu, prior_std))
 
         mus = torch.stack([post_params[m][0] for m in mods])  # (Mq, B, D)
         sigmas = torch.stack([post_params[m][1] for m in mods])

@@ -39,6 +39,7 @@ from ...nn.default_architectures import (
     BaseDictEncoders_MultiLatents,
 )
 from ...ops.dreg import scale_grad
+from ...ops.gaussian import sum_f32
 from ...ops.iwae import chunked_logsumexp
 from ...ops.kdist import (
     dist_log_prob,
@@ -103,24 +104,27 @@ class MMVAEPlus(BaseMultiVAE):
         return extra
 
     def _modality_prior(self, mod: str):
-        """(mean, std) of r_mod, (1, S)."""
-        mean = torch.zeros(1, self.modalities_specific_dim, device=self.device)
+        """(mean, std) of r_mod, (1, S), in ``param_dtype``."""
+        mean = torch.zeros(1, self.modalities_specific_dim, device=self.device,
+                           dtype=self.param_dtype)
         log_var = (getattr(self, f"prior_log_var_{mod}")
                    if self.model_config.learn_modality_prior else mean)
         return mean, log_var_to_std(log_var, self.dist_name)
 
     def pz_params(self):
-        """(mean, std) of the prior of the full (u, w) code, (1, D + S)."""
+        """(mean, std) of the prior of the full (u, w) code, (1, D + S), in
+        ``param_dtype``."""
         mean = torch.zeros(1, self.latent_dim + self.modalities_specific_dim,
-                           device=self.device)
+                           device=self.device, dtype=self.param_dtype)
         log_var = (self.prior_log_var_shared
                    if self.model_config.learn_shared_prior else mean)
         return mean, log_var_to_std(log_var, self.dist_name)
 
     def draw_noise(self, shape, generator: Optional[torch.Generator] = None):
-        """The sampling noise of one draw (see ``ops.kdist.sample_noise``)."""
+        """The sampling noise of one draw (see ``ops.kdist.sample_noise``),
+        in ``param_dtype``."""
         return sample_noise(self.dist_name, shape, generator=generator,
-                            device=self.device)
+                            dtype=self.param_dtype, device=self.device)
 
     # ------------------------------------------------------------ internals
     def _posteriors(self, batch: MultimodalBatch, mods=None):
@@ -201,7 +205,7 @@ class MMVAEPlus(BaseMultiVAE):
         lqu_x = (mixture_logsumexp(U, u_mu, u_sig, mask, self.dist_name)
                  - torch.log(n_mods_sample))
         # the private posterior, own modality only: (M, K, B)
-        lqw_x = dist_log_prob(self.dist_name, W, w_mu[:, None], w_sig[:, None]).sum(-1)
+        lqw_x = sum_f32(dist_log_prob(self.dist_name, W, w_mu[:, None], w_sig[:, None]))
 
         lpx_z = 0.0
         for recon_mod in mods:
@@ -222,8 +226,8 @@ class MMVAEPlus(BaseMultiVAE):
         t = self._k_lw_terms(batch, posteriors, zs, recons, detach_posteriors,
                              unit_rescale)
         pz_mu, pz_std = self.pz_params()
-        lpz = dist_log_prob(self.dist_name, torch.cat([t["U"], t["W"]], -1), pz_mu,
-                            pz_std).sum(-1)
+        lpz = sum_f32(dist_log_prob(self.dist_name, torch.cat([t["U"], t["W"]], -1), pz_mu,
+                                    pz_std))
         lw = (t["lpx_z"] + beta * (lpz - t["lqu_x"] - t["lqw_x"])) * t["mask"][:, None, :]
         return {m: lw[i] for i, m in enumerate(posteriors)}, t["n_mods_sample"]
 

@@ -120,18 +120,20 @@ class MoPoE(BaseMultiVAE):
         mus = torch.stack([enc[m]["embedding"] for m in self.encoders])
         precision = 1.0 / (torch.exp(torch.stack(
             [enc[m]["log_covariance"] for m in self.encoders])) + eps)    # (M, B, D)
-        S = self._subset_mask.to(mus.dtype)
-        total = torch.einsum("sm,mbd->sbd", S, precision)
-        total = total + (self._full_subset_flag.to(mus.dtype)
-                         / (1.0 + eps))[:, None, None]
-        mu_sub = torch.einsum("sm,mbd->sbd", S, mus * precision)
+        # the float32 membership promotes bf16 experts (JAX's einsum does)
+        dtype = torch.promote_types(mus.dtype, self._subset_mask.dtype)
+        S = self._subset_mask.to(dtype)
+        total = torch.einsum("sm,mbd->sbd", S, precision.to(dtype))
+        total = total + (self._full_subset_flag.to(dtype) / (1.0 + eps))[:, None, None]
+        mu_sub = torch.einsum("sm,mbd->sbd", S, (mus * precision).to(dtype))
         return mu_sub / total, -torch.log(total), enc
 
     def _availabilities(self, batch: MultimodalBatch):
-        """(S, B): 1 where every modality of the subset is available."""
+        """(S, B): 1 where every modality of the subset is available, in at
+        least float32 (as JAX's)."""
         mask = torch.stack([batch.masks[m] for m in self.encoders])     # (M, B)
         missing = torch.einsum("sm,mb->sb", self._subset_mask.to(mask.dtype), 1.0 - mask)
-        return (missing == 0).to(mask.dtype)
+        return (missing == 0).to(torch.promote_types(mask.dtype, torch.float32))
 
     def _inference(self, batch: MultimodalBatch, incomplete: bool,
                    generator: Optional[torch.Generator] = None) -> dict:
@@ -161,7 +163,7 @@ class MoPoE(BaseMultiVAE):
         latents = self._inference(batch, batch.incomplete, generator)
         jmu, jlv = latents["joint"]
         shard = self.data_shard
-        z = rsample_from_gaussian(jmu, jlv, noise=shard.draw(self.draw_noise, jmu.shape,
+        z = rsample_from_gaussian(jmu, jlv, noise=shard.draw(self.noise_for(jmu), jmu.shape,
                                                              generator))
         w = batch.weights
         n_data = shard.total(w.sum()).clamp_min(1.0)

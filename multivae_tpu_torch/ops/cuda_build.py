@@ -7,7 +7,9 @@ interface. On first use a ``.cu`` source is compiled with ``nvcc`` for
 ``build/native/``, at the root of the checkout (the file name carries a
 hash of the source, so an edited source is rebuilt), and loaded with
 ``ctypes``. ``build()`` compiles all sources at once, one compiler process
-per source. Nothing is built when a module is imported.
+per source. ``mixture_bf16.cu`` is ``mixture.cu`` built for bfloat16
+elements (it includes it), so its hash covers both files. Nothing is built
+when a module is imported.
 """
 
 from __future__ import annotations
@@ -24,8 +26,10 @@ from typing import Dict, Iterable
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 HOST_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
-SOURCES = ("mixture",)
+SOURCES = ("mixture", "mixture_bf16")
 HOST_SOURCES = ("gather",)
+# the sources another source includes (its build depends on them)
+INCLUDES = {"mixture_bf16": ("mixture.cu",)}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_FALLBACK = "/usr/local/cuda/bin/nvcc"
@@ -57,7 +61,10 @@ def _source(name: str) -> Path:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha1(_source(name).read_bytes()).hexdigest()
+    h = hashlib.sha1(_source(name).read_bytes())
+    for inc in INCLUDES.get(name, ()):
+        h.update((CSRC_DIR / inc).read_bytes())
+    digest = h.hexdigest()
     out_dir = HOST_BUILD_DIR if name in HOST_SOURCES else BUILD_DIR
     return out_dir / f"lib{name}_{digest[:12]}.so"
 

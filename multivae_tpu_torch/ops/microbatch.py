@@ -14,6 +14,7 @@ declare ``loss_is_sum = True``.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, List
 
 from ..data.batch import MultimodalBatch, map_leaves
@@ -40,10 +41,12 @@ def split_batch(batch: MultimodalBatch, n_micro: int) -> List[MultimodalBatch]:
 
 
 def microbatched_backward(loss_fn: Callable, batch: MultimodalBatch,
-                          n_micro: int) -> ModelOutput:
+                          n_micro: int, context=contextlib.nullcontext) -> ModelOutput:
     """Run ``loss_fn(chunk)`` and its ``backward`` on each of ``n_micro``
-    chunks in turn, so the parameters' ``.grad`` accumulate the sum of the
-    chunks' gradients (float32 parameters: a float32 sum). Returns
+    chunks in turn, each pair inside a fresh ``context()`` (the trainer's
+    ``mixed_precision``: bf16 copies of the parameters, cast anew for each
+    chunk), so the parameters' ``.grad`` accumulate the sum of the chunks'
+    gradients (float32 parameters: a float32 sum). Returns
     ModelOutput(loss, loss_sum, metrics): ``loss`` and ``loss_sum`` summed
     over the chunks and detached, each metric their mean (the chunks are of
     equal size). Each chunk draws its noise when its ``loss_fn`` runs, in
@@ -53,8 +56,9 @@ def microbatched_backward(loss_fn: Callable, batch: MultimodalBatch,
     loss = loss_sum = 0.0
     metrics = {}
     for chunk in split_batch(batch, n_micro):
-        out = loss_fn(chunk)
-        out["loss"].backward()
+        with context():
+            out = loss_fn(chunk)
+            out["loss"].backward()
         loss = loss + out["loss"].detach()
         loss_sum = loss_sum + out["loss_sum"].detach()
         for k, v in out.get("metrics", {}).items():

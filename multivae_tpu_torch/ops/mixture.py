@@ -10,20 +10,29 @@ with f Laplace or Normal, NOT divided by the expert count.
 
 - ``mixture_log_density_plain`` is a straight PyTorch copy of
   ``mixture_log_density_xla``: it forms the (MQ, MZ, K, B, D) broadcast and
-  takes ``torch.logsumexp``. The CPU path and the numerics anchor.
+  takes ``torch.logsumexp``. The CPU path and the numerics anchor. Its
+  terms are in the inputs' dtype and the sum over D in at least float32,
+  so bfloat16 inputs (the trainer's ``mixed_precision``) give a float32
+  result and bfloat16 gradients, as the XLA composition does.
 - On CUDA tensors ``mixture_log_density`` runs ``csrc/mixture.cu``
   through an autograd Function (see the note at the top of the source for
   the design and its bound). The forward is one kernel launch: the kernel
   reads sigma itself and returns the per-expert constant ``logc`` for the
   backward. The backward is one launch too, of the dz-only kernel when
   neither ``mus`` nor ``sigmas`` needs a gradient (the DReG path), else of
-  the full one. There is no fallback: a CUDA input the kernel does not take
-  (not float32, not contiguous, too large for shared memory) raises.
+  the full one. Float32 inputs run the kernels of ``csrc/mixture.cu``,
+  bfloat16 inputs their bf16 instance (``csrc/mixture_bf16.cu``), which
+  reads bf16 and computes in float32: ``out`` is float32 for both, and
+  ``dz`` (``dmu``, ``dsig``) come back in the inputs' dtype. There is no
+  fallback and no cast: a CUDA input the kernels do not take (another
+  dtype, mixed dtypes, not contiguous, too large for shared memory)
+  raises.
 - ``_fwd_reference`` and ``_bwd_reference`` compute in plain PyTorch what
   the C entries ``mixture_fwd`` and ``mixture_bwd`` compute, with the same
   arguments and outputs, so the CPU tests can drive the autograd glue.
 
-``launches`` counts kernel launches, one per launch of each kernel. A
+``launches`` counts kernel launches, one per launch of each kernel (the
+bf16 instances under ``fwd_bf16``, ``bwd_bf16`` and ``bwd_dz_bf16``). A
 launch captured in a CUDA graph (the trainer's ``steps_per_execution``)
 counts at each replay of the graph, not at its capture
 (``trainers/base/graphs.py``). The launches go to the current stream,
@@ -39,6 +48,7 @@ import math
 import torch
 
 from . import cuda_build
+from .gaussian import sum_f32
 
 _LOG2 = math.log(2.0)
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
@@ -46,7 +56,9 @@ _NEG = -1e30
 DISTS = ("laplace", "normal")
 _FWD, _BWD_DZ, _BWD = 0, 1, 2
 
-launches = {"fwd": 0, "bwd": 0, "bwd_dz": 0}
+DTYPES = (torch.float32, torch.bfloat16)
+KERNELS = ("fwd", "bwd", "bwd_dz", "fwd_bf16", "bwd_bf16", "bwd_dz_bf16")
+launches = {k: 0 for k in KERNELS}
 
 
 def reset_launches():
@@ -63,10 +75,16 @@ def _logf_terms(dist: str, z, mu, sig):
 
 def mixture_log_density_plain(z, mus, sigmas, mask, dist: str = "laplace"):
     """(MZ,K,B,D), (MQ,B,D), (MQ,B,D), (MQ,B) -> (MZ,K,B)."""
-    lq = _logf_terms(dist, z[None], mus[:, None, None],
-                     sigmas[:, None, None]).sum(-1)
+    lq = sum_f32(_logf_terms(dist, z[None], mus[:, None, None],
+                             sigmas[:, None, None]))
     lq = torch.where(mask[:, None, None, :] > 0, lq, _NEG)
     return torch.logsumexp(lq, dim=0)
+
+
+def _widen(*tensors):
+    """bf16 tensors as float32 (the kernels' arithmetic), others as they
+    are."""
+    return [t.float() if t.dtype == torch.bfloat16 else t for t in tensors]
 
 
 def _lq_reference(z3, mus, sigmas, logc, mask, laplace: bool):
@@ -80,6 +98,7 @@ def _lq_reference(z3, mus, sigmas, logc, mask, laplace: bool):
 def _fwd_reference(z3, mus, sigmas, mask, laplace: bool):
     """What ``mixture_fwd`` computes: (R,B,D), (MQ,B,D) x2, (MQ,B) ->
     out (R,B) and logc (MQ,B)."""
+    z3, mus, sigmas, mask = _widen(z3, mus, sigmas, mask)
     c = _LOG2 if laplace else _HALF_LOG_2PI
     logc = -torch.log(sigmas).sum(-1) - z3.shape[-1] * c
     lq = _lq_reference(z3, mus, sigmas, logc, mask, laplace)
@@ -89,7 +108,9 @@ def _fwd_reference(z3, mus, sigmas, mask, laplace: bool):
 def _bwd_reference(z3, mus, sigmas, logc, mask, out, g, laplace: bool,
                    need_params: bool):
     """What ``mixture_bwd`` computes: dz (R,B,D), and dmu, dsig (MQ,B,D)
-    when ``need_params``, else None for both."""
+    when ``need_params``, else None for both; in the inputs' dtype."""
+    dtype = z3.dtype
+    z3, mus, sigmas, mask = _widen(z3, mus, sigmas, mask)
     lq = _lq_reference(z3, mus, sigmas, logc, mask, laplace)
     w = torch.where(mask[:, None] > 0, torch.exp(lq - out[None]) * g[None],
                     0.0)[..., None]
@@ -103,20 +124,24 @@ def _bwd_reference(z3, mus, sigmas, logc, mask, out, g, laplace: bool,
         df_dsig = (diff * diff * inv * inv - 1.0) * inv
     wz = w * df_dz
     if not need_params:
-        return wz.sum(0), None, None
-    return wz.sum(0), -wz.sum(1), (w * df_dsig).sum(1)
+        return wz.sum(0).to(dtype), None, None
+    return (wz.sum(0).to(dtype), (-wz.sum(1)).to(dtype),
+            (w * df_dsig).sum(1).to(dtype))
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load("mixture")
+def _lib(dtype: torch.dtype = torch.float32) -> ctypes.CDLL:
+    """The library of the kernels for ``dtype`` (float32 or bfloat16)."""
+    lib = cuda_build.load("mixture" if dtype == torch.float32 else "mixture_bf16")
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.mixture_fwd.argtypes = [P] * 6 + [I] * 4 + [ctypes.c_float] + [I] * 2 + [P]
     lib.mixture_fwd.restype = I
-    lib.mixture_bwd.argtypes = [P] * 10 + [I] * 6 + [P]
+    lib.mixture_bwd.argtypes = [P] * 10 + [I] * 6 + [P] * 2
     lib.mixture_bwd.restype = I
     lib.mixture_smem.argtypes = [I] * 7
     lib.mixture_smem.restype = ctypes.c_size_t
+    lib.mixture_workspace.argtypes = [I] * 7
+    lib.mixture_workspace.restype = ctypes.c_size_t
     lib.mixture_launch_shape.argtypes = [I] * 7 + [P]
     lib.mixture_launch_shape.restype = I
     lib.mixture_error_string.argtypes = [I]
@@ -125,14 +150,15 @@ def _lib() -> ctypes.CDLL:
 
 
 def launch_shape(r: int, b: int, d: int, mq: int, mode: str, laplace=True,
-                 vec=True) -> dict:
-    """How the kernel of ``mode`` ('fwd', 'bwd_dz' or 'bwd') launches at
-    these shapes on the current card: blocks per SM (occupancy), threads
-    per block, row splits and shared memory per block."""
+                 vec=True, dtype: torch.dtype = torch.float32) -> dict:
+    """How the kernel of ``mode`` ('fwd', 'bwd_dz' or 'bwd') for ``dtype``
+    launches at these shapes on the current card: blocks per SM
+    (occupancy), threads per block, row splits and shared memory per
+    block."""
     vals = (ctypes.c_int * 4)()
     m = {"fwd": _FWD, "bwd_dz": _BWD_DZ, "bwd": _BWD}[mode]
-    err = _lib().mixture_launch_shape(r, b, d, mq, m, int(laplace), int(vec),
-                                      ctypes.cast(vals, ctypes.c_void_p))
+    err = _lib(dtype).mixture_launch_shape(r, b, d, mq, m, int(laplace), int(vec),
+                                           ctypes.cast(vals, ctypes.c_void_p))
     _raise_on(err, "mixture_launch_shape")
     return dict(zip(("blocks_per_sm", "threads", "splits", "smem_bytes"), vals))
 
@@ -141,10 +167,15 @@ def _check_inputs(z, mus, sigmas, mask, dist):
     if dist not in DISTS:
         raise ValueError(f"dist must be one of {DISTS}, got {dist!r}")
     named = {"z": z, "mus": mus, "sigmas": sigmas, "mask": mask}
+    if z.dtype not in DTYPES:
+        raise TypeError(f"mixture_log_density: z is {z.dtype}; the kernels "
+                        "take float32 or bfloat16.")
     for name, t in named.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"mixture_log_density: {name} is {t.dtype}; the "
-                            "kernel takes float32 only.")
+        if t.dtype != z.dtype:
+            raise TypeError(
+                f"mixture_log_density: {name} is {t.dtype} and z {z.dtype}; "
+                "the kernels take z, mus, sigmas and mask in one dtype.")
+    for name, t in named.items():
         if not t.is_contiguous():
             raise ValueError(f"mixture_log_density: {name} is not contiguous.")
         if t.device != z.device or t.device.type != "cuda":
@@ -166,13 +197,19 @@ def _check_inputs(z, mus, sigmas, mask, dist):
 
 
 def _vectorized(d: int, *tensors) -> bool:
-    """float4 path: rows of whole float4s and 16-byte aligned pointers."""
-    return d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+    """16-byte path: rows of whole 16-byte words (4 float32 or 8 bf16
+    values) and 16-byte aligned pointers."""
+    per_word = 16 // tensors[0].element_size()
+    return d % per_word == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _smem_limit(device) -> int:
+    props = torch.cuda.get_device_properties(device)
+    return getattr(props, "shared_memory_per_block_optin", 232448)
 
 
 def _check_smem(lib, shape, mode: int, vec: bool, device):
-    props = torch.cuda.get_device_properties(device)
-    limit = getattr(props, "shared_memory_per_block_optin", 232448)
+    limit = _smem_limit(device)
     nbytes = lib.mixture_smem(*shape, mode, int(vec), limit)
     if nbytes == 0 or nbytes > limit:
         raise ValueError(
@@ -183,7 +220,7 @@ def _check_smem(lib, shape, mode: int, vec: bool, device):
 
 def _raise_on(err: int, name: str):
     if err:
-        msg = _lib().mixture_error_string(err).decode()
+        msg = _lib(torch.float32).mixture_error_string(err).decode()
         raise RuntimeError(f"{name} failed to launch: CUDA error {err} ({msg})")
 
 
@@ -191,11 +228,16 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _counter(kernel: str, z3) -> str:
+    """The ``launches`` key of ``kernel`` for z3's dtype."""
+    return kernel if z3.dtype == torch.float32 else f"{kernel}_bf16"
+
+
 def _launch_fwd(z3, mus, sigmas, mask, laplace: bool):
     """One launch of ``mixture_fwd``: out (R,B) and logc (MQ,B)."""
     r, b, d = z3.shape
     mq = mus.shape[0]
-    lib = _lib()
+    lib = _lib(z3.dtype)
     vec = _vectorized(d, z3, mus, sigmas)
     _check_smem(lib, (r, b, d, mq), _FWD, vec, z3.device)
     out = torch.empty((r, b), dtype=torch.float32, device=z3.device)
@@ -207,7 +249,7 @@ def _launch_fwd(z3, mus, sigmas, mask, laplace: bool):
             out.data_ptr(), logc.data_ptr(), r, b, d, mq, dc, int(laplace),
             int(vec), torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "mixture_fwd")
-    launches["fwd"] += 1
+    launches[_counter("fwd", z3)] += 1
     return out, logc
 
 
@@ -217,21 +259,25 @@ def _launch_bwd(z3, mus, sigmas, logc, mask, out, g, laplace: bool,
     ``need_params`` (else the dz-only kernel, and None for both)."""
     r, b, d = z3.shape
     mq = mus.shape[0]
-    lib = _lib()
+    lib = _lib(z3.dtype)
     dz = torch.empty_like(z3)
     dmu = torch.empty_like(mus) if need_params else None
     dsig = torch.empty_like(mus) if need_params else None
     vec = _vectorized(d, z3, mus, sigmas)
-    _check_smem(lib, (r, b, d, mq), _BWD if need_params else _BWD_DZ, vec,
-                z3.device)
+    mode = _BWD if need_params else _BWD_DZ
+    _check_smem(lib, (r, b, d, mq), mode, vec, z3.device)
+    # the bf16 chunked path's float partial sums (none elsewhere)
+    n_ws = lib.mixture_workspace(r, b, d, mq, mode, int(vec), _smem_limit(z3.device))
+    ws = (torch.empty(n_ws, dtype=torch.float32, device=z3.device)
+          if n_ws else None)
     with torch.cuda.device(z3.device):
         err = lib.mixture_bwd(
             z3.data_ptr(), mus.data_ptr(), sigmas.data_ptr(), logc.data_ptr(),
             mask.data_ptr(), out.data_ptr(), g.data_ptr(), dz.data_ptr(),
-            _ptr(dmu), _ptr(dsig), r, b, d, mq, int(laplace), int(vec),
+            _ptr(dmu), _ptr(dsig), r, b, d, mq, int(laplace), int(vec), _ptr(ws),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "mixture_bwd")
-    launches["bwd" if need_params else "bwd_dz"] += 1
+    launches[_counter("bwd" if need_params else "bwd_dz", z3)] += 1
     return dz, dmu, dsig
 
 

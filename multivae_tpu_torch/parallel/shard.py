@@ -48,12 +48,14 @@ class DataShard:
     # ------------------------------------------------------------- reductions
     def total(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` (a quantity of the data: no gradient) summed over the
-        processes."""
+        processes, in at least float32 and given back in ``x``'s dtype: a
+        bf16 count (a mixed-precision step's weight sum) is the one-process
+        sum's, rounded once."""
         if not self.distributed:
             return x
-        x = x.detach().clone()
-        dist.all_reduce(x, op=dist.ReduceOp.SUM)
-        return x
+        total = x.detach().to(torch.promote_types(x.dtype, torch.float32), copy=True)
+        dist.all_reduce(total, op=dist.ReduceOp.SUM)
+        return total.to(x.dtype)
 
     def global_mean(self, x: torch.Tensor) -> torch.Tensor:
         """The mean of every entry of ``x`` over the global batch, with its

@@ -22,11 +22,14 @@ epoch with ``torch.profiler`` and prints:
 dataset on the card) instead of the host path. ``--steps-per-execution N``
 (with the cache) runs the steps as CUDA graphs of N steps: a second
 warm-up epoch captures them, so the profiled epoch only replays.
+``--mixed-precision`` trains with the trainer's bfloat16
+``mixed_precision`` (the loss in bf16 on bf16 copies of the weights; the
+bf16 mixture kernels).
 
 Run from the root of a checkout:
 
     python3 -m multivae_tpu_torch.tools.profile_mmvae [--steps 8] [--model mvtcae_conv]
-        [--stage 2] [--cache] [--steps-per-execution 8]
+        [--stage 2] [--cache] [--steps-per-execution 8] [--mixed-precision]
 """
 
 from __future__ import annotations
@@ -82,6 +85,8 @@ def main():
                         help="train with cache_on_device (the data on the card)")
     parser.add_argument("--steps-per-execution", type=int, default=1,
                         help="steps a CUDA graph (implies --cache)")
+    parser.add_argument("--mixed-precision", action="store_true",
+                        help="train with the trainer's bf16 mixed_precision")
     args = parser.parse_args()
     graphed = args.steps_per_execution > 1
     if not torch.cuda.is_available():
@@ -96,7 +101,8 @@ def main():
         w.model, w.train, training_config=BaseTrainerConfig(
             output_dir=os.path.join("build", "profile_mmvae"), num_epochs=3,
             cache_on_device=args.cache or graphed,
-            steps_per_execution=args.steps_per_execution, **w.trainer_kwargs))
+            steps_per_execution=args.steps_per_execution,
+            mixed_precision=args.mixed_precision, **w.trainer_kwargs))
     if hasattr(w.model, "set_stage"):
         w.model.set_stage(args.stage)
     trainer.train_step(1)  # warm-up: kernel builds, cuBLAS heuristics, allocator
@@ -126,6 +132,7 @@ def main():
         **({"stage": args.stage} if hasattr(w.model, "set_stage") else {}),
         "data": "device cache" if trainer._train_cache is not None else "host",
         "steps_per_execution": args.steps_per_execution,
+        "mixed_precision": args.mixed_precision,
         "graph_replays": trainer._graphs["train"].replays,
         "steps": args.steps,
         "wall_ms_per_step": wall_us / args.steps / 1e3,

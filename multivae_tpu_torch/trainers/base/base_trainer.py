@@ -94,10 +94,23 @@ final model and the file log, and fires ``on_prediction_step``,
 rank. ``steps_per_execution`` > 1 and the ``"sharded"`` cache layout are
 refused under more than one process.
 
+``mixed_precision`` (JAX ``loss_fn`` with ``_to_bf16``): each train step
+runs the model's ``loss_function`` on bfloat16 copies of the float32
+parameters (swapped in for the loss and its backward,
+``mixed_precision.py``) and of the batch's float leaves (not autocast:
+every op of the loss runs in bf16, as in the JAX mode; integer tokens
+stay). The loss comes back in float32 and its backward reaches the
+float32 master parameters through the casts, so the gradients, the
+optimizer's state, the gradient all-reduce and the checkpoints stay
+float32. Microbatch chunks cast each, and their gradients add up in
+float32; a graphed chunk captures the casts, which read the parameters
+the optimizer updates in place at each replay. The eval pass and the
+sanity check's forward stay float32.
+
 The JAX trainer's fused whole-epoch blocks (and the in-graph plateau
-scheduler they carry), sharded (orbax) checkpoints and bfloat16 mode
-exist to amortize TPU launch costs or to spread over a TPU mesh and are
-not part of the port. ``history`` holds each epoch's logged metrics.
+scheduler they carry) and sharded (orbax) checkpoints exist to amortize
+TPU launch costs or to spread over a TPU mesh and are not part of the
+port. ``history`` holds each epoch's logged metrics.
 """
 
 from __future__ import annotations
@@ -114,7 +127,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ...data.batch import batch_from_arrays
+from ...data.batch import batch_from_arrays, floats_to
 from ...data.device_cache import PlanBuffer, build_device_cache, cache_per_device_nbytes
 from ...data.loader import DataLoader
 from ...data.prefetch import PrefetchLoader
@@ -139,6 +152,7 @@ from .callbacks import (
     TrainingCallback,
 )
 from .graphs import ChunkGraphs
+from .mixed_precision import bf16_parameters
 from .optim import make_capturable, make_optimizer, make_scheduler
 from .utils import set_seed, update_dict
 
@@ -393,6 +407,26 @@ class BaseTrainer:
         return None
 
     # ------------------------------------------------------------- stepping
+    def _train_loss(self, batch, info, generator):
+        """The model's loss on ``batch`` in a train step: as it is, or under
+        ``mixed_precision`` (inside ``_train_context``, on the bf16
+        parameters) on the batch's float leaves in bfloat16, with the loss
+        back in float32 (JAX ``loss_fn``)."""
+        if not self.training_config.mixed_precision:
+            return self.model.loss_function(batch, info, generator=generator)
+        out = self.model.loss_function(floats_to(batch, torch.bfloat16), info,
+                                       generator=generator)
+        out["loss"] = out["loss"].float()
+        return out
+
+    def _train_context(self):
+        """Where a train step's loss and backward run: under
+        ``mixed_precision``, the model on bfloat16 copies of its parameters
+        cast now from the live ones (kept nowhere)."""
+        if self.training_config.mixed_precision:
+            return bf16_parameters(self.model)
+        return contextlib.nullcontext()
+
     def _epoch_batches(self, which: str):
         """The epoch's batches on the device: gathered from the device cache
         by the uploaded plan, or prefetched from the host loader."""
@@ -421,9 +455,8 @@ class BaseTrainer:
                 self.optimizer.zero_grad(set_to_none=True)
                 with self.model.sharded(self._shard):
                     out = microbatched_backward(
-                        lambda chunk: self.model.loss_function(chunk, info,
-                                                               generator=generator),
-                        batch, n_micro)
+                        lambda chunk: self._train_loss(chunk, info, generator),
+                        batch, n_micro, self._train_context)
                 if self._reducer is not None:
                     self._reducer()
                 self.optimizer.step()
@@ -433,7 +466,9 @@ class BaseTrainer:
                     out = self.model.loss_function(batch, info, generator=generator)
                 self.callback_handler.on_eval_step_end(self.training_config)
             sums["loss_sum"] += out["loss_sum"].detach()
-            update_dict(sums, {k: v.detach() for k, v in out.get("metrics", {}).items()})
+            # in at least float32, as the chunks' sums (a bf16 step's metrics)
+            update_dict(sums, {k: v.detach().to(torch.promote_types(v.dtype, torch.float32))
+                               for k, v in out.get("metrics", {}).items()})
         return sums
 
     def _run_chunked_epoch(self, which: str, loader, epoch: int, generator) -> dict:
@@ -489,8 +524,8 @@ class BaseTrainer:
                 # replay writes it again
                 self.optimizer.zero_grad(set_to_none=True)
                 out = microbatched_backward(
-                    lambda part: self.model.loss_function(part, info, generator=generator),
-                    batch, self.training_config.microbatch_steps)
+                    lambda part: self._train_loss(part, info, generator),
+                    batch, self.training_config.microbatch_steps, self._train_context)
                 self.optimizer.step()
             else:
                 out = self.model.loss_function(batch, info, generator=generator)

@@ -6,12 +6,12 @@ the device cache's three, ``steps_per_execution`` (CUDA graphs of the
 cached step on the card), the pipelined finalization's two and data
 parallelism's four (``n_devices``, ``coordinator_address``,
 ``num_processes``, ``process_id``: one process per card over a
-``torch.distributed`` group, ``parallel/mesh.py``). The other TPU-only
+``torch.distributed`` group, ``parallel/mesh.py``) and bfloat16's
+``mixed_precision`` (the trainer's ``_train_loss``). The other TPU-only
 fields (the model axis ``n_model_devices``; ``fsdp``; the orbax
-``checkpoint_backend`` and ``async_checkpointing``; bfloat16's
-``mixed_precision``) are not part of the port; a ``training_config.json``
-holding them does not load here. Optimizer and scheduler specs are
-validated eagerly.
+``checkpoint_backend`` and ``async_checkpointing``) are not part of the
+port; a ``training_config.json`` holding them does not load here.
+Optimizer and scheduler specs are validated eagerly.
 """
 
 from __future__ import annotations
@@ -91,6 +91,12 @@ class BaseTrainerConfig(BaseConfig):
             group at ``host:port`` with this many processes, this one being
             ``process_id``; unset, a group opened by the caller or by
             torchrun (its ``env://`` variables) is joined.
+        mixed_precision: run each train step's loss in bfloat16 (fp32
+            master weights and optimizer state; grads are cast back to
+            fp32): the loss on bf16 copies of the parameters and of the
+            batch's float leaves, the gradients through the casts to the
+            float32 parameters. The eval pass stays float32. Off by
+            default.
     """
 
     output_dir: Optional[str] = None
@@ -118,6 +124,7 @@ class BaseTrainerConfig(BaseConfig):
     coordinator_address: Optional[str] = None
     num_processes: Optional[int] = None
     process_id: Optional[int] = None
+    mixed_precision: bool = False
 
     def __post_init__(self):
         if self.steps_per_execution < 1:

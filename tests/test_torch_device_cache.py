@@ -335,19 +335,21 @@ def test_layouts():
 
 def test_a_jax_training_config_with_the_cache_fields_loads(tmp_path):
     """The three cache fields of a JAX ``training_config.json`` load, and
-    with them ``steps_per_execution``, ``pipeline_epochs`` and
-    ``pipeline_depth``; the other TPU fields (``mixed_precision`` among
-    them) are still refused."""
+    with them ``steps_per_execution``, ``pipeline_epochs``,
+    ``pipeline_depth`` and ``mixed_precision``; the other TPU fields
+    (``fsdp`` among them) are still refused."""
     JTrainerConfig(output_dir="out", n_devices=1, cache_on_device=True,
                    device_cache_budget_gb=2.5, device_cache_layout="sharded",
-                   steps_per_execution=4, pipeline_depth=3).save_json(
+                   steps_per_execution=4, pipeline_depth=3,
+                   mixed_precision=True).save_json(
         str(tmp_path), "training_config")
     with open(tmp_path / "training_config.json") as f:
         saved = json.load(f)
     ported = set(BaseTrainerConfig().to_dict())
     tpu_only = sorted(set(saved) - ported - {"name"})
-    assert "mixed_precision" in tpu_only and "cache_on_device" not in tpu_only
-    assert not {"steps_per_execution", "pipeline_epochs", "pipeline_depth"} & set(tpu_only)
+    assert "fsdp" in tpu_only and "cache_on_device" not in tpu_only
+    assert not {"steps_per_execution", "pipeline_epochs", "pipeline_depth",
+                "mixed_precision"} & set(tpu_only)
     for k in tpu_only:
         del saved[k]
     with open(tmp_path / "training_config.json", "w") as f:
@@ -356,8 +358,9 @@ def test_a_jax_training_config_with_the_cache_fields_loads(tmp_path):
     assert (cfg.cache_on_device, cfg.device_cache_budget_gb, cfg.device_cache_layout) == (
         True, 2.5, "sharded")
     assert (cfg.steps_per_execution, cfg.pipeline_epochs, cfg.pipeline_depth) == (4, True, 3)
-    with pytest.raises(TypeError, match="mixed_precision"):
-        BaseTrainerConfig.from_dict(dict(saved, mixed_precision=False))
+    assert cfg.mixed_precision is True
+    with pytest.raises(TypeError, match="fsdp"):
+        BaseTrainerConfig.from_dict(dict(saved, fsdp=False))
 
 
 # --------------------------------------------------------------- evaluators
