@@ -231,9 +231,10 @@ Phases (any failure exits non-zero and prints no result line):
     the epoch before the last. Each graphed run must replay train and eval
     graphs and equal the capturable eager run within ``GRAPHED_RTOL`` on
     every epoch's train and eval loss and on the weights' moves, as must
-    the resume the uninterrupted graphed run; every run's train and eval
-    losses and moves lie within ten times the largest spread of the plain
-    eager run's (no tighter than the resume gates), and the mixture
+    the resume the uninterrupted graphed run; each kind of every run's gap
+    to the plain eager run (first-epoch, later-epoch and eval losses, the
+    moves) lies within ten times the spread of that kind (no tighter than
+    the resume gates), and the mixture
     launches are their count a step on every train and eval step. One
     replay of ``mmvaeplus_partial``'s 8-step graph under torch.profiler
     must launch the mixture kernels the counters add for it. ``dmvae_mnist_svhn`` (the one workload the
@@ -259,7 +260,22 @@ Phases (any failure exits non-zero and prints no result line):
     backward a step (and the forwards of each eval step); with more than one
     card, also by min(cards, 4) ranks over NCCL, one card each. Steps/s of
     each, the gradient bytes all-reduced a step and the all-reduce's ms a
-    step (CUDA events around it) under NCCL and gloo, the phase's seconds;
+    step (CUDA events around it) under NCCL and gloo. Then the rest of the
+    JAX package's data-parallel surface: ``mmvae_conv`` (2,048 cached rows)
+    as CUDA graphs of 8 steps alone and in a one-process NCCL group, bit
+    for bit, with the collectives the captures issued and one profiled
+    replay's mixture kernels (16 forwards and 8 dz-only backwards) and
+    NCCL activities; the spawned ranks cache ``mmvae_conv``'s 2,048 rows
+    replicated, row-sharded and "auto" under a budget only the sharded
+    layout fits (an epoch's batches bit-equal, half the bytes a rank, the
+    exchange's ms and bytes a step) and train from the replicated and the
+    sharded cache, bit-equal; the evaluators (likelihoods, coherence,
+    reconstruction, clustering, the FID with the classifiers' features) on
+    seeded ``mmvae_conv`` and ``mvtcae_conv`` over 2,048 labelled rows
+    alone, in the one-process NCCL group (bit-equal) and over the ranks
+    (each rank the same metrics, within ``DP_EVAL_RTOL`` /
+    ``DP_EVAL_COUNT_ATOL`` of alone, each counting the paper NLL's mixture
+    forwards); the phase's seconds;
 25. ``mixed_precision``: the trainer's bfloat16 mode. The bf16 instances of
     the three mixture kernels (``csrc/mixture_bf16.cu``) at every shape of
     phase 3, against the plain version in float64 on the same bf16 values
@@ -1506,7 +1522,8 @@ def _head(dataset, n):
     return ResampleDataset(dataset, np.arange(n))
 
 
-def evaluator_calls(model, clfs, test, train, out_dir, inception_path=None, small=False):
+def evaluator_calls(model, clfs, test, train, out_dir, inception_path=None, small=False,
+                    n_devices=1, joint_samples=None, cluster_runs=None):
     """The evaluators on ``model``, each a call returning its metrics:
     ``LikelihoodsEvaluator`` (K=1000 in chunks of 100 on 256 rows; MMVAE's
     paper estimator on 64, which runs the mixture forward kernel),
@@ -1520,7 +1537,10 @@ def evaluator_calls(model, clfs, test, train, out_dir, inception_path=None, smal
     embedding and Fréchet seconds apart). ``small``: the card-vs-CPU
     settings (64 rows, K=20 in chunks of 10, 64 joint samples, one
     clustering run, the FIDs embedded by the classifier's 10 logits: a
-    128-feature covariance of 64 rows would be singular)."""
+    128-feature covariance of 64 rows would be singular). ``n_devices``
+    evaluates over the process group's ranks (``EvaluatorConfig.n_devices``);
+    ``joint_samples`` and ``cluster_runs`` cut the coherence's joint samples
+    and the clustering's runs."""
     from multivae_tpu_torch.metrics import (
         Clustering,
         ClusteringConfig,
@@ -1547,26 +1567,32 @@ def evaluator_calls(model, clfs, test, train, out_dir, inception_path=None, smal
         ev.finish()
         return value
 
+    dp = dict(n_devices=n_devices)
+
     def likelihoods():
         ev = LikelihoodsEvaluator(model, nll_set, eval_config=LikelihoodsEvaluatorConfig(
-            num_samples=K, batch_size_k=chunk, unified_implementation=not paper))
+            num_samples=K, batch_size_k=chunk, unified_implementation=not paper, **dp))
         return finished(ev, dict(ev.eval(), rows=len(nll_set)))
 
     def coherence():
+        joint = 64 if small else joint_samples
         ev = CoherenceEvaluator(model, clfs, test, eval_config=CoherenceEvaluatorConfig(
-            batch_size=512, num_classes=10, **({"nb_samples_for_joint": 64} if small else {})))
+            batch_size=512, num_classes=10, **dp,
+            **({} if joint is None else {"nb_samples_for_joint": joint})))
         return finished(ev, dict(ev.eval()))
 
     def reconstruction():
         out = {}
         for metric in ("SSIM", "MSE"):
-            ev = Reconstruction(model, test, eval_config=ReconstructionConfig(metric=metric))
+            ev = Reconstruction(model, test, eval_config=ReconstructionConfig(metric=metric,
+                                                                              **dp))
             out.update(finished(ev, ev.eval()))
         return out
 
     def clustering():
+        runs = 1 if small else cluster_runs or 4
         ev = Clustering(model, test, train, eval_config=ClusteringConfig(
-            number_of_runs=1 if small else 4), generator=torch.Generator().manual_seed(0))
+            number_of_runs=runs, **dp), generator=torch.Generator().manual_seed(0))
         return finished(ev, dict(ev.eval()))
 
     def visualization():
@@ -1577,7 +1603,7 @@ def evaluator_calls(model, clfs, test, train, out_dir, inception_path=None, smal
     def fid_subsets():
         embed = {m: clfs[m] if small else clfs[m].features for m in mods}
         ev = FIDEvaluator(model, test, custom_encoders=embed,
-                          eval_config=FIDEvaluatorConfig(batch_size=256))
+                          eval_config=FIDEvaluatorConfig(batch_size=256, **dp))
         return finished(ev, dict(ev.compute_all_conditional_fids("m0")))
 
     def fid_inception():
@@ -2631,16 +2657,19 @@ GRAPHED_CHUNK = 8
 # ulp a step, which the later gates below allow for.
 GRAPHED_RTOL = 1e-6
 # Every epoch's train and eval loss and the weights' moves over the run
-# against the eager run's: within ten times the card's own spread, and
-# never tighter than the resume gates RESUME_RTOL and RESUME_MOVE_RTOL,
-# which an MLP-only workload, deterministic either way, would otherwise
-# set to 0. The spread is the largest loss gap (first epoch, later ones,
-# eval) and the largest move gap among the eager run and two more runs
-# of it with cuDNN free to pick nondeterministic algorithms, taken pair by
-# pair: a gap of one pair is a signed sum over the epoch's batches and
-# may fall near 0 by chance (on an H100, mmvaeplus_partial's later-epoch
-# gap came out at 5.5e-5 to 1.1e-4 in five runs and below 1e-5 in a
-# sixth), while the capturable optimizer's gap is fixed by its arithmetic.
+# against the eager run's: each kind of gap (the first epoch's train loss,
+# the later epochs', the eval losses', the moves) within ten times the
+# card's own spread of that kind, and never tighter than the resume gates
+# RESUME_RTOL and RESUME_MOVE_RTOL, which an MLP-only workload,
+# deterministic either way, would otherwise set to 0. The spread of a kind
+# is its largest gap among the eager run and two more runs of it with
+# cuDNN free to pick nondeterministic algorithms, taken pair by pair: a gap
+# of one pair is a signed sum over the epoch's batches and may fall near 0
+# by chance (on an H100, mmvaeplus_partial's later-epoch gap came out at
+# 5.5e-5 to 1.1e-4 in five runs and below 1e-5 in a sixth), while the
+# capturable optimizer's gap is fixed by its arithmetic. A kind is held to
+# its own spread: the eval losses' spread (4.7e-4 on mmvaeplus_partial)
+# would let the train losses drift 18 times further than theirs.
 GRAPHED_SPREAD_FACTOR = 10.0
 GRAPHED_SPREAD_RUNS = ("eager_nondeterministic", "eager_nondeterministic_2")
 # (workload, rows, mixture launches a train step, epochs). MMVAE+ (batch
@@ -2818,10 +2847,8 @@ def _loss_gaps(run, ref, start, ours_end, ref_end):
             "move_rel_gap": _move_gap(start, ours_end, ref_end)}
 
 
-def _loss_gap(gaps):
-    """The largest of ``gaps``' train and eval loss gaps."""
-    return max(gaps["first_epoch_rel_gap"], gaps["later_epochs_rel_gap"],
-               gaps["eval_epochs_rel_gap"])
+# the kinds of loss gap the spread gate holds apart
+LOSS_GAP_KINDS = ("first_epoch_rel_gap", "later_epochs_rel_gap", "eval_epochs_rel_gap")
 
 
 def _tight(gaps):
@@ -2896,10 +2923,11 @@ def graphed_steps(mx, device="cuda", workloads_=GRAPHED_WORKLOADS, chunk=GRAPHED
             pairs = [gaps(a, b) for i, a in enumerate(GRAPHED_SPREAD_RUNS)
                      for b in ("eager",) + GRAPHED_SPREAD_RUNS[:i]]
             spread = {k: max(p[k] for p in pairs) for k in pairs[0]}
-            loss_tol = max(GRAPHED_SPREAD_FACTOR * _loss_gap(spread), RESUME_RTOL)
+            loss_tols = {k: max(GRAPHED_SPREAD_FACTOR * spread[k], RESUME_RTOL)
+                         for k in LOSS_GAP_KINDS}
             move_tol = max(GRAPHED_SPREAD_FACTOR * spread["move_rel_gap"], RESUME_MOVE_RTOL)
             rec = {"rows": rows, "epochs": epochs, "n_batches": eager["n_batches"],
-                   "spread": spread, "loss_tol": loss_tol, "move_tol": move_tol,
+                   "spread": spread, "loss_tols": loss_tols, "move_tol": move_tol,
                    "capturable_optimizer_vs_eager": gaps("eager_capturable")}
             keys = ("steps_per_execution", "pipelined", "steps_per_s", "steady_epochs",
                     "wall_s", "captures", "replays", "capture_s", "reserved_growth_bytes",
@@ -2955,8 +2983,9 @@ def graphed_steps(mx, device="cuda", workloads_=GRAPHED_WORKLOADS, chunk=GRAPHED
                   f"uninterrupted one by {resume} > {GRAPHED_RTOL}")
             for label in graphed + ("eager_capturable",):
                 got = gaps(label)
-                check(_loss_gap(got) <= loss_tol,
-                      f"{name} {label}: losses off the eager run's by {got} > {loss_tol}")
+                for k in LOSS_GAP_KINDS:
+                    check(got[k] <= loss_tols[k], f"{name} {label}: {k} {got[k]} off the "
+                          f"eager run's > {loss_tols[k]} (all gaps {got})")
                 check(got["move_rel_gap"] <= move_tol,
                       f"{name} {label}: moves off the eager run's by {got} > {move_tol}")
             del runs, weights
@@ -3015,7 +3044,7 @@ def _pipeline_runs(mx, device, out):
 DP_WORKLOADS = (("mmvae_conv", 1024, {"fwd": 2, "bwd_dz": 1}), ("mvtcae_conv", 1000, {}))
 DP_EPOCHS = 2
 DP_BATCH = 256                 # the global train and eval batch
-DP_RANK_TIMEOUT = 300          # seconds a spawned rank may take
+DP_RANK_TIMEOUT = 480          # seconds a spawned rank may take
 DP_GROUP_TIMEOUT = 120         # seconds a collective may wait for its partners
 # N ranks against one process on the global batch, under cuDNN's
 # deterministic algorithms on both sides: the same steps on the same draws
@@ -3156,6 +3185,11 @@ def _dp_run(mx, name, rows, per_step, per_device, device="cuda", epochs=DP_EPOCH
         record["all_reduce"] = timer.summary()
         check(record["all_reduce"]["calls"] == steps,
               f"{name}: {record['all_reduce']['calls']} gradient all-reduces in {steps} steps")
+    if trainer._train_cache is not None:
+        from multivae_tpu_torch.data.device_cache import cache_per_device_nbytes
+
+        record["train_cache"] = {"kind": type(trainer._train_cache).__name__,
+                                 "bytes": cache_per_device_nbytes(trainer._train_cache)}
     final = {k: v.detach().cpu().clone() for k, v in w.model.state_dict().items()}
     if trainer.is_main_process:   # every rank has left train(): the final model is written
         shutil.rmtree(trainer.training_dir, ignore_errors=True)
@@ -3176,7 +3210,9 @@ def dp_rank_main(argv, device="cuda"):
     """A spawned rank: ``--dp-rank R WORLD PORT BACKEND OUT``. Joins the
     group at ``tcp://127.0.0.1:PORT`` and runs every workload of
     ``DP_WORKLOADS`` at its share of ``DP_BATCH``, saving each record and
-    final weights under ``OUT``."""
+    final weights under ``OUT``; then ``dp_sharded`` and ``dp_evaluators``
+    over the group (and the likelihoods' control, ``_draws_per_rank``), and
+    over NCCL ``dp_graphed_rank``, saving their records."""
     import datetime
 
     import torch.distributed as dist
@@ -3196,6 +3232,20 @@ def dp_rank_main(argv, device="cuda"):
             record, _, final = _dp_run(mx, name, rows, per_step, DP_BATCH // world, device)
             torch.save(final, os.path.join(out, f"{name}_rank{rank}.pt"))
             with open(os.path.join(out, f"{name}_rank{rank}.json"), "w") as f:
+                json.dump(record, f)
+        with open(os.path.join(out, f"sharded_rank{rank}.json"), "w") as f:
+            json.dump(dp_sharded(mx, device), f)
+        record, _ = dp_evaluators(mx, device, n_devices=world)
+        with open(os.path.join(out, f"evaluators_rank{rank}.json"), "w") as f:
+            json.dump(record, f)
+        with _draws_per_rank():
+            record, _ = dp_evaluators(mx, device, n_devices=world, labels=DP_EVAL_CONTROL)
+        with open(os.path.join(out, f"control_rank{rank}.json"), "w") as f:
+            json.dump(record, f)
+        if backend in DP_GRAPHED_BACKENDS:
+            record, final = dp_graphed_rank(mx, device)
+            torch.save(final, os.path.join(out, f"graphed_rank{rank}.pt"))
+            with open(os.path.join(out, f"graphed_rank{rank}.json"), "w") as f:
                 json.dump(record, f)
     finally:
         dist.destroy_process_group()
@@ -3253,6 +3303,421 @@ def _dp_compare(label, ref, ref_start, ref_final, run, final, exact):
     return gaps
 
 
+# The data-parallel paths that finish the JAX package's surface: graphed
+# chunks in an NCCL group, the row-sharded device cache over ranks and the
+# evaluators over ranks.
+# (workload, rows, epochs, steps a chunk): mmvae_conv's DReG step (partial
+# PolyMNIST, batch 256) on 2,048 cached rows, 8 steps an epoch: epoch 1 runs
+# the eager chunk, epoch 2 captures, epochs 3 and 4 replay
+DP_GRAPHED = ("mmvae_conv", 2048, 4, 8)
+# (workload, rows): the two gloo ranks' sharded-cache runs; "auto" gets a
+# budget of DP_AUTO_BUDGET of the set's bytes, which only the sharded layout
+# (half a set a rank) fits
+DP_SHARDED = ("mmvae_conv", 2048)
+DP_AUTO_BUDGET = 0.75
+# the evaluators over ranks: these models (seeded, untrained) on EVAL_ROWS
+# labelled rows; the coherence's joint samples and the clustering's runs cut
+DP_EVAL_MODELS = ("mmvae_conv", "mvtcae_conv")
+DP_EVAL_LABELS = ("likelihoods", "coherence", "reconstruction", "clustering", "fid_subsets")
+DP_EVAL_JOINT, DP_EVAL_CLUSTER_RUNS = 512, 1
+# the sharded-cache runs' epochs
+DP_SHARDED_EPOCHS = 1
+
+
+@contextlib.contextmanager
+def _captured_collectives():
+    """Counts the ``torch.distributed.all_reduce`` calls made while a CUDA
+    graph captures (the gradient all-reduce, a loss's normalizers, the
+    sharded cache's exchange all go through it): a list whose length is
+    the count."""
+    import torch.distributed as dist
+
+    calls, plain = [], dist.all_reduce
+
+    def counting(*args, **kwargs):
+        if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+            calls.append(args[0].numel() * args[0].element_size())
+        return plain(*args, **kwargs)
+
+    dist.all_reduce = counting
+    try:
+        yield calls
+    finally:
+        dist.all_reduce = plain
+
+
+def _replay_profile(trainer, n):
+    """``_replayed_kernels`` of the ``n``-step train graph, and of another
+    replay of it the device-side activities whose names say NCCL, their
+    count, and every activity's count by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    seen, counted = _replayed_kernels(trainer, n)
+    (graph, _), = [v for k, v in trainer._graphs["train"].graphs.items() if k[0] == n]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            names[e.name] = names.get(e.name, 0) + 1
+    nccl = {k: v for k, v in names.items() if "nccl" in k.lower()}
+    return seen, counted, nccl, sum(names.values()), names
+
+
+def dp_graphed(mx, device="cuda", backend="nccl"):
+    """``DP_GRAPHED`` graphed (cached, ``steps_per_execution`` 8) alone and
+    in a one-process ``backend`` group opened here, cuDNN deterministic,
+    each with the capturable optimizer the graphs use: bit-equal losses and
+    weights, exact mixture launches, the collectives issued inside the
+    captures, and one replay of the 8-step graph profiled (its mixture
+    kernels, and what NCCL launched). Returns (record, launches)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    name, rows, epochs, chunk = DP_GRAPHED
+    t0 = time.perf_counter()
+    out = os.path.join(ROOT, "build", "chip_smoke", "dp_graphed")
+    shutil.rmtree(out, ignore_errors=True)
+    cuda = torch.device(device).type == "cuda"
+    alone, trainer, start, end = _graphed_run(mx, name, rows, epochs, device, chunk, False,
+                                              os.path.join(out, "alone"))
+    alone_profile = _replay_profile(trainer, chunk) if cuda else None
+    del trainer
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=DP_GROUP_TIMEOUT))
+    try:
+        with _captured_collectives() as captured:
+            group, trainer, group_start, group_end = _graphed_run(
+                mx, name, rows, epochs, device, chunk, False, os.path.join(out, "group"))
+        check(trainer._reducer is not None, "the trainer in the group has no gradient reducer")
+        bytes_reduced = trainer._reducer.bytes_reduced
+        profiled = _replay_profile(trainer, chunk) if cuda else None
+        del trainer
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(out, ignore_errors=True)
+    per_step, eval_fwd = {"fwd": 2, "bwd_dz": 1}, 2
+    launches = {k: 0 for k in KERNELS}
+    for run in (alone, group):
+        expected = {k: per_step.get(k, 0) * run["epochs_run"] * run["n_batches"]
+                    for k in KERNELS}
+        expected["fwd"] += eval_fwd * run["epochs_run"] * run["eval_batches"]
+        check(run["launches"] == expected,
+              f"dp_graphed: expected {expected} launches, got {run['launches']}")
+        check(not cuda or (run["replays"]["train"] > 0 and run["replays"]["eval"] > 0),
+              f"dp_graphed: a kind of graph never replayed {run['replays']}")
+        for k in KERNELS:
+            launches[k] += run["launches"][k]
+    record = {"workload": name, "rows": rows, "epochs": epochs, "steps_per_execution": chunk,
+              "backend": backend, "alone_steps_per_s": alone["steps_per_s"],
+              "group_steps_per_s": group["steps_per_s"],
+              "group_over_alone": (group["steps_per_s"] / alone["steps_per_s"]
+                                   if alone["steps_per_s"] else None),
+              "captures": group["captures"], "replays": group["replays"],
+              "collectives_captured": len(captured), "bytes_captured": sum(captured),
+              "gradient_bytes_a_step": bytes_reduced,
+              "epoch_losses": group["epoch_losses"], "eval_losses": group["eval_losses"]}
+    if profiled is not None:
+        seen, counted, nccl, device_events, _ = profiled
+        record.update(replayed_kernels=seen, counted_a_replay=counted,
+                      nccl_in_a_replay=nccl, device_activities_in_a_replay=device_events,
+                      device_activities_in_a_replay_alone=alone_profile[3])
+        # what the group's replay runs beyond the replay alone: the
+        # reducer's copies into its flat buffer, and NCCL's one-rank work
+        names = set(profiled[4]) | set(alone_profile[4])
+        record["replay_activities_group_minus_alone"] = {
+            k: profiled[4].get(k, 0) - alone_profile[4].get(k, 0) for k in sorted(names)
+            if profiled[4].get(k, 0) != alone_profile[4].get(k, 0)}
+        want = {k: per_step.get(k, 0) * chunk for k in KERNELS}
+        check(seen == counted == want, f"dp_graphed: a replay launched {seen}, counted "
+              f"{counted}, expected {want}")
+    print(json.dumps({"phase": "data_parallel", "graphed": record}), flush=True)
+    same = all(torch.equal(group_start[k], v) for k, v in start.items()) and all(
+        torch.equal(group_end[k], v) for k, v in end.items())
+    check(same and group["epoch_losses"] == alone["epoch_losses"]
+          and group["eval_losses"] == alone["eval_losses"],
+          "dp_graphed: the graphed run in the group is not bit-equal to the one alone")
+    # one gradient all-reduce a step of every captured chunk at least
+    check(not cuda or len(captured) >= chunk,
+          f"dp_graphed: {len(captured)} collectives captured, expected at least {chunk}")
+    record["seconds"] = time.perf_counter() - t0
+    return record, launches, (alone, start, end)
+
+
+# the backends whose spawned ranks also run DP_GRAPHED's graphed chunks
+# (gloo collectives cannot be captured)
+DP_GRAPHED_BACKENDS = ("nccl",)
+
+
+def dp_graphed_rank(mx, device="cuda"):
+    """In a rank of the process group: ``DP_GRAPHED`` as CUDA graphs at this
+    rank's share of the global batch of ``DP_BATCH``, from row-sharded
+    caches (so that each captured step also exchanges its batch), with
+    exact mixture launches on this rank's counters and one replay of the
+    8-step graph profiled on every rank at once (its mixture kernels and
+    what NCCL launched). Returns (record, final weights on the host)."""
+    import torch.distributed as dist
+
+    name, rows, epochs, chunk = DP_GRAPHED
+    world, rank = dist.get_world_size(), dist.get_rank()
+    out = os.path.join(ROOT, "build", "chip_smoke", f"dp_graphed_rank{rank}")
+    per_device = DP_BATCH // world
+    run, trainer, _, end = _graphed_run(mx, name, rows, epochs, device, chunk, False, out,
+                                        overrides=dict(per_device_train_batch_size=per_device,
+                                                       per_device_eval_batch_size=per_device,
+                                                       device_cache_layout="sharded"))
+    check(type(trainer._train_cache).__name__ == "ShardedDeviceDataCache",
+          f"dp_graphed rank {rank}: cached {type(trainer._train_cache).__name__}")
+    profiled = _replay_profile(trainer, chunk) if torch.device(device).type == "cuda" else None
+    del trainer
+    dist.barrier()
+    shutil.rmtree(out, ignore_errors=True)
+    expected = {k: {"fwd": 2, "bwd_dz": 1}.get(k, 0) * run["epochs_run"] * run["n_batches"]
+                for k in KERNELS}
+    expected["fwd"] += 2 * run["epochs_run"] * run["eval_batches"]
+    check(run["launches"] == expected,
+          f"dp_graphed rank {rank}: expected {expected} launches, got {run['launches']}")
+    record = {k: run[k] for k in ("steps_per_s", "captures", "replays", "launches",
+                                  "epoch_losses", "eval_losses", "eval_batches")}
+    record.update(rank=rank, world=world, per_device_batch=per_device)
+    if profiled is not None:
+        record.update(replayed_kernels=profiled[0], nccl_in_a_replay=profiled[2],
+                      device_activities_in_a_replay=profiled[3])
+    return record, {k: v.detach().cpu() for k, v in end.items()}
+
+
+def _batches_equal(a, b):
+    """Two ``MultimodalBatch``es bit for bit (data leaves, masks, labels on
+    the host, weights)."""
+    from multivae_tpu_torch.data.batch import map_leaves
+
+    leaves = []
+    for m in a.data:
+        map_leaves(leaves.append, a.data[m])
+    other = []
+    for m in b.data:
+        map_leaves(other.append, b.data[m])
+    pairs = list(zip(leaves, other)) + [(a.masks[m], b.masks[m]) for m in a.masks]
+    pairs.append((a.weights.cpu(), b.weights.cpu()))
+    if a.labels is not None or b.labels is not None:
+        pairs.append((a.labels.cpu(), b.labels.cpu()))
+    return len(leaves) == len(other) and all(
+        x.dtype == y.dtype and torch.equal(x, y.to(x.device)) for x, y in pairs)
+
+
+def dp_sharded(mx, device="cuda"):
+    """In a rank of the process group: ``DP_SHARDED``'s train set cached
+    replicated, row-sharded and "auto" with a budget only the sharded layout
+    fits; an epoch's batches from each, bit-equal, the sharded exchange's
+    ms and bytes a step; then the workload trained from the replicated and
+    from the sharded cache, bit-equal. Returns the record."""
+    from multivae_tpu_torch.data import DataLoader
+    from multivae_tpu_torch.data.device_cache import (
+        PlanBuffer,
+        ShardedDeviceDataCache,
+        build_device_cache,
+        cache_per_device_nbytes,
+        estimate_dataset_nbytes,
+    )
+    from multivae_tpu_torch.parallel import get_data_mesh
+    from multivae_tpu_torch.tools import workloads
+
+    name, rows = DP_SHARDED
+    t0 = time.perf_counter()
+    mesh = get_data_mesh(None, device)
+    world = mesh.world_size
+    w = workloads.build(name, n=rows, n_eval=0, device=device)
+    est = estimate_dataset_nbytes(w.train)
+    caches = {layout: build_device_cache(w.train, mesh.device, budget, layout=layout, mesh=mesh)
+              for layout, budget in (("replicated", int(8e9)), ("sharded", int(8e9)),
+                                     ("auto", int(DP_AUTO_BUDGET * est)))}
+    kinds = {k: type(c).__name__ for k, c in caches.items()}
+    check(kinds == {"replicated": "DeviceDataCache", "sharded": "ShardedDeviceDataCache",
+                    "auto": "ShardedDeviceDataCache"}, f"dp_sharded: caches {kinds}")
+    nbytes = {k: cache_per_device_nbytes(c) for k, c in caches.items()}
+    block = -(-rows // world)
+    check(nbytes["sharded"] == nbytes["auto"] == nbytes["replicated"] * block // rows,
+          f"dp_sharded: bytes {nbytes} for blocks of {block} of {rows} rows")
+    loader = DataLoader(w.train, DP_BATCH, shuffle=True, seed=0, num_processes=world,
+                        process_index=mesh.rank)
+    loader.set_epoch(1)
+    plans = {k: PlanBuffer(loader, mesh.device, c) for k, c in caches.items()}
+    uploaded = {k: p.upload() for k, p in plans.items()}
+    sharded = caches["sharded"]
+    assert isinstance(sharded, ShardedDeviceDataCache)
+    events = []
+    for i in range(len(loader)):
+        ref = caches["replicated"].gather(uploaded["replicated"][0][i],
+                                          uploaded["replicated"][1][i])
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        got = sharded.gather(uploaded["sharded"][0][i], uploaded["sharded"][1][i],
+                             plans["sharded"].columns)
+        b.record()
+        events.append((a, b))
+        auto = caches["auto"].gather(uploaded["auto"][0][i], uploaded["auto"][1][i],
+                                     plans["auto"].columns)
+        check(_batches_equal(ref, got) and _batches_equal(ref, auto),
+              f"dp_sharded: batch {i} of the sharded cache differs from the replicated one's")
+    torch.cuda.synchronize()
+    exchange_ms = [a.elapsed_time(b) for a, b in events]
+    exchange_bytes = sharded.exchange_nbytes(DP_BATCH)
+    del caches, plans, uploaded, sharded, w
+    torch.cuda.empty_cache()
+    record = {"workload": name, "rows": rows, "world": world, "rank": mesh.rank,
+              "backend": mesh.backend, "cache_bytes": nbytes, "estimate_bytes": est,
+              "auto_budget_bytes": int(DP_AUTO_BUDGET * est),
+              "exchange_ms_per_step": float(np.median(exchange_ms)),
+              "exchange_bytes_per_step": exchange_bytes, "batches_checked": len(exchange_ms)}
+    runs = {}
+    for layout in ("replicated", "sharded"):
+        runs[layout] = _dp_run(mx, name, rows, {"fwd": 2, "bwd_dz": 1}, DP_BATCH // world,
+                               device, epochs=DP_SHARDED_EPOCHS,
+                               overrides=dict(cache_on_device=True, device_cache_layout=layout))
+        record[layout] = {k: runs[layout][0][k] for k in (
+            "steps_per_s", "epoch_losses", "eval_losses", "train_cache", "launches")}
+    rep, _, rep_final = runs["replicated"]
+    sh, _, sh_final = runs["sharded"]
+    check(sh["train_cache"]["kind"] == "ShardedDeviceDataCache",
+          f"dp_sharded: the trainer cached {sh['train_cache']}")
+    check(sh["epoch_losses"] == rep["epoch_losses"] and all(
+        torch.equal(sh_final[k], v) for k, v in rep_final.items()),
+          "dp_sharded: training on the sharded cache is not bit-equal to the replicated one")
+    record["seconds"] = time.perf_counter() - t0
+    return record
+
+
+def dp_evaluators(mx, device="cuda", n_devices=1, labels=DP_EVAL_LABELS):
+    """The evaluators ``labels`` of ``evaluator_calls`` on each of
+    ``DP_EVAL_MODELS`` (seeded weights) on ``EVAL_ROWS`` labelled rows, at
+    ``n_devices`` (alone, or this rank of the group): each one's metrics,
+    seconds and mixture launches (MMVAE's paper NLL: NLL_K / NLL_CHUNK
+    forwards on each rank, none elsewhere). The default generator is seeded
+    before each evaluator, alike in every process. Returns the record and
+    the launches."""
+    from multivae_tpu_torch.tools import workloads
+    from multivae_tpu_torch.tools.workloads import labelled_polymnist
+
+    t0 = time.perf_counter()
+    test, train = labelled_polymnist(EVAL_ROWS, 11), labelled_polymnist(EVAL_ROWS, 12)
+    clfs = random_classifiers(device)
+    record = {"rows": EVAL_ROWS, "n_devices": n_devices}
+    total = {k: 0 for k in KERNELS}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in DP_EVAL_MODELS:
+            model = workloads.build(name, n=DP_BATCH, n_eval=0, device=device).model
+            calls = evaluator_calls(model, clfs, test, train, os.path.join(tmp, name),
+                                    n_devices=n_devices, joint_samples=DP_EVAL_JOINT,
+                                    cluster_runs=DP_EVAL_CLUSTER_RUNS)
+            record[name] = {}
+            for i, label in enumerate(labels):
+                torch.manual_seed(100 + DP_EVAL_LABELS.index(label))
+                value, stats, launches = _measured(mx, calls[label])
+                paper_nll = label == "likelihoods" and model.model_name == "MMVAE"
+                expected = counts(fwd=-(-NLL_K // NLL_CHUNK) if paper_nll else 0)
+                check(launches == expected, f"{name} {label} over {n_devices}: expected "
+                      f"{expected} launches, got {launches}")
+                total = {k: total[k] + launches[k] for k in KERNELS}
+                _check_metrics(name, label, value, test)
+                record[name][label] = {"metrics": {k: float(v) for k, v in value.items()},
+                                       "seconds": stats["seconds"], "launches": launches}
+            del model
+    record["seconds"] = time.perf_counter() - t0
+    return record, total
+
+
+@contextlib.contextmanager
+def _draws_per_rank():
+    """The evaluators' control: a planted fault in which each rank draws
+    the noise of its own rows alone from the shared generator, instead of
+    keeping its rows of the global batch's draws (``DataShard.draw``)."""
+    from multivae_tpu_torch.parallel.shard import DataShard
+
+    draw = DataShard.draw
+    DataShard.draw = lambda self, hook, shape, generator=None, axis=-2, blocks=1: hook(
+        shape, generator)
+    try:
+        yield
+    finally:
+        DataShard.draw = draw
+
+
+# Evaluators over ranks against one process: the sums of the NLL, SSIM,
+# MSE and the Fréchet steps reorder (each rank sums its columns, an
+# all-reduce adds them); the counts (coherence, clustering) are exact but
+# for a prediction whose classifier or k-means margin the rows' batch size
+# moves. The tolerance is the geometric middle of the ranks' largest gap
+# on an H100 (7.9e-8) and the smallest gap of the likelihoods with the
+# draws planted per rank (``_draws_per_rank``: 7.0e-7, mvtcae_conv's NLL;
+# mmvae_conv's 2.9e-6), which the phase measures again and checks above
+# it.
+DP_EVAL_RTOL = 2.4e-7
+DP_EVAL_COUNT_ATOL = 2e-3
+DP_EVAL_CONTROL = ("likelihoods",)
+
+
+def _dp_eval_gaps(label, ref, run, exact, labels=DP_EVAL_LABELS):
+    """The largest relative gap of ``run``'s metrics ``labels`` to
+    ``ref``'s, and the largest absolute one of the count metrics; checked
+    bit-equal where ``exact`` is True, within DP_EVAL_RTOL /
+    DP_EVAL_COUNT_ATOL where it is False, and not at all where None."""
+    gaps = {}
+    for name in DP_EVAL_MODELS:
+        for ev in labels:
+            a, b = ref[name][ev]["metrics"], run[name][ev]["metrics"]
+            check(set(a) == set(b), f"{label} {name} {ev}: keys {set(a) ^ set(b)}")
+            counted = ev in ("coherence", "clustering")
+            gap = max((abs(b[k] - v) if counted else abs(b[k] - v) / max(abs(v), 1e-30))
+                      for k, v in a.items())
+            gaps[f"{name} {ev}"] = gap
+            if exact:
+                check(a == b, f"{label} {name} {ev}: not bit-equal to one process")
+            elif exact is False:
+                check(gap <= (DP_EVAL_COUNT_ATOL if counted else DP_EVAL_RTOL),
+                      f"{label} {name} {ev}: {gap} off one process")
+    return gaps
+
+
+
+def _dp_graphed_ranks(label, world, group_out, alone_run, counts):
+    """The spawned ranks' graphed runs (``dp_graphed_rank``) against the
+    graphed run alone: replicas bit-equal, the same losses on every rank,
+    within DP_RTOL / DP_MOVE_RTOL of alone; with a profile, each replay
+    holds the mixture kernels and at least one NCCL activity a step. Adds
+    the ranks' launches to ``counts``; returns the summary."""
+    alone, start, end = alone_run
+    ranks, finals = [], []
+    for r in range(world):
+        with open(os.path.join(group_out, f"graphed_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+        finals.append(torch.load(os.path.join(group_out, f"graphed_rank{r}.pt"),
+                                 weights_only=True))
+        check(all(torch.equal(finals[r][k], v) for k, v in finals[0].items())
+              and ranks[r]["epoch_losses"] == ranks[0]["epoch_losses"],
+              f"{label} graphed: rank {r} differs from rank 0")
+        for k in KERNELS:
+            counts[k] += ranks[r]["launches"][k]
+    ends = {k: v.cpu() for k, v in end.items()}
+    gaps = _loss_gaps(ranks[0], alone, {k: v.cpu() for k, v in start.items()}, finals[0], ends)
+    loss_gap = max(gaps[k] for k in LOSS_GAP_KINDS)
+    check(loss_gap <= DP_RTOL and gaps["move_rel_gap"] <= DP_MOVE_RTOL,
+          f"{label} graphed: beyond {DP_RTOL} / {DP_MOVE_RTOL} of the run alone: {gaps}")
+    chunk = DP_GRAPHED[3]
+    for r in ranks:
+        if "nccl_in_a_replay" in r:
+            check(sum(r["nccl_in_a_replay"].values()) >= chunk,
+                  f"{label} graphed rank {r['rank']}: a replay showed NCCL "
+                  f"{r['nccl_in_a_replay']}, expected at least {chunk} all-reduces")
+    return {"gaps": gaps, "ranks": [{k: r.get(k) for k in (
+        "rank", "per_device_batch", "steps_per_s", "captures", "replays", "replayed_kernels",
+        "nccl_in_a_replay", "device_activities_in_a_replay")} for r in ranks],
+            "alone_steps_per_s": alone["steps_per_s"]}
+
+
 def data_parallel(mx, device="cuda", one_process_backend="nccl", rank_command=None):
     """The ``data_parallel`` phase: each workload of ``DP_WORKLOADS`` trained
     (a) alone at batch ``DP_BATCH``, (b) in a group of one process over NCCL
@@ -3260,9 +3725,14 @@ def data_parallel(mx, device="cuda", one_process_backend="nccl", rank_command=No
     card over gloo at half the batch each, spawned, which must equal (a)
     within DP_RTOL / DP_MOVE_RTOL, their replicas bit-equal and each rank's
     own counters at the workload's launches a step; with more than one card,
-    also by min(cards, 4) ranks over NCCL, one card each. cuDNN runs its
+    also by min(cards, 4) ranks over NCCL, one card each. Then
+    ``dp_graphed``, ``dp_evaluators`` alone and in the one-process group
+    (bit-equal), and from the spawned ranks ``dp_sharded``'s and
+    ``dp_evaluators``' records (each rank the same metrics, within
+    ``DP_EVAL_RTOL`` / ``DP_EVAL_COUNT_ATOL`` of alone, and the likelihoods
+    with the draws planted per rank beyond it). cuDNN runs its
     deterministic algorithms throughout. Returns (the record, the launches
-    of (a) and (b) and of every spawned rank). ``one_process_backend`` and
+    of (a) and (b), of the new runs and of every spawned rank). ``one_process_backend`` and
     ``rank_command`` (the spawned ranks' command line before the rank's
     arguments) let a CPU rehearsal run the phase over gloo."""
     import datetime
@@ -3298,11 +3768,33 @@ def data_parallel(mx, device="cuda", one_process_backend="nccl", rank_command=No
             runs[name] = dict(alone=(alone, start, final), nccl1=nccl1, gaps={
                 "nccl1": _dp_compare(f"{name} {one_process_backend} world 1", alone, start,
                                      final, nccl1, nccl1_final, exact=True)})
+        record["graphed"], graphed_counts, graphed_alone = dp_graphed(mx, device,
+                                                                      one_process_backend)
+        eval_alone, eval_counts = dp_evaluators(mx, device)
+        dist.init_process_group(one_process_backend, init_method=f"tcp://127.0.0.1:{_free_port()}",
+                                world_size=1, rank=0,
+                                timeout=datetime.timedelta(seconds=DP_GROUP_TIMEOUT))
+        try:
+            eval_group, group_counts = dp_evaluators(mx, device)
+        finally:
+            dist.destroy_process_group()
+        for c in (graphed_counts, eval_counts, group_counts):
+            for k in KERNELS:
+                counts[k] += c[k]
+        record["evaluators"] = {"alone_s": eval_alone["seconds"],
+                                f"{one_process_backend}1_s": eval_group["seconds"],
+                                "alone": {n: {ev: eval_alone[n][ev]["seconds"]
+                                              for ev in DP_EVAL_LABELS}
+                                          for n in DP_EVAL_MODELS},
+                                f"{one_process_backend}1_gaps": _dp_eval_gaps(
+                                    f"evaluators {one_process_backend} world 1", eval_alone,
+                                    eval_group, exact=True)}
         for backend, world, group_out in groups:
             t0 = time.perf_counter()
             _spawn_ranks(world, backend, group_out, rank_command or [
                 sys.executable, os.path.abspath(__file__), "--dp-rank"])
             spawn_s = time.perf_counter() - t0
+            label = f"{backend}{world}"
             for name, _, _ in DP_WORKLOADS:
                 alone, start, final = runs[name]["alone"]
                 ranks = []
@@ -3320,11 +3812,47 @@ def data_parallel(mx, device="cuda", one_process_backend="nccl", rank_command=No
                           f"{name}: ranks logged different losses")
                     for k in KERNELS:
                         counts[k] += ranks[-1]["launches"][k]
-                label = f"{backend}{world}"
                 runs[name]["gaps"][label] = _dp_compare(f"{name} {label}", alone, start, final,
                                                         ranks[0], first, exact=False)
                 runs[name][label] = ranks
-            record[f"{backend}{world}_spawn_and_train_s"] = spawn_s
+            sharded, evaluators, controls = [], [], []
+            for r in range(world):
+                with open(os.path.join(group_out, f"sharded_rank{r}.json")) as f:
+                    sharded.append(json.load(f))
+                with open(os.path.join(group_out, f"evaluators_rank{r}.json")) as f:
+                    evaluators.append(json.load(f))
+                with open(os.path.join(group_out, f"control_rank{r}.json")) as f:
+                    controls.append(json.load(f))
+                for name in DP_EVAL_MODELS:
+                    for ev in DP_EVAL_LABELS:
+                        check(evaluators[r][name][ev]["metrics"]
+                              == evaluators[0][name][ev]["metrics"],
+                              f"{label} {name} {ev}: rank {r} returned other metrics")
+                        for k in KERNELS:
+                            counts[k] += evaluators[r][name][ev]["launches"][k]
+                for layout in ("replicated", "sharded"):
+                    for k in KERNELS:
+                        counts[k] += sharded[r][layout]["launches"][k]
+            record[f"{label}_sharded"] = [{k: r[k] for k in (
+                "rank", "cache_bytes", "exchange_ms_per_step", "exchange_bytes_per_step",
+                "seconds")} | {layout: {k: r[layout][k] for k in ("steps_per_s", "train_cache")}
+                               for layout in ("replicated", "sharded")} for r in sharded]
+            if backend in DP_GRAPHED_BACKENDS:
+                record[f"{label}_graphed"] = _dp_graphed_ranks(label, world, group_out,
+                                                               graphed_alone, counts)
+            record[f"{label}_evaluators"] = {
+                "seconds": [r["seconds"] for r in evaluators],
+                "gaps": _dp_eval_gaps(f"evaluators {label}", eval_alone, evaluators[0],
+                                      exact=False),
+                "nll_launches_per_rank": [r["mmvae_conv"]["likelihoods"]["launches"]
+                                          for r in evaluators],
+                "control_gaps": _dp_eval_gaps(f"control {label}", eval_alone, controls[0],
+                                              exact=None, labels=DP_EVAL_CONTROL)}
+            control = record[f"{label}_evaluators"]["control_gaps"]
+            check(min(control.values()) > DP_EVAL_RTOL,
+                  f"evaluators {label}: with the draws planted per rank the likelihoods "
+                  f"stay within DP_EVAL_RTOL {DP_EVAL_RTOL} of one process: {control}")
+            record[f"{label}_spawn_and_train_s"] = spawn_s
             shutil.rmtree(group_out, ignore_errors=True)
         for name, run in runs.items():
             alone = run["alone"][0]

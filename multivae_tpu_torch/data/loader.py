@@ -10,9 +10,12 @@ as the JAX loader's processes do: the padding rows of a partial batch fall
 on the last processes. With ``chunks`` > 1 (the trainer's microbatch
 chunks) a process takes its share of each of the global batch's chunks
 instead, so that chunk c of every process together make chunk c of the
-global batch. Batches are gathered on the host with numpy and come out as
-CPU tensors (a nested modality, such as CUB's token text, as a dict of
-them); the trainer moves them to its device.
+global batch. The evaluators' in-order test loader (``shuffle=False``) takes
+the same columns of each test batch on each of their ranks, and a
+row-sharded device cache gathers ``global_epoch_plan``'s rows and keeps
+``process_columns``. Batches are gathered on the host with numpy and come
+out as CPU tensors (a nested modality, such as CUB's token text, as a dict
+of them); the trainer moves them to its device.
 """
 
 from __future__ import annotations

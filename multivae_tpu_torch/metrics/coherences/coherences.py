@@ -6,7 +6,10 @@ model's device, to class logits (e.g. ``ClassifierPolyMNIST`` modules).
 Accuracy is the per-class recall averaged over the classes, a class with
 no rows counting 0. The subsets are swept one at a time, each over the
 test loader, in ``all_subsets`` order (the JAX package's
-``fused_sweep=False`` path).
+``fused_sweep=False`` path). Over a process group each process classifies
+the generations of its columns and the per-class counts are added over
+the group; the joint coherence, whose draws follow no batch, is computed
+alike by every process.
 """
 
 from __future__ import annotations
@@ -37,6 +40,12 @@ class _PerClassAccuracy:
             sel = labels == c
             self.total[c] += sel.sum()
             self.correct[c] += (preds[sel] == c).sum()
+
+    def sum_over(self, evaluator):
+        """The counts summed over ``evaluator``'s process group."""
+        sums = evaluator.sum_over_ranks(list(self.correct) + list(self.total))
+        self.correct = np.asarray(sums[:self.num_classes])
+        self.total = np.asarray(sums[self.num_classes:])
 
     def compute(self):
         with np.errstate(divide="ignore", invalid="ignore"):
@@ -99,19 +108,22 @@ class CoherenceEvaluator(Evaluator):
         subset_name = "_".join(subset)
         trackers = {m: _PerClassAccuracy(self.num_classes) for m in pred_mods}
 
-        for batch in self.test_loader:
-            if batch.labels is None:
-                raise AttributeError("Cross-modal coherence cannot be computed on a "
-                                     "dataset without labels")
-            output = self.model.predict(batch, list(subset), pred_mods,
-                                        N=self.nb_samples_for_cross, flatten=True,
-                                        generator=self.generator, ignore_incomplete=True)
-            # the flattened draws are (N, B): labels and mask tiled N times
-            valid = np.tile((batch.weights > 0).numpy(), self.nb_samples_for_cross)
-            labels = np.tile(batch.labels.numpy(), self.nb_samples_for_cross)
-            for m in pred_mods:
-                preds = self._predicted_classes(m, output[m])
-                trackers[m].update_preds(preds[valid], labels[valid])
+        with self.on_ranks():
+            for batch in self.test_loader:
+                if batch.labels is None:
+                    raise AttributeError("Cross-modal coherence cannot be computed on a "
+                                         "dataset without labels")
+                output = self.model.predict(batch, list(subset), pred_mods,
+                                            N=self.nb_samples_for_cross, flatten=True,
+                                            generator=self.generator, ignore_incomplete=True)
+                # the flattened draws are (N, B): labels and mask tiled N times
+                valid = np.tile((batch.weights > 0).numpy(), self.nb_samples_for_cross)
+                labels = np.tile(batch.labels.numpy(), self.nb_samples_for_cross)
+                for m in pred_mods:
+                    preds = self._predicted_classes(m, output[m])
+                    trackers[m].update_preds(preds[valid], labels[valid])
+        for tracker in trackers.values():
+            tracker.sum_over(self)
 
         acc_per_class = {f"{subset_name}_to_{m}": trackers[m].compute() for m in trackers}
         acc = {k: float(v.mean()) for k, v in acc_per_class.items()}

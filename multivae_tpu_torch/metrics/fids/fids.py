@@ -6,7 +6,11 @@ embedding (or a ModelOutput holding ``embedding``): by default one
 InceptionV3 (``inception_networks.py``) shared by every modality, or the
 user's ``custom_encoders``. The embeddings come to the host, where the
 Fréchet distance is computed with numpy and ``scipy.linalg.sqrtm``, as in
-the JAX package. Conditional FIDs sweep the subsets one at a time.
+the JAX package. Conditional FIDs sweep the subsets one at a time. Over a
+process group each process embeds its columns' real rows (and their
+generations) and the embeddings are gathered in the global batch's order
+before the host's mean, covariance and Fréchet step; the prior's (or a
+sampler's) draws are the global batch's, each process decoding its rows.
 """
 
 from __future__ import annotations
@@ -21,6 +25,23 @@ from ...utils.model_output import ModelOutput
 from ..base.evaluator_class import Evaluator
 from ..base.subset_sweep import all_subsets
 from .fids_config import FIDEvaluatorConfig
+
+
+def _rows(latents, lo: int, hi: int, n: int):
+    """Rows ``[lo, hi)`` of each tensor of ``latents`` (an ``encode``-style
+    output of ``n`` rows) whose first axis holds the rows; a single draw's
+    (latent,) is one row."""
+    def take(v):
+        if isinstance(v, dict):
+            return {k: take(x) for k, x in v.items()}
+        if isinstance(v, torch.Tensor) and v.dim():
+            if n == 1 and v.dim() == 1:
+                v = v[None]
+            if v.shape[0] == n:
+                return v[lo:hi]
+        return v
+
+    return ModelOutput(**{k: take(v) for k, v in latents.items()})
 
 
 class AdaptShapeFID:
@@ -115,6 +136,10 @@ class FIDEvaluator(Evaluator):
             if gen.shape[0] != n_valid:
                 gen = gen[valid.to(gen.device)]
             acts_gen.append(self._embed(mod, gen))
+            if self.shard.distributed:
+                acts_true[-1], acts_gen[-1] = (
+                    self.gather_valid(torch.from_numpy(a), valid).numpy()
+                    for a in (acts_true[-1], acts_gen[-1]))
 
         act_true = np.concatenate(acts_true, axis=0)
         act_gen = np.concatenate(acts_gen, axis=0)
@@ -154,11 +179,19 @@ class FIDEvaluator(Evaluator):
         sampler)."""
         output = {}
         if self.sampler is None:
-            def generate_function(n, inputs=None):
+            def draw(n):
                 return self.model.generate_from_prior(n, generator=self.generator)
         else:
-            def generate_function(n, inputs=None):
-                return self.sampler.sample(n)
+            draw = self.sampler.sample
+
+        def generate_function(n, inputs=None):
+            if not self.shard.distributed:
+                return draw(n)
+            # the global batch's draw, alike on every process: this
+            # process's real rows follow those of the ranks before it
+            counts = self.shard.gather(torch.tensor([n], device=self.mesh.device)).tolist()
+            lo = sum(counts[:self.mesh.rank])
+            return _rows(draw(sum(counts)), lo, lo + n, sum(counts))
 
         sampler_name = "prior" if self.sampler is None else self.sampler.name
         for mod in self.model.encoders:
@@ -178,8 +211,9 @@ class FIDEvaluator(Evaluator):
     def compute_fid_from_conditional_generation(self, subset, gen_mod):
         """The FID of ``gen_mod`` generated from ``subset``."""
         def generate_function(n_samples, inputs):
-            return self.model.encode(inputs, cond_mod=subset, generator=self.generator,
-                                     ignore_incomplete=True)
+            with self.on_ranks():
+                return self.model.encode(inputs, cond_mod=subset, generator=self.generator,
+                                         ignore_incomplete=True)
 
         fd = self.get_frechet_distance(gen_mod, generate_function)
         self.logger.info("The FD for modality %s computed from subset=%s is %s", gen_mod,

@@ -28,6 +28,7 @@ class ClusteringConfig(EvaluatorConfig):
     use_mean: bool = True
 
     def __post_init__(self):
+        super().__post_init__()
         if self.clustering_method != "kmeans":
             raise ValueError("clustering_method must be 'kmeans', got "
                              f"{self.clustering_method!r}")

@@ -1,7 +1,8 @@
 """Joint-NLL evaluator (counterpart of
 ``multivae_tpu/metrics/likelihoods/likelihoods.py``): the dataset in
 batches through the model's K-sample joint NLL, summed and divided by the
-number of rows."""
+number of rows. Over a process group each process sums the NLLs of its
+columns and the sums are added over the group."""
 
 from __future__ import annotations
 
@@ -35,20 +36,22 @@ class LikelihoodsEvaluator(Evaluator):
         weigh the rows themselves (0 on the loader's padding); a paper
         estimator that returns one NLL a row (MMVAE's) is masked here."""
         partials = []
-        for batch in self.test_loader:
-            if self.unified or not hasattr(self.model, "compute_joint_nll_paper"):
-                nll = self.model.compute_joint_nll(batch, self.num_samples,
-                                                   self.batch_size_k,
-                                                   generator=self.generator)
-            else:
-                self.logger.info("Using the paper version of the joint nll.")
-                nll = self.model.compute_joint_nll_paper(batch, self.num_samples,
-                                                         self.batch_size_k,
-                                                         generator=self.generator)
-                if nll.ndim:
-                    nll = (nll * (batch.weights > 0).to(nll)).sum()
-            partials.append(nll.float())
-        joint_nll = float(torch.stack(partials).sum()) / self.n_data
+        with self.on_ranks():
+            for batch in self.test_loader:
+                if self.unified or not hasattr(self.model, "compute_joint_nll_paper"):
+                    nll = self.model.compute_joint_nll(batch, self.num_samples,
+                                                       self.batch_size_k,
+                                                       generator=self.generator)
+                else:
+                    self.logger.info("Using the paper version of the joint nll.")
+                    nll = self.model.compute_joint_nll_paper(batch, self.num_samples,
+                                                             self.batch_size_k,
+                                                             generator=self.generator)
+                    if nll.ndim:
+                        nll = (nll * (batch.weights > 0).to(nll)).sum()
+                partials.append(nll.float())
+        total, = self.sum_over_ranks([float(torch.stack(partials).sum())])
+        joint_nll = total / self.n_data
         self.logger.info("Mean Joint likelihood : %s", joint_nll)
         self.metrics["joint_likelihood"] = joint_nll
         return joint_nll
@@ -60,10 +63,12 @@ class LikelihoodsEvaluator(Evaluator):
         if not hasattr(self.model, "_compute_joint_nll_from_subset_encoding"):
             return None
         ll = 0.0
-        for batch in self.test_loader:
-            ll += float(self.model._compute_joint_nll_from_subset_encoding(
-                subset, batch, self.num_samples, self.batch_size_k,
-                generator=self.generator))
+        with self.on_ranks():
+            for batch in self.test_loader:
+                ll += float(self.model._compute_joint_nll_from_subset_encoding(
+                    subset, batch, self.num_samples, self.batch_size_k,
+                    generator=self.generator))
+        ll, = self.sum_over_ranks([ll])
         joint_nll = ll / self.n_data
         self.logger.info("Joint likelihood from subset %s", joint_nll)
         self.metrics[f"Joint likelihood from subset {subset}"] = joint_nll

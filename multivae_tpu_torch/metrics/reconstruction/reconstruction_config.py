@@ -22,5 +22,6 @@ class ReconstructionConfig(EvaluatorConfig):
     metric: str = "SSIM"
 
     def __post_init__(self):
+        super().__post_init__()
         if self.metric not in METRICS:
             raise ValueError(f"metric must be one of {METRICS}, got {self.metric!r}")

@@ -4,7 +4,10 @@
 
 A grid comes back as an (H, W, 3) uint8 array, the pixels of the JAX
 package's PIL image, and is written as a PNG by ``data/utils.write_png``;
-no image package is needed.
+no image package is needed. Over a process group every process draws the
+grids alike, so that the generators stay in step, and returns them; only
+rank 0 writes them and logs them to wandb (the base class leaves the other
+ranks without an output folder or a wandb run).
 """
 
 from __future__ import annotations

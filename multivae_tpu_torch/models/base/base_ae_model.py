@@ -393,7 +393,8 @@ class BaseMultiVAE(BaseModel):
         def logw_chunk(chunk: int):
             z = rsample_from_gaussian(
                 joint_mu, joint_log_var, N=chunk,
-                noise=self.draw_noise((chunk, *joint_mu.shape), generator))
+                noise=self.data_shard.draw(self.draw_noise, (chunk, *joint_mu.shape),
+                                           generator))
             lpx_z = 0.0
             for m in self.decoders:
                 recon = self.decode_mod(m, z)

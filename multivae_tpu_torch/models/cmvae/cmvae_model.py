@@ -155,7 +155,7 @@ class CMVAE(MMVAEPlus):
             mu = o["embedding"]
             z = dist_rsample(self.dist_name, mu,
                              log_var_to_std(o["log_covariance"], self.dist_name),
-                             u=self.draw_noise(mu.shape, generator))
+                             u=self.data_shard.draw(self.draw_noise, mu.shape, generator))
             lpz_c = dist_log_prob(self.dist_name, z[None], means, stds).sum(-1)  # (C, B)
             pc_z = torch.softmax(lpc + lpz_c, 0)
             assigns.append(pc_z.argmax(0))

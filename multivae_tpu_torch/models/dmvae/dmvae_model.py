@@ -190,13 +190,13 @@ class DMVAE(BaseMultiVAE):
                     - sum_f32(gaussian_log_prob(z, mu[None], log_var[None])))
 
         def logw_chunk(chunk: int):
-            z = rsample_from_gaussian(joint_mu, joint_lv, N=chunk, noise=self.draw_noise(
-                (chunk, *joint_mu.shape), generator))
+            z = rsample_from_gaussian(joint_mu, joint_lv, N=chunk, noise=self.data_shard.draw(
+                self.draw_noise, (chunk, *joint_mu.shape), generator))
             logw = log_densities(z, joint_mu, joint_lv)
             for m in self.decoders:
                 mu_p, lv_p = private[m]
-                z_p = rsample_from_gaussian(mu_p, lv_p, N=chunk, noise=self.draw_noise(
-                    (chunk, *mu_p.shape), generator))
+                z_p = rsample_from_gaussian(mu_p, lv_p, N=chunk, noise=self.data_shard.draw(
+                    self.draw_noise, (chunk, *mu_p.shape), generator))
                 out = self.decode_mod(m, torch.cat([z, z_p], -1))
                 logw = logw + sum_except_batch(
                     self.recon_log_probs[m](out, add_axes(batch.data[m])), batch_ndims=2)

@@ -213,15 +213,19 @@ class JNF(BaseJointModel):
                              device=device).to(self.device)
 
     def _sample_from_moe_subset(self, enc_params: dict,
-                                generator: Optional[torch.Generator]):
-        """One sample per row from a random expert of the subset."""
+                                generator: Optional[torch.Generator], blocks: int = 1):
+        """One sample per row from a random expert of the subset; the rows
+        hold ``blocks`` repeats of the batch (the global batch's draws under
+        a data shard)."""
+        shard = self.data_shard
         mus = torch.stack([mu for mu, _ in enc_params.values()])       # (S, B, D)
         log_vars = torch.stack([lv for _, lv in enc_params.values()])
         rows = torch.arange(mus.shape[1], device=mus.device)
-        idx = self.draw_experts(len(enc_params), mus.shape[1], generator)
+        idx = shard.own(self.draw_experts(len(enc_params), mus.shape[1] * shard.world,
+                                          generator), 0, blocks)
         mu, log_var = mus[idx, rows], log_vars[idx, rows]
-        return rsample_from_gaussian(mu, log_var,
-                                     noise=self.draw_noise(mu.shape, generator))
+        return rsample_from_gaussian(mu, log_var, noise=shard.draw(
+            self.draw_noise, mu.shape, generator, axis=0, blocks=blocks))
 
     def _sample_from_poe_subset(self, batch: MultimodalBatch, subset: tuple, *,
                                 mcmc_steps: int, n_lf: int, eps_lf: float, K: int,
@@ -234,10 +238,11 @@ class JNF(BaseJointModel):
             out = self.encode_mod(m, map_leaves(lambda t: torch.cat([t] * K, 0),
                                                 batch.data[m]))
             enc_params[m] = (out["embedding"], out["log_covariance"])
-        z = self._sample_from_moe_subset(enc_params, generator)
+        z = self._sample_from_moe_subset(enc_params, generator, blocks=K)
+        shard = self.data_shard
         ratios = []
         for _ in range(mcmc_steps):
-            rho = self.draw_noise(z.shape, generator)
+            rho = shard.draw(self.draw_noise, z.shape, generator, axis=0, blocks=K)
             lnq, grad = self._log_density_and_grad(z, enc_params, divide_prior)
             h0 = -lnq + 0.5 * (rho ** 2).sum(-1)
             z_new = z
@@ -248,7 +253,8 @@ class JNF(BaseJointModel):
                 rho = rho_half + (eps_lf / 2) * grad
             h = -lnq + 0.5 * (rho ** 2).sum(-1)
             ratios.append(torch.exp(h0 - h))
-            accept = self.draw_uniform(ratios[-1].shape, generator) < ratios[-1]
+            accept = shard.draw(self.draw_uniform, ratios[-1].shape, generator, axis=0,
+                                blocks=K) < ratios[-1]
             z = torch.where(accept[:, None], z_new, z)
         self.last_hmc_ratios = torch.stack(ratios) if ratios else z.new_zeros(0, len(z))
         n_data = batch.n_samples

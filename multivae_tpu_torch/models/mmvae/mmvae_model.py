@@ -197,7 +197,7 @@ class MMVAE(BaseMultiVAE):
             mu, sigma = post_params[cond_mod[idx]]
             shape = mu.shape if N == 1 else (N, *mu.shape)
             z = dist_rsample(self.dist_name, mu, sigma, K=N,
-                             u=self.draw_noise(shape, generator))
+                             u=self.data_shard.draw(self.draw_noise, shape, generator))
         if flatten:
             z = z.reshape(-1, self.latent_dim)
         return {"z": z}
@@ -229,7 +229,8 @@ class MMVAE(BaseMultiVAE):
 
         def logw_chunk(chunk: int):
             z = dist_rsample_k(self.dist_name, e_mu, e_sigma, chunk,
-                               u=self.draw_noise((chunk, *e_mu.shape), generator))
+                               u=self.data_shard.draw(self.draw_noise,
+                                                      (chunk, *e_mu.shape), generator))
             lpx_z = 0.0
             for m in mods:
                 recon = self.decode_mod(m, z)

@@ -302,7 +302,7 @@ class MMVAEPlus(BaseMultiVAE):
                 return mu.expand(N, *mu.shape) if N > 1 else mu
             shape = mu.shape if N == 1 else (N, *mu.shape)
             return dist_rsample(self.dist_name, mu, std, K=N,
-                                u=self.draw_noise(shape, generator))
+                                u=self.data_shard.draw(self.draw_noise, shape, generator))
 
         z = sample(*self._shared_posterior(posteriors, cond_mod, return_mean, generator))
         style_z = {}

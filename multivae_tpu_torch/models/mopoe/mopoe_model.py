@@ -228,8 +228,8 @@ class MoPoE(BaseMultiVAE):
         private_z, lpz, lqz = {}, 0.0, 0.0
         for m in self.encoders:
             mu_s, lv_s = enc[m]["style_embedding"], enc[m]["style_log_covariance"]
-            z_s = rsample_from_gaussian(mu_s, lv_s, N=chunk, noise=self.draw_noise(
-                (chunk, *mu_s.shape), generator))
+            z_s = rsample_from_gaussian(mu_s, lv_s, N=chunk, noise=self.data_shard.draw(
+                self.draw_noise, (chunk, *mu_s.shape), generator))
             private_z[m] = z_s
             zeros = torch.zeros_like(z_s)
             lpz = lpz + sum_f32(gaussian_log_prob(z_s, zeros, zeros))
@@ -242,8 +242,8 @@ class MoPoE(BaseMultiVAE):
         ``lq_fn(z)``, the importance density of the shared code."""
 
         def logw_chunk(chunk: int):
-            z = rsample_from_gaussian(jmu, jlv, N=chunk, noise=self.draw_noise(
-                (chunk, *jmu.shape), generator))
+            z = rsample_from_gaussian(jmu, jlv, N=chunk, noise=self.data_shard.draw(
+                self.draw_noise, (chunk, *jmu.shape), generator))
             private_z, lpz, lqz = ({}, 0.0, 0.0)
             if self.multiple_latent_spaces:
                 private_z, lpz, lqz = self._private_terms(enc, chunk, generator)

@@ -6,7 +6,7 @@ from .mesh import (
     maybe_init_distributed,
     shard_batch,
 )
-from .shard import NO_SHARD, DataShard
+from .shard import NO_SHARD, DataShard, sum_exact
 
 __all__ = [
     "DataMesh",
@@ -17,4 +17,5 @@ __all__ = [
     "get_data_mesh",
     "maybe_init_distributed",
     "shard_batch",
+    "sum_exact",
 ]

@@ -18,7 +18,9 @@ gradients with one collective a step:
 - ``GradientReducer`` sums the gradients over the group: a one-byte presence
   mask first, on the host (a gradient that is None on every rank stays
   None, one that is None on some ranks only counts as zeros there), then
-  one flat buffer a dtype, one ``all_reduce`` each.
+  one flat buffer a dtype, one ``all_reduce`` each. Inside a CUDA graph's
+  capture it reuses the mask of its last eager call: a graph replays the
+  parameter set of its capture.
 - ``broadcast_module`` copies rank 0's weights to the other ranks.
 
 The JAX module's FSDP and tensor-parallel sharding specs
@@ -148,6 +150,11 @@ def shard_batch(batch: MultimodalBatch, mesh: DataMesh) -> MultimodalBatch:
                            incomplete=batch.incomplete)
 
 
+def capturing(device) -> bool:
+    """Is ``device``'s current stream capturing a CUDA graph?"""
+    return torch.device(device).type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
 def _flat_by_dtype(tensors: List[torch.Tensor]):
     """{dtype: tensors of that dtype}, in order."""
     groups = {}
@@ -180,7 +187,15 @@ class GradientReducer:
     in one process; one None on some ranks only joins as zeros there. After
     the call each present gradient is a view of its flat buffer, which the
     next call reuses: the trainer sets the gradients to None before each
-    step's backward."""
+    step's backward.
+
+    Inside a CUDA graph's capture (the trainer's chunks under NCCL) the
+    host cannot take part, so the call skips the mask and reuses the one
+    of its last eager call: the eager chunk the trainer runs before every
+    capture (``ChunkGraphs``). A graph replays the parameter set of its
+    capture, and the flat buffers keep their addresses, so each replay
+    sums the gradients of the same parameters into the same memory. A
+    capture with no eager call before it raises."""
 
     def __init__(self, params, device):
         self.params = list(params)
@@ -189,13 +204,20 @@ class GradientReducer:
         self._mask_group = None if dist.get_backend() == "gloo" else dist.new_group(
             backend="gloo")
         self._buffers = {}
+        self._present = None      # the last eager call's, which a capture reuses
         self.bytes_reduced = 0    # of the last call
 
     def __call__(self):
         params = self.params
-        mask = torch.tensor([p.grad is not None for p in params], dtype=torch.uint8)
-        dist.all_reduce(mask, op=dist.ReduceOp.MAX, group=self._mask_group)
-        present = [p for p, flag in zip(params, mask.tolist()) if flag]
+        if capturing(self.device):
+            if self._present is None:
+                raise RuntimeError("GradientReducer: a CUDA graph captured the gradient "
+                                   "all-reduce before any eager step took its presence mask")
+            present = self._present
+        else:
+            mask = torch.tensor([p.grad is not None for p in params], dtype=torch.uint8)
+            dist.all_reduce(mask, op=dist.ReduceOp.MAX, group=self._mask_group)
+            present = self._present = [p for p, flag in zip(params, mask.tolist()) if flag]
         self.bytes_reduced = 0
         with torch.no_grad():
             for dtype, group in _flat_by_dtype(present).items():

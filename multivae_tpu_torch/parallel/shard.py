@@ -24,7 +24,13 @@ a data-parallel step, where every method is the identity) for:
 - ``spread`` / ``own``: a tensor of this process's rows placed in (taken
   from) one of the global batch's rows, for draws that read per-row
   inputs;
-- ``rows(n)``: the global positions of this process's rows.
+- ``rows(n)``: the global positions of this process's rows;
+- ``gather(t)``: every process's ``t`` in rank order (the evaluators'
+  embeddings and latents), bit for bit.
+
+``sum_exact`` all-reduces tensors that are nonzero on one process at most
+(each entry), bit for bit: ``gather`` and the row-sharded device cache's
+exchange.
 
 This process holds rows ``[rank * b, (rank + 1) * b)`` of the global batch
 of ``world * b`` rows. A draw or a tensor whose batch axis holds ``blocks``
@@ -33,8 +39,24 @@ consecutive blocks of the rows (MHVAE's subsets) keeps its share of each.
 
 from __future__ import annotations
 
+from typing import List
+
 import torch
 import torch.distributed as dist
+
+
+def sum_exact(tensors: List[torch.Tensor], group=None) -> List[torch.Tensor]:
+    """The SUM over the group of ``tensors``, each entry of which is nonzero
+    on one rank at most (every other rank holds exact zeros there), as new
+    tensors: one ``all_reduce`` of their bytes as uint8, in which no sum
+    carries, so each entry comes back as its rank's value bit for bit (a
+    float's -0.0 and NaN payloads too). The JAX package's row-sharded cache
+    sums the same exact zeros in the values' own dtype."""
+    flat = [t.contiguous().reshape(-1).view(torch.uint8) for t in tensors]
+    buf = torch.cat(flat) if len(flat) > 1 else flat[0].clone()
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    parts = buf.split([f.numel() for f in flat])
+    return [p.view(t.dtype).view(t.shape) for p, t in zip(parts, tensors)]
 
 
 class DataShard:
@@ -105,6 +127,18 @@ class DataShard:
         out = t.new_full(shape, fill)
         out.narrow(axis, self.rank * n, n).copy_(t)
         return out
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every process's ``t`` (the same shape on each) concatenated on the
+        first axis in rank order, the same on every process: an all-gather
+        through ``sum_exact``, which takes only ``all_reduce`` (gloo has
+        few collectives for CUDA tensors). ``t`` lives where the group's
+        backend reads it (the card for NCCL)."""
+        if not self.distributed:
+            return t
+        out = t.new_zeros((self.world, *t.shape))
+        out[self.rank].copy_(t)
+        return sum_exact([out])[0].reshape(self.world * t.shape[0], *t.shape[1:])
 
     def draw(self, hook, shape, generator=None, axis: int = -2, blocks: int = 1):
         """``hook(shape, generator)`` drawn at the global batch's shape (the

@@ -91,8 +91,16 @@ the run of one process on the global batch, up to float32 summation
 order. Only rank 0 logs, writes the prediction grids, the checkpoints, the
 final model and the file log, and fires ``on_prediction_step``,
 ``on_save`` and ``on_save_checkpoint``; the other events fire on every
-rank. ``steps_per_execution`` > 1 and the ``"sharded"`` cache layout are
-refused under more than one process.
+rank. The device caches follow the JAX layout rules over the group
+(``data/device_cache.py``): replicated where a set fits one card's budget,
+else row-sharded over the ranks, each step then gathering the global
+batch's rows with one all-reduce. With ``steps_per_execution`` > 1 a chunk
+runs the same collectives (the loss's normalizers, the sharded cache's
+exchange, the gradient all-reduce, which reuses the presence mask of the
+eager chunk before each capture); under NCCL the chunk's CUDA graph
+captures them. Gloo collectives cannot be captured, so a gloo group on
+CUDA refuses ``steps_per_execution`` > 1; on the CPU the chunks run
+eagerly under gloo.
 
 ``mixed_precision`` (JAX ``loss_fn`` with ``_to_bf16``): each train step
 runs the model's ``loss_function`` on bfloat16 copies of the float32
@@ -128,7 +136,12 @@ import numpy as np
 import torch
 
 from ...data.batch import batch_from_arrays, floats_to
-from ...data.device_cache import PlanBuffer, build_device_cache, cache_per_device_nbytes
+from ...data.device_cache import (
+    PlanBuffer,
+    ShardedDeviceDataCache,
+    build_device_cache,
+    cache_per_device_nbytes,
+)
 from ...data.loader import DataLoader
 from ...data.prefetch import PrefetchLoader
 from ...data.utils import adapt_shape, grid_to_image, make_grid, write_png
@@ -271,8 +284,9 @@ class BaseTrainer:
             budget = int(cfg.device_cache_budget_gb * 1e9)
             layout = cfg.device_cache_layout
             self._train_cache = build_device_cache(train_dataset, self.device, budget,
-                                                   layout=layout)
-            if self._train_cache is not None:
+                                                   layout=layout, mesh=self.mesh)
+            if self._train_cache is not None and not isinstance(
+                    self._train_cache, ShardedDeviceDataCache):
                 # a sampler fitted on this dataset reuses the upload
                 train_dataset._sampler_device_cache = self._train_cache
             if eval_dataset is not None:
@@ -281,12 +295,13 @@ class BaseTrainer:
                 used = (0 if self._train_cache is None
                         else cache_per_device_nbytes(self._train_cache))
                 self._eval_cache = build_device_cache(eval_dataset, self.device,
-                                                      max(budget - used, 0), layout=layout)
+                                                      max(budget - used, 0), layout=layout,
+                                                      mesh=self.mesh)
         self._prefetch = {
             "train": PrefetchLoader(self.train_loader, self.device, depth=2),
             "eval": (PrefetchLoader(self.eval_loader, self.device, depth=2)
                      if self.eval_loader is not None else None)}
-        self._plans = {which: PlanBuffer(loader, self.device) for which, loader, cache in (
+        self._plans = {which: PlanBuffer(loader, self.device, cache) for which, loader, cache in (
             ("train", self.train_loader, self._train_cache),
             ("eval", self.eval_loader, self._eval_cache)) if cache is not None}
         # the chunked path: its graphs, device inputs and sums
@@ -332,19 +347,15 @@ class BaseTrainer:
                 "BaseTrainer.")
 
     def _check_data_parallel(self, cfg):
-        """Refuse what the port does not run under a process group yet."""
-        if cfg.steps_per_execution > 1:
+        """Refuse what a process group cannot run: graphed chunks over gloo
+        on CUDA (a CUDA graph captures NCCL collectives only)."""
+        if (cfg.steps_per_execution > 1 and self.device.type == "cuda"
+                and self.mesh.backend == "gloo"):
             raise NotImplementedError(
-                "steps_per_execution > 1 under a process group: the gradient "
-                "all-reduce is not captured in the steps' CUDA graphs yet "
-                "(ROADMAP, Queue A: steps_per_execution under NCCL). Use "
+                "steps_per_execution > 1 under a gloo process group on CUDA: the "
+                "chunks' CUDA graphs capture NCCL collectives only (gloo goes "
+                "through the host). Open the group with the NCCL backend, or use "
                 "steps_per_execution=1.")
-        if (cfg.cache_on_device and cfg.device_cache_layout == "sharded"
-                and self.mesh.world_size > 1):
-            raise NotImplementedError(
-                "device_cache_layout='sharded' over more than one process: each "
-                "process caches the whole set ('replicated' or 'auto'); the "
-                "sharded layout waits (ROADMAP, Queue A).")
 
     def _run_model_sanity_check(self):
         """One forward of the loss on the first train batch. It runs under
@@ -434,9 +445,10 @@ class BaseTrainer:
         if cache is None:
             yield from self._prefetch[which]
             return
-        idx, weights = self._plans[which].upload()
+        plan = self._plans[which]
+        idx, weights = plan.upload()
         for i in range(len(idx)):
-            yield cache.gather(idx[i], weights[i])
+            yield cache.gather(idx[i], weights[i], plan.columns)
 
     def _run_epoch(self, loader, epoch: int, generator, train: bool) -> dict:
         """The epoch's device sums, ``loss_sum`` first, then each metric."""
@@ -505,7 +517,8 @@ class BaseTrainer:
         """``n`` steps from the plan row in ``_chunk_start``, their loss and
         metrics added to ``_chunk_sums``: the body a CUDA graph captures.
         ``batch_ratio`` is computed in float32 on the device, as the JAX
-        chunk does."""
+        chunk does. Under a process group the steps run the eager loop's
+        collectives, which an NCCL capture takes into the graph."""
         cache = self._train_cache if which == "train" else self._eval_cache
         plan = self._plans[which]
         rows = self._chunk_start[which] + torch.arange(n, device=self.device)
@@ -517,18 +530,22 @@ class BaseTrainer:
             info = StepInfo(epoch=self._chunk_epoch[which],
                             batch_ratio=ratio[i] if train else 0.0,
                             dataset_size=len(loader.dataset))
-            batch = cache.gather(idx[i], weights[i])
+            batch = cache.gather(idx[i], weights[i], plan.columns)
             if train:
                 # as in the eager loop: under a capture, backward then
                 # allocates each gradient from the graph's pool, where every
                 # replay writes it again
                 self.optimizer.zero_grad(set_to_none=True)
-                out = microbatched_backward(
-                    lambda part: self._train_loss(part, info, generator),
-                    batch, self.training_config.microbatch_steps, self._train_context)
+                with self.model.sharded(self._shard):
+                    out = microbatched_backward(
+                        lambda part: self._train_loss(part, info, generator),
+                        batch, self.training_config.microbatch_steps, self._train_context)
+                if self._reducer is not None:
+                    self._reducer()
                 self.optimizer.step()
             else:
-                out = self.model.loss_function(batch, info, generator=generator)
+                with self.model.sharded(self._shard):
+                    out = self.model.loss_function(batch, info, generator=generator)
             values = {"loss_sum": out["loss_sum"], **out.get("metrics", {})}
             for k, v in values.items():
                 if k not in sums:

@@ -7,11 +7,13 @@ cached step on the card), the pipelined finalization's two and data
 parallelism's four (``n_devices``, ``coordinator_address``,
 ``num_processes``, ``process_id``: one process per card over a
 ``torch.distributed`` group, ``parallel/mesh.py``) and bfloat16's
-``mixed_precision`` (the trainer's ``_train_loss``). The other TPU-only
-fields (the model axis ``n_model_devices``; ``fsdp``; the orbax
-``checkpoint_backend`` and ``async_checkpointing``) are not part of the
-port; a ``training_config.json`` holding them does not load here.
-Optimizer and scheduler specs are validated eagerly.
+``mixed_precision`` (the trainer's ``_train_loss``). The JAX package's
+other fields load at their defaults, so that a ``training_config.json``
+it saved loads unedited: ``fsdp`` (False), ``n_model_devices`` (1),
+``checkpoint_backend`` ("msgpack", the port's torch files) and
+``async_checkpointing`` (kept without effect: it acts with orbax only).
+Another value raises ``NotImplementedError``. Optimizer and scheduler
+specs are validated eagerly.
 """
 
 from __future__ import annotations
@@ -125,8 +127,37 @@ class BaseTrainerConfig(BaseConfig):
     num_processes: Optional[int] = None
     process_id: Optional[int] = None
     mixed_precision: bool = False
+    fsdp: bool = False
+    n_model_devices: int = 1
+    checkpoint_backend: str = "msgpack"
+    async_checkpointing: bool = True
 
     def __post_init__(self):
+        # the JAX package's own checks first, with its messages
+        if self.checkpoint_backend not in ("msgpack", "orbax"):
+            raise AttributeError(
+                "checkpoint_backend must be 'msgpack' or 'orbax', got "
+                f"{self.checkpoint_backend!r}."
+            )
+        if self.n_model_devices < 1:
+            raise AttributeError(
+                "n_model_devices must be a positive integer, got "
+                f"{self.n_model_devices}."
+            )
+        if self.fsdp:
+            raise NotImplementedError(
+                "fsdp=True: parameter and optimizer-state sharding is not ported yet "
+                "(ROADMAP, Queue A, item 5: fsdp). Use fsdp=False: each process keeps "
+                "a whole replica.")
+        if self.n_model_devices > 1:
+            raise NotImplementedError(
+                f"n_model_devices={self.n_model_devices}: the model axis is not ported "
+                "yet (ROADMAP, Queue A, item 6: n_model_devices). Use n_model_devices=1.")
+        if self.checkpoint_backend == "orbax":
+            raise NotImplementedError(
+                "checkpoint_backend='orbax': the port has no orbax checkpoints (a limit "
+                "kept on purpose: it writes torch files in the JAX package's layout). "
+                "Use checkpoint_backend='msgpack'.")
         if self.steps_per_execution < 1:
             raise AttributeError(
                 "steps_per_execution must be a positive integer, got "

@@ -10,7 +10,14 @@ so the host issues one launch a chunk instead of every kernel of N steps.
 - The first chunk after the graphs were built or dropped runs eagerly on
   the capture stream: it creates what a step creates lazily (the optimizer
   state, the gradients, the cuBLAS workspace, the mixture kernels'
-  attributes) outside any capture, and takes no extra step.
+  attributes; under a process group, the NCCL communicator and the
+  gradient reducer's presence mask, which the captures reuse) outside any
+  capture, and takes no extra step.
+- Under an NCCL group a capture takes the chunk's collectives (the
+  gradient all-reduce, a loss's normalizers, the row-sharded cache's
+  exchange) into the graph: each replay runs them with every rank's
+  replay. A gloo group cannot be captured; the trainer refuses it on
+  CUDA.
 - The chunk's random draws come from a ``torch.Generator`` registered with
   every graph, so each replay draws what the eager loop would have drawn,
   and the generator's state after a replay is the eager loop's.

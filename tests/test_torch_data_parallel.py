@@ -344,18 +344,40 @@ def test_a_mesh_alone_and_shard_batch():
 
 
 # ---------------------------------------------------------------- refusals
-def test_refusals_under_the_group(workers):
-    """A ``n_devices`` the group does not match, ``steps_per_execution`` > 1
-    and the sharded cache layout under two ranks each raise, naming the
-    way out."""
+def test_refusals_under_the_group(workers, monkeypatch):
+    """A ``n_devices`` the group does not match raises, naming the way out;
+    ``steps_per_execution`` > 1 and the sharded cache layout are taken
+    under two gloo ranks on the CPU. A gloo group on CUDA refuses
+    ``steps_per_execution`` > 1, naming NCCL (its backend name patched in:
+    there is no card here); an NCCL group, and gloo on the CPU, take it."""
+    from types import SimpleNamespace
+
+    from multivae_tpu_torch.parallel import DataMesh
+    from multivae_tpu_torch.trainers import BaseTrainer
+
     messages = workers.load("refusals", 0)
     assert messages == workers.load("refusals", 1)
     assert messages["n_devices"].startswith("ValueError: n_devices=3 but the process group "
                                             "holds 2 processes")
     assert "one process per card" in messages["n_devices"]
-    assert messages["steps_per_execution"].startswith("NotImplementedError")
-    assert "ROADMAP" in messages["steps_per_execution"]
-    assert messages["sharded"].startswith("NotImplementedError")
+    assert messages["steps_per_execution"] is None and messages["sharded"] is None
+
+    graphed = BaseTrainerConfig(cache_on_device=True, steps_per_execution=2)
+    backend = {}
+    monkeypatch.setattr(DataMesh, "backend", property(lambda self: backend["name"]))
+    for device, name, refused in (("cuda", "gloo", True), ("cuda", "nccl", False),
+                                  ("cpu", "gloo", False)):
+        backend["name"] = name
+        trainer = SimpleNamespace(device=torch.device(device),
+                                  mesh=DataMesh(2, 0, 0, torch.device(device), True))
+        if refused:
+            with pytest.raises(NotImplementedError, match="steps_per_execution > 1 under a "
+                               "gloo process group on CUDA") as e:
+                BaseTrainer._check_data_parallel(trainer, graphed)
+            assert "NCCL" in str(e.value)
+        else:
+            BaseTrainer._check_data_parallel(trainer, graphed)
+        BaseTrainer._check_data_parallel(trainer, BaseTrainerConfig())
 
 
 def test_a_process_alone_opens_no_group(monkeypatch):
@@ -385,23 +407,19 @@ def test_n_devices_above_one_without_a_group_raises(tmp_path):
 def test_a_jax_training_config_with_the_parallel_fields_loads(tmp_path):
     """``n_devices``, ``coordinator_address``, ``num_processes`` and
     ``process_id`` of a JAX ``training_config.json`` load with their
-    values; the fields the port leaves out are still refused."""
+    values, the file unedited (``n_model_devices`` and ``fsdp`` at their
+    defaults); a model axis is still refused, naming its ROADMAP item."""
     JTrainerConfig(output_dir="out", n_devices=4, coordinator_address="10.0.0.1:1234",
                    num_processes=2, process_id=1).save_json(str(tmp_path), "training_config")
     with open(tmp_path / "training_config.json") as f:
         saved = json.load(f)
-    tpu_only = sorted(set(saved) - set(BaseTrainerConfig().to_dict()) - {"name"})
-    assert not {"n_devices", "coordinator_address", "num_processes", "process_id"} & set(tpu_only)
-    assert "n_model_devices" in tpu_only
-    for k in tpu_only:
-        del saved[k]
-    with open(tmp_path / "training_config.json", "w") as f:
-        json.dump(saved, f)
+    assert not set(saved) - set(BaseTrainerConfig().to_dict()) - {"name"}
     cfg = BaseTrainerConfig.from_json_file(str(tmp_path / "training_config.json"))
     assert (cfg.n_devices, cfg.coordinator_address, cfg.num_processes, cfg.process_id) == (
         4, "10.0.0.1:1234", 2, 1)
-    with pytest.raises(TypeError, match="n_model_devices"):
-        BaseTrainerConfig.from_dict(dict(saved, n_model_devices=1))
+    assert (cfg.n_model_devices, cfg.fsdp) == (1, False)
+    with pytest.raises(NotImplementedError, match="n_model_devices=2.*item 6"):
+        BaseTrainerConfig.from_dict(dict(saved, n_model_devices=2))
 
 
 def test_the_workers_end_cleanly(workers):

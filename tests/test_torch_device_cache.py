@@ -171,6 +171,23 @@ def test_cached_batches_are_the_host_loaders_and_the_jax_caches(kind, tmp_path):
     _assert_same_batches(host, list(JDeviceCachedLoader(jloader, jcache)), same_dtypes=False)
 
 
+@pytest.mark.parametrize("process_index", [0, 1])
+def test_a_replicated_cache_keeps_the_columns_of_a_global_plan_row(process_index):
+    """``take_rows``' ``columns`` (the positions of a plan row kept): a
+    global plan row at a process's columns gives that process's host
+    batches."""
+    ds, _ = _pair_of_datasets("incomplete")
+    loader = DataLoader(ds, B, shuffle=True, seed=5, num_processes=2,
+                        process_index=process_index)
+    cache = build_device_cache(ds, "cpu", 10**9)
+    idx, _ = loader.global_epoch_plan()
+    _, weights = loader.epoch_plan()
+    columns = torch.from_numpy(loader.process_columns().astype(np.int64))
+    _assert_same_batches([cache.gather(torch.from_numpy(idx[i].astype(np.int64)),
+                                       torch.from_numpy(weights[i]), columns)
+                          for i in range(len(idx))], list(loader))
+
+
 def test_cache_size_and_estimate():
     ds, _ = _pair_of_datasets("incomplete")
     cache = build_device_cache(ds, "cpu", 10**9)
@@ -336,8 +353,11 @@ def test_layouts():
 def test_a_jax_training_config_with_the_cache_fields_loads(tmp_path):
     """The three cache fields of a JAX ``training_config.json`` load, and
     with them ``steps_per_execution``, ``pipeline_epochs``,
-    ``pipeline_depth`` and ``mixed_precision``; the other TPU fields
-    (``fsdp`` among them) are still refused."""
+    ``pipeline_depth`` and ``mixed_precision``; the file loads unedited,
+    its TPU fields at their defaults too, as does one saved by the JAX
+    ``BaseTrainerConfig()``; ``fsdp=True``, ``n_model_devices=2`` and
+    ``checkpoint_backend="orbax"`` raise ``NotImplementedError`` naming
+    the way out."""
     JTrainerConfig(output_dir="out", n_devices=1, cache_on_device=True,
                    device_cache_budget_gb=2.5, device_cache_layout="sharded",
                    steps_per_execution=4, pipeline_depth=3,
@@ -346,21 +366,32 @@ def test_a_jax_training_config_with_the_cache_fields_loads(tmp_path):
     with open(tmp_path / "training_config.json") as f:
         saved = json.load(f)
     ported = set(BaseTrainerConfig().to_dict())
-    tpu_only = sorted(set(saved) - ported - {"name"})
-    assert "fsdp" in tpu_only and "cache_on_device" not in tpu_only
-    assert not {"steps_per_execution", "pipeline_epochs", "pipeline_depth",
-                "mixed_precision"} & set(tpu_only)
-    for k in tpu_only:
-        del saved[k]
-    with open(tmp_path / "training_config.json", "w") as f:
-        json.dump(saved, f)
+    assert not set(saved) - ported - {"name"}
+    assert {"fsdp", "n_model_devices", "checkpoint_backend", "async_checkpointing",
+            "cache_on_device"} <= ported
     cfg = BaseTrainerConfig.from_json_file(str(tmp_path / "training_config.json"))
     assert (cfg.cache_on_device, cfg.device_cache_budget_gb, cfg.device_cache_layout) == (
         True, 2.5, "sharded")
     assert (cfg.steps_per_execution, cfg.pipeline_epochs, cfg.pipeline_depth) == (4, True, 3)
     assert cfg.mixed_precision is True
-    with pytest.raises(TypeError, match="fsdp"):
-        BaseTrainerConfig.from_dict(dict(saved, fsdp=False))
+    assert (cfg.fsdp, cfg.n_model_devices, cfg.checkpoint_backend,
+            cfg.async_checkpointing) == (False, 1, "msgpack", True)
+    JTrainerConfig().save_json(str(tmp_path / "defaults"), "training_config")
+    defaults = BaseTrainerConfig.from_json_file(
+        str(tmp_path / "defaults" / "training_config.json"))
+    assert defaults.to_dict() == BaseTrainerConfig().to_dict()
+    assert BaseTrainerConfig.from_dict(dict(saved, async_checkpointing=False)).async_checkpointing \
+        is False
+    for field, value, way_out in (("fsdp", True, "item 5"), ("n_model_devices", 2, "item 6"),
+                                  ("checkpoint_backend", "orbax", "checkpoint_backend='msgpack'")):
+        with pytest.raises(NotImplementedError, match=field) as refused:
+            BaseTrainerConfig.from_dict(dict(saved, **{field: value}))
+        assert way_out in str(refused.value)
+    # the JAX package's own checks, with its messages
+    with pytest.raises(AttributeError, match="checkpoint_backend must be"):
+        BaseTrainerConfig(checkpoint_backend="pickle")
+    with pytest.raises(AttributeError, match="n_model_devices must be a positive"):
+        BaseTrainerConfig(n_model_devices=0)
 
 
 # --------------------------------------------------------------- evaluators

@@ -207,8 +207,9 @@ def resume_case(outdir: str) -> dict:
 
 
 def refusal_case(outdir: str) -> dict:
-    """The messages of the refusals under the process group: a mismatched
-    ``n_devices``, ``steps_per_execution`` > 1 and the sharded cache."""
+    """The messages of the refusals under the process group (None where the
+    trainer was built): a mismatched ``n_devices``, ``steps_per_execution``
+    > 1 and the sharded cache."""
     messages = {}
     for name, kwargs in (("n_devices", dict(n_devices=3)),
                          ("steps_per_execution", dict(cache_on_device=True,

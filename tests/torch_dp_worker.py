@@ -1,8 +1,10 @@
 """One rank of the gloo group of ``test_torch_data_parallel.py``.
 
-Run as ``python torch_dp_worker.py RANK WORLD PORT OUTDIR [JAX_CASES]``
-with ``tests/`` and the repo on ``PYTHONPATH``: runs every case of
-``torch_dp_cases`` in order, saving each result in ``OUTDIR``. The first
+Run as ``python torch_dp_worker.py RANK WORLD PORT OUTDIR [JAX_CASES]
+[--cases MODULE]`` with ``tests/`` and the repo on ``PYTHONPATH``: runs
+every case of ``torch_dp_cases`` in order (or the jobs of ``MODULE``'s
+``jobs(outdir, port, world, rank, spec)``), saving each result in
+``OUTDIR``. The first
 case's trainer opens the gloo group at ``127.0.0.1:PORT`` from its
 ``coordinator_address``, ``num_processes`` and ``process_id`` (the port's
 finite timeout on every collective); the others join it. A case that
@@ -12,6 +14,7 @@ goes on after a barrier. The comparisons with the JAX trainer
 JAX, on the CPU, for its draws.
 """
 
+import importlib
 import json
 import logging
 import os
@@ -23,10 +26,20 @@ import torch.distributed as dist
 
 
 def main():
-    rank, world, port, outdir = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
-    jax_cases = sys.argv[5] if len(sys.argv) > 5 else None
+    args = sys.argv[1:]
+    module = None
+    if "--cases" in args:
+        at = args.index("--cases")
+        module = args[at + 1]
+        del args[at:at + 2]
+    rank, world, port, outdir = int(args[0]), int(args[1]), args[2], args[3]
+    jax_cases = args[4] if len(args) > 4 else None
     logging.disable(logging.WARNING)
     torch.set_num_threads(1)
+    if module is not None:
+        run(importlib.import_module(module).jobs(outdir, port, world, rank, jax_cases), rank,
+            outdir)
+        return
     import torch_dp_cases as cases
 
     first, *others = cases.CASES
@@ -46,6 +59,12 @@ def main():
         with open(jax_cases) as f:
             for name, spec in json.load(f).items():
                 jobs.append((name, lambda name=name, spec=spec: run_fed(name, spec, outdir)))
+    run(jobs, rank, outdir)
+
+
+def run(jobs, rank, outdir):
+    """Each ``(name, job)`` in turn, a barrier after each; a job that raises
+    leaves its traceback in ``<name>_rank<r>.err``."""
     for name, job in jobs:
         try:
             job()
