@@ -290,7 +290,24 @@ Phases (any failure exits non-zero and prints no result line):
     equal to its eager bf16 run with the capturable optimizer within
     ``GRAPHED_RTOL``, and in a one-process NCCL group equal to no group bit
     for bit; the phase's seconds;
-26. the seconds the whole run took, a ``kernels`` JSON line (launches
+26. ``state_sharding``: the JAX package's ``fsdp`` and ``n_model_devices``
+    (``parallel/state.py``) on ``mmvae_conv``, cuDNN deterministic: (a)
+    8-step CUDA graphs on 2,048 cached rows in a one-process NCCL group,
+    ``fsdp`` off and on, bit-equal (else within ``GRAPHED_RTOL``, the
+    reason printed), their steps/s ratio, the collectives each train and
+    eval capture issues (all-gathers, reduce-scatters, all-reduces, bytes),
+    a replay's mixture kernels and NCCL activities, the bytes at rest; (b)
+    two gloo ranks on the one card, spawned (``--ss-rank``), one eager
+    epoch of 512 rows at the global batch of 256, ``fsdp`` over data 2 and
+    data 1 x model 2, each within ``DP_RTOL`` / ``DP_MOVE_RTOL`` of one
+    process, the replicas bit-equal, each rank's bytes at rest of
+    parameters and optimizer state, and with the whole weights best-model
+    tracking keeps, beside one process's, 2 mixture forwards
+    and 1 dz-only backward a rank a step; (c) with four cards, four NCCL
+    ranks as data 2 x model 2 with ``fsdp``, graphed, against (a)'s
+    replicated run (``python3 chip_smoke.py --state-sharding-four`` runs
+    (c) and that run alone); the phase's seconds;
+27. the seconds the whole run took, a ``kernels`` JSON line (launches
     summed over every training and inference phase that runs the kernels,
     each kernel at least once), then the last line
     ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -2673,12 +2690,13 @@ GRAPHED_RTOL = 1e-6
 GRAPHED_SPREAD_FACTOR = 10.0
 GRAPHED_SPREAD_RUNS = ("eager_nondeterministic", "eager_nondeterministic_2")
 # (workload, rows, mixture launches a train step, epochs). MMVAE+ (batch
-# 32) on 1,024 rows: 32 steps an epoch, as its whole-epoch graph's capture
-# takes ~0.2 s a step; TELBO takes 16 steps an epoch, so that graphs are
+# 32) on 512 rows: 16 steps an epoch, as its whole-epoch graph's capture
+# takes ~0.2 s a step (1,024 rows until the state_sharding phase needed the
+# time); TELBO takes 16 steps an epoch, so that graphs are
 # captured within each stage around its reset, and a fourth epoch: its
 # reset (epoch 2) and stage flip (3) drop the graphs, so the whole-epoch
 # run replays only in epoch 4
-GRAPHED_WORKLOADS = (("mmvaeplus_partial", GRAPHED_ROWS // 2, {"fwd": 2, "bwd_dz": 1},
+GRAPHED_WORKLOADS = (("mmvaeplus_partial", GRAPHED_ROWS // 4, {"fwd": 2, "bwd_dz": 1},
                       GRAPHED_EPOCHS),
                      ("mvtcae_conv", GRAPHED_ROWS, None, GRAPHED_EPOCHS),
                      ("dmvae_mnist_svhn", GRAPHED_ROWS, None, GRAPHED_EPOCHS),
@@ -2696,11 +2714,12 @@ PIPELINE_SETTINGS = dict(scheduler_cls="StepLR", scheduler_params={"step_size": 
 
 
 def _graphed_run(mx, name, rows, epochs, device, steps, pipeline, out, checkpoint=None,
-                 steps_saving=None, capturable=False, overrides=None):
+                 steps_saving=None, capturable=False, overrides=None, callbacks=()):
     """``name`` of ``tools/workloads.py`` on ``rows`` cached rows (seeded
     weights and data), trained ``epochs`` epochs with ``steps_per_execution``
     = ``steps`` (0: the epoch's batch count), its optimizer made
-    ``capturable`` on request, ``overrides`` of its trainer settings.
+    ``capturable`` on request, ``overrides`` of its trainer settings,
+    ``callbacks`` beside its own.
     Returns (record, trainer, the live weights
     before training, the final ones). The train steps' span
     of each epoch comes from CUDA events at the start of its train pass and
@@ -2743,7 +2762,8 @@ def _graphed_run(mx, name, rows, epochs, device, steps, pipeline, out, checkpoin
                             steps_saving=steps_saving,
                             **{**w.trainer_kwargs, **(overrides or {})})
     trainer = (w.trainer_cls or BaseTrainer)(w.model, w.train, w.eval, training_config=cfg,
-                                             callbacks=[spans], checkpoint=checkpoint,
+                                             callbacks=[spans, *callbacks],
+                                             checkpoint=checkpoint,
                                              device=device)
     check(trainer._train_cache is not None and (w.eval is None or trainer._eval_cache is not None),
           f"{name}: a cache came back None")
@@ -3185,6 +3205,9 @@ def _dp_run(mx, name, rows, per_step, per_device, device="cuda", epochs=DP_EPOCH
         record["all_reduce"] = timer.summary()
         check(record["all_reduce"]["calls"] == steps,
               f"{name}: {record['all_reduce']['calls']} gradient all-reduces in {steps} steps")
+    if trainer._state is not None:
+        record["mesh"] = {"n_data": trainer.mesh.n_data, "n_model": trainer.mesh.n_model}
+    record["state_bytes"] = _state_bytes(trainer)
     if trainer._train_cache is not None:
         from multivae_tpu_torch.data.device_cache import cache_per_device_nbytes
 
@@ -3196,6 +3219,27 @@ def _dp_run(mx, name, rows, per_step, per_device, device="cuda", epochs=DP_EPOCH
     del trainer, w
     torch.cuda.empty_cache()
     return record, start, final
+
+
+def _state_bytes(trainer) -> dict:
+    """This rank's bytes at rest on the card: its parameters and optimizer
+    state (the cut leaves' apart), the whole weights best-model tracking
+    keeps (the kept state and a pipelined window's candidate where that is
+    another buffer: whole under every layout), and their sum."""
+    from multivae_tpu_torch.parallel.state import state_nbytes
+
+    if trainer._state is not None:
+        out = trainer._state.nbytes(trainer.optimizer)
+    else:
+        out = {"params_and_optimizer": state_nbytes(trainer.model.parameters(),
+                                                    trainer.optimizer)}
+    kept = [trainer._best_state]
+    if trainer._candidate is not None and trainer._candidate["state"] is not kept[0]:
+        kept.append(trainer._candidate["state"])
+    out["kept_whole"] = sum(v.numel() * v.element_size()
+                            for state in kept if state is not None for v in state.values())
+    out["with_kept"] = out["params_and_optimizer"] + out["kept_whole"]
+    return out
 
 
 def _free_port():
@@ -3252,23 +3296,31 @@ def dp_rank_main(argv, device="cuda"):
     return 0
 
 
-def _spawn_ranks(world, backend, out, command):
-    """``world`` ranks of ``command`` (``dp_rank_main``'s) over ``backend``;
-    each must exit 0 within ``DP_RANK_TIMEOUT``, or the phase fails (every
-    rank is killed)."""
+def _spawn_ranks(world, backend, out, command, extra=(), timeout=None):
+    """``world`` ranks of ``command`` (``dp_rank_main``'s, or
+    ``ss_rank_main``'s with its ``extra`` arguments) over ``backend``; each
+    must exit 0 within ``timeout`` (default ``DP_RANK_TIMEOUT``), or the
+    phase fails (every rank is killed), with the end of every rank's log."""
     os.makedirs(out, exist_ok=True)
     port = str(_free_port())
     logs = [open(os.path.join(out, f"rank{r}.log"), "w") for r in range(world)]
-    procs = [subprocess.Popen(command + [str(r), str(world), port, backend, out],
+    procs = [subprocess.Popen(command + [str(r), str(world), port, backend, out, *extra],
                               cwd=ROOT, stdout=logs[r], stderr=subprocess.STDOUT)
              for r in range(world)]
-    deadline = time.monotonic() + DP_RANK_TIMEOUT
+    deadline = time.monotonic() + (timeout or DP_RANK_TIMEOUT)
+
+    def tails():
+        for f in logs:
+            f.flush()
+        return "".join(f"\n--- rank {q}:\n" + open(os.path.join(out, f"rank{q}.log")).read()[-4000:]
+                       for q in range(world))
+
     try:
         for r, p in enumerate(procs):
             try:
                 p.wait(timeout=max(deadline - time.monotonic(), 1))
             except subprocess.TimeoutExpired:
-                raise SmokeFailure(f"{backend} rank {r} of {world} timed out")
+                raise SmokeFailure(f"{backend} rank {r} of {world} timed out:{tails()}")
             if p.returncode:
                 with open(os.path.join(out, f"rank{r}.log")) as f:
                     tail = f.read()[-3000:]
@@ -4048,6 +4100,378 @@ def mixed_precision_phase(mx, device="cuda", one_process_backend="nccl",
     return record, launches, errs, timing
 
 
+# The state_sharding phase: the JAX package's fsdp and n_model_devices
+# (combined_state_sharding's placements, parallel/state.py) on mmvae_conv
+# (partial PolyMNIST at its full width, DReG: the mixture's forward and
+# dz-only backward in every rank's step), under cuDNN's deterministic
+# algorithms.
+# (a) (workload, rows, epochs, steps a chunk): 8-step CUDA graphs on 2,048
+# cached rows in a one-process NCCL group, fsdp off and on: epoch 1 runs
+# the eager chunk, epoch 2 captures, epochs 3 and 4 replay. Over a data axis
+# of one the gathers and scatters copy and the optimizer steps the same
+# numbers in flat masters: bit-equal, else within GRAPHED_RTOL (the loss
+# gaps and the weights' moves), the reason printed.
+SS_GRAPHED = ("mmvae_conv", 2048, 4, 8)
+# (b) two gloo ranks on the one card, eager, one epoch of SS_ROWS rows at the
+# global batch DP_BATCH, each layout against one process on the global
+# batch within DP_RTOL / DP_MOVE_RTOL (the data_parallel phase's gates):
+# fsdp over data 2 (128 rows a rank), and data 1 x model 2 (each rank the
+# whole batch, half of each wide layer's output channels)
+SS_ROWS = 512
+SS_EPOCHS = 1
+SS_LAYOUTS = (("fsdp_data2", dict(n_devices=2, fsdp=True)),
+              ("model2", dict(n_devices=1, n_model_devices=2)))
+# (c) four cards over NCCL: data 2 x model 2 with fsdp, SS_GRAPHED's graphs
+# at 128 rows a data index, against (a)'s graphed run without fsdp within
+# DP_RTOL / DP_MOVE_RTOL
+SS_FOUR = dict(n_devices=2, n_model_devices=2, fsdp=True)
+# seconds a spawned rank of this phase may take
+SS_RANK_TIMEOUT = 240
+SS_PER_STEP, SS_EVAL_FWD = {"fwd": 2, "bwd_dz": 1}, 2
+
+
+@contextlib.contextmanager
+def _capture_log():
+    """The collectives each CUDA graph capture issues: a list with one entry
+    a capture, ``{"name": train or eval, "calls": {kind: [count, bytes]}}``
+    (the state's all-gathers and reduce-scatters, every all-reduce)."""
+    import torch.distributed as dist
+
+    from multivae_tpu_torch.parallel import state as st
+    from multivae_tpu_torch.trainers.base import graphs
+
+    log, current = [], []
+
+    def counting(kind, fn):
+        def inner(*args, **kwargs):
+            if current and torch.cuda.is_current_stream_capturing():
+                entry = current[-1]["calls"].setdefault(kind, [0, 0])
+                entry[0] += 1
+                entry[1] += args[0].numel() * args[0].element_size()
+            return fn(*args, **kwargs)
+        return inner
+
+    plain = (st._all_gather, st._reduce_scatter, dist.all_reduce, graphs.ChunkGraphs._capture)
+
+    def capture(self, fn):
+        current.append({"name": self.name, "calls": {}})
+        log.append(current[-1])
+        try:
+            return plain[3](self, fn)
+        finally:
+            current.pop()
+
+    st._all_gather = counting("all_gather", plain[0])
+    st._reduce_scatter = counting("reduce_scatter", plain[1])
+    dist.all_reduce = counting("all_reduce", plain[2])
+    graphs.ChunkGraphs._capture = capture
+    try:
+        yield log
+    finally:
+        st._all_gather, st._reduce_scatter, dist.all_reduce = plain[:3]
+        graphs.ChunkGraphs._capture = plain[3]
+
+
+def _expected_launches(run):
+    expected = {k: SS_PER_STEP.get(k, 0) * run["epochs_run"] * run["n_batches"]
+                for k in KERNELS}
+    expected["fwd"] += SS_EVAL_FWD * run["epochs_run"] * run["eval_batches"]
+    return expected
+
+
+def ss_graphed(mx, device="cuda", backend="nccl", fsdps=(False, True)):
+    """(a): ``SS_GRAPHED`` as 8-step graphs in a one-process ``backend``
+    group, for each of ``fsdps``; returns (record, launches, the run
+    without fsdp as (record, start, end)). With fsdp among them the record
+    holds it to the run without; else the record is None."""
+    import datetime
+
+    import torch.distributed as dist
+
+    name, rows, epochs, chunk = SS_GRAPHED
+    out = os.path.join(ROOT, "build", "chip_smoke", "ss_graphed")
+    shutil.rmtree(out, ignore_errors=True)
+    cuda = torch.device(device).type == "cuda"
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=DP_GROUP_TIMEOUT))
+    runs, launches = {}, {k: 0 for k in KERNELS}
+    try:
+        for fsdp in fsdps:
+            with _capture_log() as log:
+                run, trainer, start, end = _graphed_run(
+                    mx, name, rows, epochs, device, chunk, False,
+                    os.path.join(out, str(fsdp)), overrides={"fsdp": fsdp})
+            check(run["launches"] == _expected_launches(run),
+                  f"ss_graphed fsdp={fsdp}: expected {_expected_launches(run)} launches, "
+                  f"got {run['launches']}")
+            check(not cuda or (run["replays"]["train"] > 0 and run["replays"]["eval"] > 0),
+                  f"ss_graphed fsdp={fsdp}: a kind of graph never replayed {run['replays']}")
+            for k in KERNELS:
+                launches[k] += run["launches"][k]
+            train_chunk = [e["calls"] for e in log if e["name"] == "train"]
+            run["collectives_a_train_chunk"] = train_chunk[0] if train_chunk else {}
+            run["collectives_an_eval_chunk"] = next(
+                (e["calls"] for e in log if e["name"] == "eval"), {})
+            run["state_bytes"] = _state_bytes(trainer)
+            run["cut_leaves"] = sum(leaf.cut for leaf in trainer._state.leaves)
+            if cuda:
+                seen, counted, nccl, events, _ = _replay_profile(trainer, chunk)
+                want = {k: SS_PER_STEP.get(k, 0) * chunk for k in KERNELS}
+                check(seen == counted == want, f"ss_graphed fsdp={fsdp}: a replay launched "
+                      f"{seen}, counted {counted}, expected {want}")
+                run.update(mixture_a_replay=seen, nccl_in_a_replay=nccl,
+                           device_activities_in_a_replay=events)
+            runs[fsdp] = (run, start, end)
+            del trainer
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(out, ignore_errors=True)
+    if True not in runs:
+        return None, launches, runs[False]
+    (rep, rep_start, rep_end), (ours, start, end) = runs[False], runs[True]
+    same = (all(torch.equal(start[k], v) for k, v in rep_start.items())
+            and all(torch.equal(end[k], v) for k, v in rep_end.items())
+            and ours["epoch_losses"] == rep["epoch_losses"]
+            and ours["eval_losses"] == rep["eval_losses"])
+    gaps = _loss_gaps(ours, rep, rep_start, end, rep_end)
+    record = {"workload": name, "rows": rows, "epochs": epochs, "steps_per_execution": chunk,
+              "backend": backend, "bit_equal": same, "gaps": gaps,
+              "steps_per_s": {"replicated": rep["steps_per_s"], "fsdp": ours["steps_per_s"]},
+              "fsdp_over_replicated": (ours["steps_per_s"] / rep["steps_per_s"]
+                                       if rep["steps_per_s"] and ours["steps_per_s"] else None),
+              "captures": ours["captures"], "replays": ours["replays"],
+              "collectives_a_train_chunk": {"replicated": rep["collectives_a_train_chunk"],
+                                            "fsdp": ours["collectives_a_train_chunk"]},
+              "collectives_an_eval_chunk": {"replicated": rep["collectives_an_eval_chunk"],
+                                            "fsdp": ours["collectives_an_eval_chunk"]},
+              "state_bytes": {"replicated": rep["state_bytes"], "fsdp": ours["state_bytes"]},
+              "cut_leaves": ours["cut_leaves"],
+              "mixture_a_replay": ours.get("mixture_a_replay"),
+              "nccl_in_a_replay": {"replicated": rep.get("nccl_in_a_replay"),
+                                   "fsdp": ours.get("nccl_in_a_replay")},
+              "peak_above_held_bytes": {"replicated": rep["peak_above_held_bytes"],
+                                        "fsdp": ours["peak_above_held_bytes"]},
+              "epoch_losses": ours["epoch_losses"], "eval_losses": ours["eval_losses"]}
+    if not same:
+        record["reason"] = ("not bit-equal to the replicated graphed run: within GRAPHED_RTOL "
+                            "is the gate (the flat masters' optimizer step and the copies of "
+                            "the one-rank gathers may round differently)")
+    check(same or (max(gaps.values()) <= GRAPHED_RTOL),
+          f"ss_graphed: fsdp beyond GRAPHED_RTOL {GRAPHED_RTOL} of the replicated run: {gaps}")
+    check(not cuda or ours["collectives_a_train_chunk"].get("reduce_scatter", [0])[0] >= chunk,
+          f"ss_graphed: a train chunk captured {ours['collectives_a_train_chunk']}, expected "
+          f"a reduce-scatter a step at least")
+    return record, launches, runs[False]
+
+
+def _progress(tag):
+    """A callback printing ``tag``, the time and each epoch's start, flushed:
+    where a spawned rank got to, in its log."""
+    from multivae_tpu_torch.trainers.base.callbacks import TrainingCallback
+
+    class Progress(TrainingCallback):
+        def on_epoch_begin(self, training_config, **kwargs):
+            print(f"[{time.strftime('%H:%M:%S')}] {tag}: epoch {kwargs.get('epoch')}", flush=True)
+
+    return Progress()
+
+
+def ss_rank_main(argv, device="cuda"):
+    """A spawned rank: ``--ss-rank R WORLD PORT BACKEND OUT MODE``. Joins the
+    group at ``tcp://127.0.0.1:PORT``; MODE ``eager`` trains each layout of
+    ``SS_LAYOUTS`` (b), ``graphed`` trains ``SS_FOUR`` as graphs (c); each
+    record and final weights saved under ``OUT``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    import faulthandler
+
+    rank, world, port, backend, out, mode = (int(argv[0]), int(argv[1]), argv[2], argv[3],
+                                             argv[4], argv[5])
+    from multivae_tpu_torch.ops import mixture as mx
+
+    # a rank that hangs leaves every thread's stack in its log
+    faulthandler.dump_traceback_later(SS_RANK_TIMEOUT - 30, exit=False)
+
+    if device == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=DP_GROUP_TIMEOUT))
+    try:
+        if mode == "eager":
+            for label, layout in SS_LAYOUTS:
+                record, _, final = _dp_run(mx, SS_GRAPHED[0], SS_ROWS, SS_PER_STEP,
+                                           DP_BATCH // layout["n_devices"], device,
+                                           epochs=SS_EPOCHS, overrides=layout)
+                torch.save(final, os.path.join(out, f"{label}_rank{rank}.pt"))
+                with open(os.path.join(out, f"{label}_rank{rank}.json"), "w") as f:
+                    json.dump(record, f)
+        else:
+            name, rows, epochs, chunk = SS_GRAPHED
+            per = DP_BATCH // SS_FOUR["n_devices"]
+            # eager first: one epoch of SS_ROWS rows, as (b)
+            record, _, final = _dp_run(mx, name, SS_ROWS, SS_PER_STEP, per, device,
+                                       epochs=SS_EPOCHS, overrides=SS_FOUR)
+            torch.save(final, os.path.join(out, f"four_eager_rank{rank}.pt"))
+            with open(os.path.join(out, f"four_eager_rank{rank}.json"), "w") as f:
+                json.dump(record, f)
+            print(f"[{time.strftime('%H:%M:%S')}] eager done", flush=True)
+            record, end = _ss_four_rank(mx, device, out, per)
+            record["rank"] = rank
+            torch.save({k: v.cpu() for k, v in end.items()},
+                       os.path.join(out, f"four_rank{rank}.pt"))
+            with open(os.path.join(out, f"four_rank{rank}.json"), "w") as f:
+                json.dump(record, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _ss_four_rank(mx, device, out, per):
+    """(c)'s graphed run in a rank, at ``per`` rows a data index: its record
+    (with the bytes at rest and one profiled replay) and final weights. The
+    trainer, whose graphs hold the NCCL communicators' work, is gone when
+    this returns: the group's destruction waits for them otherwise."""
+    name, rows, epochs, chunk = SS_GRAPHED
+    record, trainer, _, end = _graphed_run(
+        mx, name, rows, epochs, device, chunk, False, os.path.join(out, "run"),
+        overrides={**SS_FOUR, "per_device_train_batch_size": per,
+                   "per_device_eval_batch_size": per},
+        callbacks=[_progress("graphed")])
+    print(f"[{time.strftime('%H:%M:%S')}] graphed done", flush=True)
+    record["state_bytes"] = _state_bytes(trainer)
+    if device == "cuda":
+        seen, counted, nccl, events, _ = _replay_profile(trainer, chunk)
+        record.update(mixture_a_replay=seen, counted_a_replay=counted,
+                      nccl_in_a_replay=nccl, device_activities_in_a_replay=events)
+        torch.cuda.synchronize()
+    return record, end
+
+
+def _ss_ranks(label, world, out, alone, alone_start, alone_final, counts):
+    """The spawned ranks' results of ``label``: replicas bit-equal, each
+    rank's launches added to ``counts``, rank 0 against ``alone`` within
+    DP_RTOL / DP_MOVE_RTOL."""
+    ranks, finals = [], []
+    for r in range(world):
+        with open(os.path.join(out, f"{label}_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+        finals.append(torch.load(os.path.join(out, f"{label}_rank{r}.pt"), weights_only=True))
+        check(all(torch.equal(finals[r][k], v) for k, v in finals[0].items())
+              and ranks[r]["epoch_losses"] == ranks[0]["epoch_losses"],
+              f"state_sharding {label}: rank {r} differs from rank 0")
+        for k in KERNELS:
+            counts[k] += ranks[r]["launches"][k]
+    gaps = _dp_compare(f"state_sharding {label}", alone, alone_start, alone_final, ranks[0],
+                       finals[0], exact=False)
+    return {"gaps": gaps, "ranks": [{k: r.get(k) for k in (
+        "rank", "mesh", "per_device_batch", "steps_per_s", "state_bytes", "all_reduce",
+        "launches_per_step")} for r in ranks]}
+
+
+def ss_four(mx, device, alone_run, eager_alone, counts, rank_command=None, backend="nccl"):
+    """(c): four ``backend`` ranks, one card each, as data 2 x model 2 with
+    fsdp: one eager epoch against ``eager_alone`` (``_dp_run``'s (record,
+    start, final) of one process) as (b), then graphs of 8 steps against
+    (a)'s replicated graphed run."""
+    out = os.path.join(ROOT, "build", "chip_smoke", "state_sharding", "four")
+    t0 = time.perf_counter()
+    _spawn_ranks(4, backend, out, (rank_command or [
+        sys.executable, os.path.abspath(__file__), "--ss-rank"]), extra=["graphed"],
+        timeout=SS_RANK_TIMEOUT)
+    eager = _ss_ranks("four_eager", 4, out, *eager_alone, counts)
+    alone, start, end = alone_run
+    ranks, finals = [], []
+    for r in range(4):
+        with open(os.path.join(out, f"four_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+        finals.append(torch.load(os.path.join(out, f"four_rank{r}.pt"), weights_only=True))
+        check(all(torch.equal(finals[r][k], v) for k, v in finals[0].items())
+              and ranks[r]["epoch_losses"] == ranks[0]["epoch_losses"],
+              f"state_sharding four: rank {r} differs from rank 0")
+        check(ranks[r]["launches"] == _expected_launches(ranks[r]),
+              f"state_sharding four rank {r}: launches {ranks[r]['launches']}")
+        for k in KERNELS:
+            counts[k] += ranks[r]["launches"][k]
+    gaps = _loss_gaps(ranks[0], alone, {k: v.cpu() for k, v in start.items()}, finals[0],
+                      {k: v.cpu() for k, v in end.items()})
+    check(max(gaps[k] for k in LOSS_GAP_KINDS) <= DP_RTOL and gaps["move_rel_gap"] <= DP_MOVE_RTOL,
+          f"state_sharding four: beyond {DP_RTOL} / {DP_MOVE_RTOL} of the run alone: {gaps}")
+    shutil.rmtree(out, ignore_errors=True)
+    return {"eager": eager, "gaps": gaps, "spawn_and_train_s": time.perf_counter() - t0,
+            "alone_steps_per_s": alone["steps_per_s"],
+            "ranks": [{k: r.get(k) for k in (
+                "rank", "steps_per_s", "captures", "replays", "state_bytes", "mixture_a_replay",
+                "nccl_in_a_replay", "device_activities_in_a_replay")} for r in ranks]}
+
+
+def _ss_eager_alone(mx, device, counts):
+    """One process on the global batch, eager, ``SS_EPOCHS`` epochs of
+    ``SS_ROWS`` rows: ``_dp_run``'s (record, start, final) that the eager
+    ranks of (b) and (c) are held to; its launches added to ``counts``."""
+    run = _dp_run(mx, SS_GRAPHED[0], SS_ROWS, SS_PER_STEP, DP_BATCH, device, epochs=SS_EPOCHS)
+    for k in KERNELS:
+        counts[k] += run[0]["launches"][k]
+    return run
+
+
+def state_sharding(mx, device="cuda", one_process_backend="nccl", rank_command=None,
+                   four_only=False):
+    """The ``state_sharding`` phase: (a) ``ss_graphed``; (b) two gloo ranks
+    on the one card, spawned (``--ss-rank``), fsdp over data 2 and data 1 x
+    model 2, each against one process on the global batch, with each
+    rank's bytes at rest of parameters and optimizer state beside the one
+    process's; (c) where the machine shows four cards, ``ss_four``.
+    ``four_only`` leaves out (b) and (a)'s fsdp run: (c) and the runs it is
+    held to. Returns (the record, the launches of every run and rank)."""
+    t_phase = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    counts = {k: 0 for k in KERNELS}
+    record = {"phase": "state_sharding", "cards": torch.cuda.device_count()}
+    try:
+        graphed, launches, alone_run = ss_graphed(
+            mx, device, one_process_backend, (False,) if four_only else (False, True))
+        for k in KERNELS:
+            counts[k] += launches[k]
+        if graphed is not None:
+            record["graphed"] = graphed
+            print(json.dumps({"phase": "state_sharding", "graphed": graphed}), flush=True)
+        eager_alone = alone, start, final = _ss_eager_alone(mx, device, counts)
+        if not four_only:
+            out = os.path.join(ROOT, "build", "chip_smoke", "state_sharding", "gloo2")
+            t0 = time.perf_counter()
+            _spawn_ranks(2, "gloo", out, rank_command or [
+                sys.executable, os.path.abspath(__file__), "--ss-rank"], extra=["eager"],
+                timeout=SS_RANK_TIMEOUT)
+            record["gloo2_spawn_and_train_s"] = time.perf_counter() - t0
+            record["alone"] = {k: alone[k] for k in ("steps_per_s", "epoch_losses",
+                                                     "eval_losses", "state_bytes",
+                                                     "launches_per_step")}
+            for label, _ in SS_LAYOUTS:
+                record[label] = _ss_ranks(label, 2, out, alone, start, final, counts)
+                for r in record[label]["ranks"]:
+                    check(r["launches_per_step"]["train"] == {
+                        k: float(SS_PER_STEP.get(k, 0)) for k in KERNELS},
+                        f"state_sharding {label}: a rank's launches a step "
+                        f"{r['launches_per_step']}")
+            shutil.rmtree(out, ignore_errors=True)
+        if torch.cuda.device_count() >= 4:
+            record["four"] = ss_four(mx, device, alone_run, eager_alone, counts, rank_command)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    record["seconds"] = time.perf_counter() - t_phase
+    print(f"  state_sharding: {record['seconds']:.1f} s")
+    return record, counts
+
+
+
 def main():
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4228,6 +4652,9 @@ def main():
         add(counts)
         errs.update(errs_bf16)
         timing.update(timing_bf16)
+        record, counts = state_sharding(mx)
+        print(json.dumps(record))
+        add(counts)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4256,7 +4683,35 @@ def main():
     return 0
 
 
+def four_cards_main():
+    """``--state-sharding-four``: the kernels built, then only the
+    state_sharding phase's four-card run (c) and the graphed run it is held
+    to; prints the card's line, the phase's record and the launches."""
+    if torch.cuda.device_count() < 4:
+        print("chip_smoke: --state-sharding-four needs four cards", file=sys.stderr)
+        return 1
+    from multivae_tpu_torch.ops import cuda_build
+    from multivae_tpu_torch.ops import mixture as mx
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(card_line())
+    cuda_build.build()
+    try:
+        record, counts = state_sharding(mx, four_only=True)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    print(json.dumps(record))
+    print(json.dumps({"launches": counts}))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:
         sys.exit(dp_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--ss-rank"]:
+        sys.exit(ss_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--state-sharding-four"]:
+        sys.exit(four_cards_main())
     sys.exit(main())

@@ -130,12 +130,15 @@ class ShardedDeviceDataCache(DeviceDataCache):
     """This process's block of a row-sharded cache: dataset rows
     ``[start, start + block)`` (zero rows past ``n_rows``, the dataset's
     length), the JAX module's ``PartitionSpec("data")`` placement with one
-    process per card. ``take_rows`` is a collective of every process of
-    the default group."""
+    process per card: over the data axis, replicated over a model axis.
+    ``take_rows`` is a collective of every process of ``group`` (the data
+    axis's; None: the default group), which holds ``n_blocks`` blocks."""
 
     n_rows: int = 0
     start: int = 0
     block: int = 0
+    n_blocks: int = 1
+    group: Optional[object] = None
 
     @staticmethod
     def epoch_plan(loader):
@@ -161,7 +164,7 @@ class ShardedDeviceDataCache(DeviceDataCache):
             return len(leaves) - 1
 
         positions = self._map(take)
-        summed = sum_exact(leaves)
+        summed = sum_exact(leaves, self.group)
         if columns is not None:
             summed = [t.index_select(0, columns) for t in summed]
         data, masks, labels = positions
@@ -174,9 +177,9 @@ class ShardedDeviceDataCache(DeviceDataCache):
         process's block (a collective)."""
         if self.labels is None:
             return None
-        full = self.labels.new_zeros((self.block * dist.get_world_size(), *self.labels.shape[1:]))
+        full = self.labels.new_zeros((self.block * self.n_blocks, *self.labels.shape[1:]))
         full[self.start:self.start + self.block] = self.labels
-        return sum_exact([full])[0][:self.n_rows].cpu()
+        return sum_exact([full], self.group)[0][:self.n_rows].cpu()
 
     def exchange_nbytes(self, batch: int) -> int:
         """The bytes one step's all-reduce sums on each process, for a
@@ -398,7 +401,7 @@ def build_device_cache(dataset, device, budget_bytes: int, chunk: int = 4096,
     (a sharded step is a collective of all of them)."""
     _check_layout(layout)
     device = torch.device(device)
-    n_data = mesh.world_size if mesh is not None and mesh.distributed else 1
+    n_data = mesh.n_data if mesh is not None and mesh.distributed else 1
     try:
         est = estimate_dataset_nbytes(dataset)
     except Exception as e:
@@ -425,7 +428,7 @@ def build_device_cache(dataset, device, budget_bytes: int, chunk: int = 4096,
 
     # the block of ceil(n / N) rows this process materializes, zero past n
     block = -(-n // n_data)
-    lo = min(mesh.rank * block, n)
+    lo = min(mesh.data_index * block, n)
     hi = min(lo + block, n)
     built = _materialize(dataset, device, lo, hi, block, chunk, zero=True)
     if not _all_processes_agree(built is not None, mesh.device):
@@ -438,4 +441,5 @@ def build_device_cache(dataset, device, budget_bytes: int, chunk: int = 4096,
                 "of a row-sharded cache); epochs run with no per-step host transfers.",
                 device, est / 1e9, n, lo, hi)
     return ShardedDeviceDataCache(data=data, masks=masks, labels=labels, incomplete=incomplete,
-                                  n_rows=n, start=mesh.rank * block, block=block)
+                                  n_rows=n, start=mesh.data_index * block, block=block,
+                                  n_blocks=n_data, group=mesh.data_group)

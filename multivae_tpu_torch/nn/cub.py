@@ -73,6 +73,10 @@ class TransformerEncoderLayer(nn.Module):
     """Post-norm encoder layer: x + attention, LayerNorm, x + Dense(ff)
     ReLU Dense(E), LayerNorm."""
 
+    # Linear here, (E, heads, head_dim) and (heads, head_dim, E) kernels in
+    # the JAX package: no permutation of each other
+    JAX_RESHAPED = ("query", "key", "value", "out")
+
     def __init__(self, embed_size: int, nhead: int, ff_size: int, dropout: float = 0.5):
         super().__init__()
         if embed_size % nhead:

@@ -13,19 +13,20 @@ gradients with one collective a step:
   process that is alone, or where a group already exists (a caller may open
   one itself, over gloo on a card for instance).
 - ``get_data_mesh`` describes this process's place in the group and its card
-  (``cuda:<local rank mod the visible cards>``).
+  (``cuda:<local rank mod the visible cards>``): a data axis, and with
+  ``n_model_devices`` K > 1 a model axis of K adjacent ranks (rank r is data
+  index r // K and model index r % K, the JAX layout), with a process group
+  for each axis.
 - ``shard_batch`` takes this process's rows of a global batch.
-- ``GradientReducer`` sums the gradients over the group: a one-byte presence
-  mask first, on the host (a gradient that is None on every rank stays
-  None, one that is None on some ranks only counts as zeros there), then
-  one flat buffer a dtype, one ``all_reduce`` each. Inside a CUDA graph's
-  capture it reuses the mask of its last eager call: a graph replays the
-  parameter set of its capture.
 - ``broadcast_module`` copies rank 0's weights to the other ranks.
-
-The JAX module's FSDP and tensor-parallel sharding specs
-(``fsdp_state_sharding``, ``tp_state_sharding``,
-``combined_state_sharding``) have no counterpart yet (ROADMAP, Queue A).
+- ``combined_state_sharding`` (and its halves ``fsdp_state_sharding`` and
+  ``tp_state_sharding``) gives each leaf of a tree the JAX package's spec:
+  the same rule on the same shapes. ``param_placements`` judges each
+  parameter of a torch model on the leaf as the JAX package shapes it (the
+  axes of ``utils/convert.py``) and gives the spec in the torch axes.
+  ``parallel/state.py`` keeps the train state by these placements and sums
+  the gradients over the group (every leaf whole without ``fsdp`` or a
+  model axis: one flat all-reduce a dtype).
 """
 
 from __future__ import annotations
@@ -33,8 +34,9 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import logging
+import math
 import os
-from typing import List, Optional
+from typing import Optional
 
 import torch
 import torch.distributed as dist
@@ -45,6 +47,8 @@ logger = logging.getLogger(__name__)
 
 # a collective that never finds its partners fails after this long
 DEFAULT_TIMEOUT = datetime.timedelta(minutes=5)
+
+DATA_AXIS, MODEL_AXIS = "data", "model"
 
 ONE_PROCESS_PER_CARD = (
     "The port runs one process per card: launch N processes, with torchrun "
@@ -91,13 +95,20 @@ class DataMesh:
 
     ``distributed`` says whether a process group carries the collectives
     (it may hold one process); ``device`` is this process's card (or the
-    CPU)."""
+    CPU). The ``world_size`` processes form a (data, model) grid of
+    ``n_data`` x ``n_model``: rank r is data index r // n_model and model
+    index r % n_model. ``data_group`` holds the ranks of this model index
+    (None: the default group, where ``n_model`` is 1) and ``model_group``
+    the ranks of this data index (None where ``n_model`` is 1)."""
 
     world_size: int
     rank: int
     local_rank: int
     device: torch.device
     distributed: bool
+    n_model: int = 1
+    data_group: Optional[object] = None
+    model_group: Optional[object] = None
 
     @property
     def is_main_process(self) -> bool:
@@ -107,39 +118,217 @@ class DataMesh:
     def backend(self) -> Optional[str]:
         return dist.get_backend() if self.distributed else None
 
+    @property
+    def n_data(self) -> int:
+        return self.world_size // self.n_model
 
-def get_data_mesh(n_devices: Optional[int] = None, device="cuda") -> DataMesh:
-    """The data mesh of this process: the default group's size and rank, or
-    one process alone. ``n_devices`` counts processes, one card each (None:
-    the group's size); a value the group does not match raises, as does
-    ``n_devices > 1`` without a group. A CUDA ``device`` without an index
-    becomes ``cuda:<local rank mod the visible cards>``, so two ranks on a
-    one-card machine share ``cuda:0``."""
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.n_model
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.n_model
+
+
+def _axis_groups(world: int, n_model: int, rank: int):
+    """(this rank's data group, its model group), made on every rank in the
+    same order: the data groups ``{d * K + k}`` for each model index k, then
+    the model groups ``{d * K .. d * K + K - 1}`` for each data index d."""
+    data = model = None
+    for k in range(n_model):
+        group = dist.new_group(list(range(k, world, n_model)))
+        if rank % n_model == k:
+            data = group
+    for d in range(world // n_model):
+        group = dist.new_group(list(range(d * n_model, (d + 1) * n_model)))
+        if rank // n_model == d:
+            model = group
+    return data, model
+
+
+def get_data_mesh(n_devices: Optional[int] = None, device="cuda",
+                  n_model_devices: int = 1) -> DataMesh:
+    """The mesh of this process: the default group's size and rank, or one
+    process alone. ``n_devices`` counts the data axis, as in the JAX
+    package (None: the group's size over ``n_model_devices``); the group
+    must hold ``n_devices * n_model_devices`` processes, one card each, or
+    this raises, as does a world that ``n_model_devices`` does not divide
+    and ``n_devices`` or ``n_model_devices`` above 1 without a group. A
+    CUDA ``device`` without an index becomes ``cuda:<local rank mod the
+    visible cards>``, so two ranks on a one-card machine share ``cuda:0``."""
     dev = torch.device(device)
+    k = n_model_devices
     if not dist.is_initialized():
-        if n_devices is not None and n_devices > 1:
-            raise ValueError(f"n_devices={n_devices} but no process group exists. "
-                             + ONE_PROCESS_PER_CARD)
+        if (n_devices is not None and n_devices > 1) or k > 1:
+            raise ValueError(f"n_devices={n_devices}, n_model_devices={k} but no process "
+                             "group exists. " + ONE_PROCESS_PER_CARD)
         return DataMesh(1, 0, 0, dev, False)
     world, rank = dist.get_world_size(), dist.get_rank()
-    if n_devices is not None and n_devices != world:
-        raise ValueError(f"n_devices={n_devices} but the process group holds {world} "
-                         "processes. " + ONE_PROCESS_PER_CARD)
+    if world % k:
+        raise ValueError(f"{world} devices do not factor over n_model_devices={k}.")
+    if n_devices is not None and n_devices * k != world:
+        wanted = f"n_devices={n_devices}" + (f" x n_model_devices={k}" if k > 1 else "")
+        raise ValueError(f"{wanted} but the process group holds {world} processes. "
+                         + ONE_PROCESS_PER_CARD)
     local_rank = int(os.environ.get("LOCAL_RANK", rank))
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", local_rank % torch.cuda.device_count())
-    return DataMesh(world, rank, local_rank, dev, True)
+    data_group = model_group = None
+    if k > 1:
+        data_group, model_group = _axis_groups(world, k, rank)
+    return DataMesh(world, rank, local_rank, dev, True, k, data_group, model_group)
+
+
+# ------------------------------------------------------------ the leaf rule
+def _leaf_spec(shape, floating: bool, n_data: int, n_model: int, fsdp: bool,
+               min_size: int, min_dim: int) -> tuple:
+    """The JAX ``combined_state_sharding`` spec of one leaf, as a tuple of
+    axis names or None a dimension (``()``: replicated)."""
+    shape = tuple(shape)
+    if not (len(shape) >= 1 and floating):
+        return ()
+    dims = [None] * len(shape)
+    tp = n_model > 1
+    col_ok = tp and shape[-1] % n_model == 0 and shape[-1] >= min_dim
+    big = fsdp and shape[0] % n_data == 0 and math.prod(shape) >= min_size
+    if len(shape) == 1:
+        # a bias-like leaf follows its kernel's output columns first
+        if col_ok:
+            dims[-1] = MODEL_AXIS
+        elif big:
+            dims[0] = DATA_AXIS
+    else:
+        if big:
+            dims[0] = DATA_AXIS
+        if col_ok and dims[-1] is None:
+            dims[-1] = MODEL_AXIS
+    return () if all(d is None for d in dims) else tuple(dims)
+
+
+def _is_floating(x) -> bool:
+    dtype = getattr(x, "dtype", torch.float32)
+    if isinstance(dtype, torch.dtype):
+        return dtype.is_floating_point
+    import numpy as np
+
+    return bool(np.issubdtype(dtype, np.floating))
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tree(fn, v) for v in tree)
+    return fn(tree)
+
+
+def combined_state_sharding(state, mesh, fsdp: bool = False, min_size: int = 1024,
+                            min_dim: int = 64):
+    """The spec of each leaf of ``state`` (nested dicts, lists or tuples of
+    arrays or tensors, shaped as the JAX package shapes its leaves) on
+    ``mesh`` (``n_data`` x ``n_model``), JAX ``combined_state_sharding``:
+    with ``fsdp``, a float leaf whose first axis ``n_data`` divides and
+    that holds ``min_size`` entries or more is cut on that axis over
+    "data"; on a model axis, a float leaf whose last axis ``n_model``
+    divides and is ``min_dim`` wide or more is cut on it over "model"; a
+    1-D leaf takes the column rule before the fsdp one; integer leaves stay
+    replicated. Each spec is a tuple of "data", "model" or None a
+    dimension, ``()`` for a replicated leaf."""
+    return _map_tree(lambda x: _leaf_spec(
+        getattr(x, "shape", ()), _is_floating(x), mesh.n_data, mesh.n_model, fsdp,
+        min_size, min_dim), state)
+
+
+def fsdp_state_sharding(state, mesh, min_size: int = 1024):
+    """JAX ``fsdp_state_sharding``: the data axis of the rule alone (a leaf
+    cut on its first axis over "data", or replicated)."""
+    return _map_tree(lambda x: _leaf_spec(
+        getattr(x, "shape", ()), _is_floating(x), mesh.n_data, 1, True, min_size, 0), state)
+
+
+def tp_state_sharding(state, mesh, min_dim: int = 64):
+    """JAX ``tp_state_sharding``: the model axis of the rule alone; raises
+    on a mesh without a model axis, as the JAX function does."""
+    if mesh.n_model <= 1:
+        raise ValueError(f"tp_state_sharding needs a mesh with a '{MODEL_AXIS}' axis; "
+                         f"got n_model={mesh.n_model}.")
+    return combined_state_sharding(state, mesh, fsdp=False, min_dim=min_dim)
+
+
+def jax_axes(module: torch.nn.Module, name: str, param: torch.Tensor) -> tuple:
+    """The torch axis of each axis of the JAX leaf that ``module``'s
+    parameter ``name`` converts from (``utils/convert.py``): a Dense kernel
+    (in, out) is a Linear weight (out, in), a conv kernel HWIO an OIHW
+    weight, a ConvTranspose kernel (kh, kw, in, out) an (in, out, kh, kw)
+    weight; every other leaf (biases, norms, embeddings, a model's own
+    parameters) keeps its axes."""
+    if name == "weight" and param.dim() >= 2:
+        for child_of, axes in ((torch.nn.Linear, (1, 0)), (torch.nn.Conv2d, (2, 3, 1, 0)),
+                               (torch.nn.ConvTranspose2d, (2, 3, 0, 1))):
+            if isinstance(module, child_of):
+                return axes
+    return tuple(range(param.dim()))
+
+
+def _reshaped(model: torch.nn.Module) -> dict:
+    """{id: name} of the submodules whose JAX leaves are no permutation of
+    their parameters: those a module lists in ``JAX_RESHAPED`` (the CUB
+    text encoder's attention projections, 3-D kernels in the JAX package)."""
+    out = {}
+    for path, module in model.named_modules():
+        for child in getattr(module, "JAX_RESHAPED", ()):
+            out[id(getattr(module, child))] = f"{path}.{child}" if path else child
+    return out
+
+
+def param_owners(model: torch.nn.Module):
+    """``[(name, parameter, [(module, attribute), ...])]`` in
+    ``named_parameters`` order: every module holding each parameter (a
+    tied parameter has several)."""
+    owners = {}
+    for module in model.modules():
+        for attr, p in module._parameters.items():
+            if p is not None:
+                owners.setdefault(id(p), []).append((module, attr))
+    return [(name, p, owners[id(p)]) for name, p in model.named_parameters()]
+
+
+def param_placements(model: torch.nn.Module, mesh, fsdp: bool = False,
+                     min_size: int = 1024, min_dim: int = 64) -> dict:
+    """``{parameter name: spec in the torch axes}``: each parameter judged by
+    ``combined_state_sharding`` on its JAX leaf's shape (``jax_axes``), the
+    spec's entries put back on the torch axes."""
+    out = {}
+    reshaped = _reshaped(model)
+    for key, p, holders in param_owners(model):
+        module, name = holders[0]
+        if not fsdp and mesh.n_model == 1:   # nothing to cut: every leaf whole
+            out[key] = ()
+            continue
+        if id(module) in reshaped:
+            raise NotImplementedError(
+                f"fsdp / n_model_devices: {reshaped[id(module)]} converts from a reshaped JAX "
+                "leaf, on which the port cannot judge the JAX placement of its parameters.")
+        axes = jax_axes(module, name, p)
+        spec = _leaf_spec([p.shape[a] for a in axes], p.is_floating_point(), mesh.n_data,
+                          mesh.n_model, fsdp, min_size, min_dim)
+        torch_spec = [None] * p.dim()
+        for jax_axis, axis_name in enumerate(spec):
+            torch_spec[axes[jax_axis]] = axis_name
+        out[key] = tuple(torch_spec) if spec else ()
+    return out
 
 
 def shard_batch(batch: MultimodalBatch, mesh: DataMesh) -> MultimodalBatch:
-    """This process's rows of a global batch: the ``rank``-th of
-    ``world_size`` equal blocks."""
+    """This process's rows of a global batch: the ``data_index``-th of
+    ``n_data`` equal blocks (the ranks of a model group take the same)."""
     n = batch.n_samples
-    if n % mesh.world_size:
+    if n % mesh.n_data:
         raise ValueError(f"global batch of {n} rows does not divide over "
-                         f"{mesh.world_size} processes")
-    size = n // mesh.world_size
-    lo = mesh.rank * size
+                         f"{mesh.n_data} processes")
+    size = n // mesh.n_data
+    lo = mesh.data_index * size
 
     def rows(t):
         return None if t is None else t[lo:lo + size]
@@ -155,11 +344,11 @@ def capturing(device) -> bool:
     return torch.device(device).type == "cuda" and torch.cuda.is_current_stream_capturing()
 
 
-def _flat_by_dtype(tensors: List[torch.Tensor]):
-    """{dtype: tensors of that dtype}, in order."""
+def _flat_by_dtype(items, tensor_of=lambda t: t):
+    """{dtype: the items whose tensor (``tensor_of(item)``) has it}, in order."""
     groups = {}
-    for t in tensors:
-        groups.setdefault(t.dtype, []).append(t)
+    for item in items:
+        groups.setdefault(tensor_of(item).dtype, []).append(item)
     return groups
 
 
@@ -174,66 +363,3 @@ def broadcast_module(module: torch.nn.Module, src: int = 0):
             dist.broadcast(flat, src=src)
             torch._foreach_copy_(group, [v.view_as(t) for v, t in zip(
                 flat.split([t.numel() for t in group]), group)])
-
-
-class GradientReducer:
-    """Sums the gradients of ``params`` over the default group, in place.
-
-    Each call makes two collectives: the presence of each gradient (a
-    uint8 mask on the host, MAX-reduced through a gloo group beside an
-    NCCL one, so that nothing waits for the card), then the present
-    gradients in one flat buffer a dtype, SUM-reduced. A gradient None on
-    every rank stays None, so the optimizer skips its parameter as it would
-    in one process; one None on some ranks only joins as zeros there. After
-    the call each present gradient is a view of its flat buffer, which the
-    next call reuses: the trainer sets the gradients to None before each
-    step's backward.
-
-    Inside a CUDA graph's capture (the trainer's chunks under NCCL) the
-    host cannot take part, so the call skips the mask and reuses the one
-    of its last eager call: the eager chunk the trainer runs before every
-    capture (``ChunkGraphs``). A graph replays the parameter set of its
-    capture, and the flat buffers keep their addresses, so each replay
-    sums the gradients of the same parameters into the same memory. A
-    capture with no eager call before it raises."""
-
-    def __init__(self, params, device):
-        self.params = list(params)
-        self.device = torch.device(device)
-        # a collective of every rank: each builds its reducer at once
-        self._mask_group = None if dist.get_backend() == "gloo" else dist.new_group(
-            backend="gloo")
-        self._buffers = {}
-        self._present = None      # the last eager call's, which a capture reuses
-        self.bytes_reduced = 0    # of the last call
-
-    def __call__(self):
-        params = self.params
-        if capturing(self.device):
-            if self._present is None:
-                raise RuntimeError("GradientReducer: a CUDA graph captured the gradient "
-                                   "all-reduce before any eager step took its presence mask")
-            present = self._present
-        else:
-            mask = torch.tensor([p.grad is not None for p in params], dtype=torch.uint8)
-            dist.all_reduce(mask, op=dist.ReduceOp.MAX, group=self._mask_group)
-            present = self._present = [p for p, flag in zip(params, mask.tolist()) if flag]
-        self.bytes_reduced = 0
-        with torch.no_grad():
-            for dtype, group in _flat_by_dtype(present).items():
-                sizes = [p.numel() for p in group]
-                key = tuple(id(p) for p in group)
-                if self._buffers.get(dtype, (None,))[0] != key:
-                    self._buffers[dtype] = (key, torch.empty(
-                        sum(sizes), dtype=dtype, device=self.device))
-                flat = self._buffers[dtype][1]
-                views = [v.view_as(p) for v, p in zip(flat.split(sizes), group)]
-                have = [(v, p.grad) for v, p in zip(views, group) if p.grad is not None]
-                if len(have) < len(group):
-                    flat.zero_()
-                if have:
-                    torch._foreach_copy_([v for v, _ in have], [g for _, g in have])
-                dist.all_reduce(flat, op=dist.ReduceOp.SUM)
-                self.bytes_reduced += flat.numel() * flat.element_size()
-                for v, p in zip(views, group):
-                    p.grad = v

@@ -33,7 +33,10 @@ a data-parallel step, where every method is the identity) for:
 exchange.
 
 This process holds rows ``[rank * b, (rank + 1) * b)`` of the global batch
-of ``world * b`` rows. A draw or a tensor whose batch axis holds ``blocks``
+of ``world * b`` rows. On a (data, model) mesh ``rank`` and ``world`` are
+the data axis's and ``group`` its process group: the ranks of one model
+group hold the same rows, draw the same noise and take no part in each
+other's sums. A draw or a tensor whose batch axis holds ``blocks``
 consecutive blocks of the rows (MHVAE's subsets) keeps its share of each.
 """
 
@@ -62,10 +65,12 @@ def sum_exact(tensors: List[torch.Tensor], group=None) -> List[torch.Tensor]:
 class DataShard:
     """Process ``rank`` of ``world`` in a data-parallel step; ``distributed``
     says whether the collectives run (a group of one process runs them
-    too)."""
+    too), over ``group`` (None: the default group)."""
 
-    def __init__(self, rank: int = 0, world: int = 1, distributed: bool = False):
+    def __init__(self, rank: int = 0, world: int = 1, distributed: bool = False,
+                 group=None):
         self.rank, self.world, self.distributed = rank, world, distributed
+        self.group = group
 
     # ------------------------------------------------------------- reductions
     def total(self, x: torch.Tensor) -> torch.Tensor:
@@ -76,7 +81,7 @@ class DataShard:
         if not self.distributed:
             return x
         total = x.detach().to(torch.promote_types(x.dtype, torch.float32), copy=True)
-        dist.all_reduce(total, op=dist.ReduceOp.SUM)
+        dist.all_reduce(total, op=dist.ReduceOp.SUM, group=self.group)
         return total.to(x.dtype)
 
     def global_mean(self, x: torch.Tensor) -> torch.Tensor:
@@ -86,7 +91,9 @@ class DataShard:
             return x.mean()
         import torch.distributed.nn.functional as dist_fn
 
-        return dist_fn.all_reduce(x.sum(), op=dist.ReduceOp.SUM) / (x.numel() * self.world)
+        group = {} if self.group is None else {"group": self.group}
+        return dist_fn.all_reduce(x.sum(), op=dist.ReduceOp.SUM, **group) / (
+            x.numel() * self.world)
 
     def mean(self, x: torch.Tensor) -> torch.Tensor:
         """This process's share of the mean of ``x`` over the global batch's
@@ -138,7 +145,7 @@ class DataShard:
             return t
         out = t.new_zeros((self.world, *t.shape))
         out[self.rank].copy_(t)
-        return sum_exact([out])[0].reshape(self.world * t.shape[0], *t.shape[1:])
+        return sum_exact([out], self.group)[0].reshape(self.world * t.shape[0], *t.shape[1:])
 
     def draw(self, hook, shape, generator=None, axis: int = -2, blocks: int = 1):
         """``hook(shape, generator)`` drawn at the global batch's shape (the

@@ -102,6 +102,21 @@ captures them. Gloo collectives cannot be captured, so a gloo group on
 CUDA refuses ``steps_per_execution`` > 1; on the CPU the chunks run
 eagerly under gloo.
 
+``fsdp`` and ``n_model_devices`` (JAX ``_state_sharding``): the
+processes form a (data, model) mesh of ``n_devices`` x ``n_model_devices``
+(adjacent ranks on the model axis); the loader, the loss's normalizers and
+draws, the epoch sums and the sharded cache run over the data axis, and
+the parameters are kept by ``combined_state_sharding``'s placements
+(``parallel/state.py``): the masters of the leaves cut over "data" and
+their optimizer state as this rank's piece, gathered inside each step
+(``_gathered``) and their gradients reduce-scattered; the wide Linear and
+convolution layers cut over "model" computing their own output columns.
+The modules hold the masters inside ``train`` only (whole weights, plain,
+before and after it); the keep-best state, checkpoints and the final model
+stay whole weights (collectives of every rank, then rank 0 writes). A graphed chunk under
+NCCL captures the gathers, the reduce-scatter and the model axis's
+collectives with the rest.
+
 ``mixed_precision`` (JAX ``loss_fn`` with ``_to_bf16``): each train step
 runs the model's ``loss_function`` on bfloat16 copies of the float32
 parameters (swapped in for the loss and its backward,
@@ -149,13 +164,9 @@ from ...models.base.base_ae_model import BaseMultiVAE
 from ...models.base.base_model import BaseModel
 from ...models.base.step import StepInfo
 from ...ops.microbatch import microbatched_backward
-from ...parallel.mesh import (
-    GradientReducer,
-    broadcast_module,
-    get_data_mesh,
-    maybe_init_distributed,
-)
+from ...parallel.mesh import broadcast_module, get_data_mesh, maybe_init_distributed
 from ...parallel.shard import DataShard
+from ...parallel.state import ShardedState
 from ...utils.device import resolve_device
 from .base_trainer_config import BaseTrainerConfig
 from .callbacks import (
@@ -211,10 +222,11 @@ class BaseTrainer:
         self.device = resolve_device(device)
         maybe_init_distributed(cfg.coordinator_address, cfg.num_processes,
                                cfg.process_id, device=self.device)
-        self.mesh = get_data_mesh(cfg.n_devices, self.device)
+        self.mesh = get_data_mesh(cfg.n_devices, self.device, cfg.n_model_devices)
         self.device = self.mesh.device
         self.is_main_process = self.mesh.is_main_process
-        world, rank = self.mesh.world_size, self.mesh.rank
+        # the data axis: the ranks of one model group take the same rows
+        world, rank = self.mesh.n_data, self.mesh.data_index
         if self.mesh.distributed:
             self._check_data_parallel(cfg)
             if self.device.type == "cuda":
@@ -257,13 +269,16 @@ class BaseTrainer:
                     f"microbatch_steps={cfg.microbatch_steps}: each process "
                     "takes its share of every chunk.")
 
-        # data parallelism: the model's view of the global batch, the
-        # gradients' all-reduce and rank 0's weights on every rank
-        self._shard = self._reducer = None
+        # data parallelism: the model's view of the global batch, rank 0's
+        # weights on every rank and the state kept by its placements (with
+        # neither fsdp nor a model axis, whole), whose call reduces the
+        # gradients over the group
+        self._shard = self._reducer = self._state = None
         if self.mesh.distributed:
-            self._shard = DataShard(rank, world, distributed=True)
-            self._reducer = GradientReducer(self.model.parameters(), self.device)
+            self._shard = DataShard(rank, world, distributed=True, group=self.mesh.data_group)
             broadcast_module(self.model)
+        if self.mesh.distributed or cfg.fsdp or cfg.n_model_devices > 1:
+            self._state = self._reducer = ShardedState(self.model, self.mesh, fsdp=cfg.fsdp)
 
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         # one generator for every eval pass, seeded anew each epoch, so that
@@ -364,7 +379,7 @@ class BaseTrainer:
         try:
             batch = next(iter(self.train_loader)).to(self.device)
             generator = torch.Generator(device=self.device).manual_seed(0)
-            with torch.no_grad():
+            with torch.no_grad(), self._gathered(grad=False):
                 self.model.loss_function(batch, StepInfo(), generator=generator)
         except Exception as e:
             raise ValueError(
@@ -379,13 +394,26 @@ class BaseTrainer:
         parameters; capturable where the steps run as CUDA graphs. Drops
         the graphs of the optimizer before."""
         cfg = self.training_config
-        self.optimizer = make_optimizer(cfg.optimizer_cls, self.model.parameters(),
+        params = self._state.masters() if self._state is not None else self.model.parameters()
+        self.optimizer = make_optimizer(cfg.optimizer_cls, params,
                                         cfg.learning_rate, cfg.optimizer_params)
         self.scheduler = make_scheduler(cfg.scheduler_cls, self.optimizer,
                                         cfg.scheduler_params)
         if self._graphed:
             make_capturable(self.optimizer)
         self._drop_graphs()
+
+    @property
+    def _sharded(self) -> bool:
+        """Do the modules hold the masters of a ``ShardedState``?"""
+        return self._state is not None and self._state.active
+
+    def _gathered(self, grad: bool = True):
+        """Where a step's loss (and backward) runs: with the cut leaves
+        gathered under ``fsdp`` or a model axis."""
+        if self._sharded:
+            return self._state.gathered(grad)
+        return contextlib.nullcontext()
 
     @property
     def _graphed(self) -> bool:
@@ -465,7 +493,7 @@ class BaseTrainer:
                             dataset_size=dataset_size)
             if train:
                 self.optimizer.zero_grad(set_to_none=True)
-                with self.model.sharded(self._shard):
+                with self.model.sharded(self._shard), self._gathered():
                     out = microbatched_backward(
                         lambda chunk: self._train_loss(chunk, info, generator),
                         batch, n_micro, self._train_context)
@@ -474,7 +502,7 @@ class BaseTrainer:
                 self.optimizer.step()
                 self.callback_handler.on_train_step_end(self.training_config)
             else:
-                with self.model.sharded(self._shard):
+                with self.model.sharded(self._shard), self._gathered(grad=False):
                     out = self.model.loss_function(batch, info, generator=generator)
                 self.callback_handler.on_eval_step_end(self.training_config)
             sums["loss_sum"] += out["loss_sum"].detach()
@@ -536,7 +564,7 @@ class BaseTrainer:
                 # allocates each gradient from the graph's pool, where every
                 # replay writes it again
                 self.optimizer.zero_grad(set_to_none=True)
-                with self.model.sharded(self._shard):
+                with self.model.sharded(self._shard), self._gathered():
                     out = microbatched_backward(
                         lambda part: self._train_loss(part, info, generator),
                         batch, self.training_config.microbatch_steps, self._train_context)
@@ -544,7 +572,7 @@ class BaseTrainer:
                     self._reducer()
                 self.optimizer.step()
             else:
-                with self.model.sharded(self._shard):
+                with self.model.sharded(self._shard), self._gathered(grad=False):
                     out = self.model.loss_function(batch, info, generator=generator)
             values = {"loss_sum": out["loss_sum"], **out.get("metrics", {})}
             for k, v in values.items():
@@ -574,8 +602,8 @@ class BaseTrainer:
         chunks' buffers may be zeroed for the next epoch; under a process
         group, summed over it (each rank's sums are its shares)."""
         vec = torch.stack([v.double() for v in sums.values()])
-        if self.mesh.distributed:
-            torch.distributed.all_reduce(vec)
+        if self.mesh.distributed:   # over the data axis: a model group's ranks agree
+            torch.distributed.all_reduce(vec, group=self.mesh.data_group)
         return vec, list(sums)
 
     @staticmethod
@@ -604,6 +632,10 @@ class BaseTrainer:
         return epoch_loss, metrics
 
     def _snapshot(self) -> dict:
+        """The live weights, whole (under ``fsdp`` or a model axis a
+        collective of every rank)."""
+        if self._sharded:
+            return self._state.whole_state_dict()
         return {k: v.detach().clone() for k, v in self.model.state_dict().items()}
 
     def _finalize_epoch(self, epoch, train_loss, train_metrics, eval_loss,
@@ -646,9 +678,13 @@ class BaseTrainer:
             self._best_state = snapshot()
             logger.info("New best model on train saved!")
 
-        if cfg.steps_predict is not None and (epoch % cfg.steps_predict == 0
-                                              or epoch == 1) and self.is_main_process:
-            reconstructions = self.predict(epoch)
+        predicting = cfg.steps_predict is not None and (epoch % cfg.steps_predict == 0
+                                                        or epoch == 1)
+        # the grids are rank 0's: the live weights it may need whole first
+        live = (self._snapshot() if predicting and self._sharded and self._best_state is None
+                else None)
+        if predicting and self.is_main_process:
+            reconstructions = self._predict(epoch, live=live)
             self.callback_handler.on_prediction_step(
                 cfg, reconstructions=reconstructions, global_step=epoch)
             for key, image in reconstructions.items():
@@ -691,6 +727,8 @@ class BaseTrainer:
             logger.info("Successfully launched training !\n")
         pipelined = self._pipeline_epochs_eligible()
         pending = []
+        if self._state is not None:   # the modules' weights cut into the masters
+            self._state.reshard()
         try:
             for epoch in range(self.trained_epochs + 1, cfg.num_epochs + 1):
                 self.callback_handler.on_epoch_begin(
@@ -722,6 +760,8 @@ class BaseTrainer:
             if pending:
                 self._finalize_pending(pending)
         finally:
+            if self._state is not None:   # the live weights whole in the modules again
+                self._state.unshard()
             if self._file_logger is not None:
                 # another trainer of this process must not write to this file
                 self._file_logger.removeHandler(handler)
@@ -804,7 +844,7 @@ class BaseTrainer:
         else:   # no eval loss: no later epoch beats the best
             return
         cand = self._candidate
-        live = self.model.state_dict()
+        live = self._state.whole_state_dict() if self._sharded else self.model.state_dict()
         if cand["state"] is None:
             cand["state"] = {k: torch.empty_like(v) for k, v in live.items()}
         if tracked is None:
@@ -884,8 +924,12 @@ class BaseTrainer:
     # ---------------------------------------------------------- kept weights
     def _restore_best(self):
         """Load the kept weights into the model (none kept: keep the live
-        ones)."""
-        if self._best_state is not None:
+        ones); under ``fsdp`` or a model axis into the masters."""
+        if self._best_state is None:
+            return
+        if self._sharded:
+            self._state.load_whole(self._best_state)
+        else:
             self.model.load_state_dict(self._best_state)
 
     @property
@@ -895,9 +939,17 @@ class BaseTrainer:
         return self.model
 
     @contextlib.contextmanager
-    def _with_best_weights(self):
+    def _with_best_weights(self, live=None):
         """The kept weights in the model inside the block, the live ones
-        again after it."""
+        again after it. Under ``fsdp`` or a model axis, the whole kept
+        weights (else ``live``, else the live ones gathered) in plain
+        modules."""
+        if self._sharded:
+            state = self._best_state if self._best_state is not None else live
+            with self._state.whole_weights(state if state is not None
+                                           else self._snapshot()):
+                yield
+            return
         if self._best_state is None:
             yield
             return
@@ -921,20 +973,24 @@ class BaseTrainer:
         weights, the optimizer's, scheduler's and training generator's
         states, the training config and the loop's counters. Rank 0 writes
         it; every rank leaves when it is on disk."""
+        # whole, as a replicated run writes them
+        live = self._state.whole_state_dict() if self._sharded else None
+        optimizer = (self._state.optimizer_state_whole(self.optimizer)
+                     if self._state is not None else None)
         if self.is_main_process:
-            self._write_checkpoint(dir_path, epoch)
+            self._write_checkpoint(dir_path, epoch, live, optimizer)
         self._barrier()
 
-    def _write_checkpoint(self, dir_path: str, epoch: int):
+    def _write_checkpoint(self, dir_path: str, epoch: int, live=None, optimizer=None):
         checkpoint_dir = os.path.join(dir_path, f"checkpoint_epoch_{epoch}")
         os.makedirs(checkpoint_dir, exist_ok=True)
-        torch.save(self.optimizer.state_dict(),
+        torch.save(optimizer if optimizer is not None else self.optimizer.state_dict(),
                    os.path.join(checkpoint_dir, "optimizer.pt"))
         # The model files hold the kept weights, which are not those
         # training goes on from whenever the loss is not monotonic: the live
         # weights and the generator's state ride beside them, so a resume
         # repeats the uninterrupted run.
-        torch.save(self.model.state_dict(),
+        torch.save(live if live is not None else self.model.state_dict(),
                    os.path.join(checkpoint_dir, "live_params.pt"))
         torch.save(self.generator.get_state(),
                    os.path.join(checkpoint_dir, "generator.pt"))
@@ -942,7 +998,8 @@ class BaseTrainer:
             with open(os.path.join(checkpoint_dir, "scheduler.json"), "w") as f:
                 # a capturable optimizer's rates are 0-d tensors
                 json.dump(self.scheduler.state_dict(), f, default=_tensor_item)
-        self.model.save(checkpoint_dir, state_dict=self._best_state)
+        self.model.save(checkpoint_dir, state_dict=self._best_state if self._best_state is not None
+                        else live)
         self.training_config.save_json(checkpoint_dir, "training_config")
         info = dict(training_dir=self.training_dir, trained_epochs=epoch,
                     best_train_loss=self.best_train_loss,
@@ -966,8 +1023,17 @@ class BaseTrainer:
         self.best_eval_loss = info["best_eval_loss"]
 
         self._best_state = self._load(checkpoint_dir, "model.pt")
-        self.model.load_state_dict(self._load(checkpoint_dir, "live_params.pt"))
-        self.optimizer.load_state_dict(self._load(checkpoint_dir, "optimizer.pt"))
+        live, optimizer = (self._load(checkpoint_dir, name)
+                           for name in ("live_params.pt", "optimizer.pt"))
+        # whole files, either layout's: cut into the masters where they are used
+        if self._sharded:
+            self._state.load_whole(live)
+        else:
+            self.model.load_state_dict(live)
+        if self._state is not None:
+            self._state.load_optimizer_whole(self.optimizer, optimizer)
+        else:
+            self.optimizer.load_state_dict(optimizer)
         sch_path = os.path.join(checkpoint_dir, "scheduler.json")
         if self.scheduler is not None and os.path.exists(sch_path):
             with open(sch_path) as f:
@@ -988,13 +1054,20 @@ class BaseTrainer:
         self._drop_graphs()
 
     # ----------------------------------------------------------- prediction
-    @torch.no_grad()
     def predict(self, epoch: int = 0, n_data: int = 8) -> dict:
         """Reconstruction grids of the first ``n_data`` rows of the eval set
         (else the train set) with the kept weights, each an (H, W, 3) uint8
         array: from each modality and from all of them (8 draws each), or
         for a conditional model (CVAE) its main modality from all. The
-        draws come from a generator seeded with the training seed."""
+        draws come from a generator seeded with the training seed. Under
+        ``fsdp`` or a model axis without kept weights, a collective of every
+        rank."""
+        return self._predict(epoch, n_data)
+
+    @torch.no_grad()
+    def _predict(self, epoch: int = 0, n_data: int = 8, live=None) -> dict:
+        """``predict``, with ``live`` the whole live weights where they were
+        gathered already (the grids of rank 0 alone)."""
         predict_dataset = (self.eval_dataset if self.eval_dataset is not None
                            else self.train_dataset)
         raw = predict_dataset.get_batch(np.arange(min(n_data, len(predict_dataset))))
@@ -1015,7 +1088,7 @@ class BaseTrainer:
         if not isinstance(model, BaseMultiVAE):
             if hasattr(model, "main_modality"):
                 main = model.main_modality
-                with self._with_best_weights():
+                with self._with_best_weights(live):
                     recon = model.predict(batch, cond_mod="all", N=8, flatten=True,
                                           generator=generator)
                 grids, _ = adapt_shape({main: plot(recon[main], main),
@@ -1023,7 +1096,7 @@ class BaseTrainer:
                 all_recons["all"] = grid([grids["true_data"], grids[main]])
             return all_recons
 
-        with self._with_best_weights():
+        with self._with_best_weights(live):
             for mod in inputs_data:
                 recon = model.predict(batch, mod, "all", N=8, flatten=True,
                                       generator=generator, ignore_incomplete=True)

@@ -3,17 +3,17 @@
 
 Keeps the JAX package's field names for the options the port implements:
 the device cache's three, ``steps_per_execution`` (CUDA graphs of the
-cached step on the card), the pipelined finalization's two and data
+cached step on the card), the pipelined finalization's two, data
 parallelism's four (``n_devices``, ``coordinator_address``,
 ``num_processes``, ``process_id``: one process per card over a
-``torch.distributed`` group, ``parallel/mesh.py``) and bfloat16's
+``torch.distributed`` group, ``parallel/mesh.py``), the state's sharding
+(``fsdp``, ``n_model_devices``: ``parallel/state.py``) and bfloat16's
 ``mixed_precision`` (the trainer's ``_train_loss``). The JAX package's
 other fields load at their defaults, so that a ``training_config.json``
-it saved loads unedited: ``fsdp`` (False), ``n_model_devices`` (1),
-``checkpoint_backend`` ("msgpack", the port's torch files) and
+it saved loads unedited: ``checkpoint_backend`` ("msgpack", the port's
+torch files; "orbax" raises ``NotImplementedError``) and
 ``async_checkpointing`` (kept without effect: it acts with orbax only).
-Another value raises ``NotImplementedError``. Optimizer and scheduler
-specs are validated eagerly.
+Optimizer and scheduler specs are validated eagerly.
 """
 
 from __future__ import annotations
@@ -86,9 +86,16 @@ class BaseTrainerConfig(BaseConfig):
         pipeline_depth: the most epochs finalization may lag; each keeps a
             copy of the weights on the device until then where best-model
             tracking may keep them.
-        n_devices: the number of processes of data-parallel training, one
-            card each (None: the process group's size, 1 without one). A
-            value the group does not match raises.
+        n_devices: the size of the data axis, one process and card each
+            (None: the process group's size over ``n_model_devices``, 1
+            without one); the group must hold ``n_devices x
+            n_model_devices`` processes, or this raises.
+        fsdp: keep each large float parameter and its optimizer state as
+            this process's 1/``n_devices`` piece (the JAX rule's leaves),
+            gathered for each step, the gradients reduce-scattered.
+        n_model_devices: the size of the model axis: adjacent ranks compute
+            the output columns of each wide Linear and convolution (the JAX
+            rule's leaves) and gather the activations.
         coordinator_address / num_processes / process_id: open the process
             group at ``host:port`` with this many processes, this one being
             ``process_id``; unset, a group opened by the caller or by
@@ -144,15 +151,6 @@ class BaseTrainerConfig(BaseConfig):
                 "n_model_devices must be a positive integer, got "
                 f"{self.n_model_devices}."
             )
-        if self.fsdp:
-            raise NotImplementedError(
-                "fsdp=True: parameter and optimizer-state sharding is not ported yet "
-                "(ROADMAP, Queue A, item 5: fsdp). Use fsdp=False: each process keeps "
-                "a whole replica.")
-        if self.n_model_devices > 1:
-            raise NotImplementedError(
-                f"n_model_devices={self.n_model_devices}: the model axis is not ported "
-                "yet (ROADMAP, Queue A, item 6: n_model_devices). Use n_model_devices=1.")
         if self.checkpoint_backend == "orbax":
             raise NotImplementedError(
                 "checkpoint_backend='orbax': the port has no orbax checkpoints (a limit "

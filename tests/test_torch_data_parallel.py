@@ -405,10 +405,14 @@ def test_n_devices_above_one_without_a_group_raises(tmp_path):
 
 
 def test_a_jax_training_config_with_the_parallel_fields_loads(tmp_path):
-    """``n_devices``, ``coordinator_address``, ``num_processes`` and
-    ``process_id`` of a JAX ``training_config.json`` load with their
-    values, the file unedited (``n_model_devices`` and ``fsdp`` at their
-    defaults); a model axis is still refused, naming its ROADMAP item."""
+    """``n_devices``, ``coordinator_address``, ``num_processes``,
+    ``process_id``, ``fsdp`` and ``n_model_devices`` of a JAX
+    ``training_config.json`` load with their values, the file unedited.
+    ``n_devices`` counts the data axis, as in the JAX package: with
+    ``n_model_devices=2`` a trainer needs a group of ``n_devices x 2``
+    processes, and in one process it raises naming both; with ``fsdp``
+    alone one process builds a trainer whose state is cut (over a data axis
+    of one)."""
     JTrainerConfig(output_dir="out", n_devices=4, coordinator_address="10.0.0.1:1234",
                    num_processes=2, process_id=1).save_json(str(tmp_path), "training_config")
     with open(tmp_path / "training_config.json") as f:
@@ -418,8 +422,16 @@ def test_a_jax_training_config_with_the_parallel_fields_loads(tmp_path):
     assert (cfg.n_devices, cfg.coordinator_address, cfg.num_processes, cfg.process_id) == (
         4, "10.0.0.1:1234", 2, 1)
     assert (cfg.n_model_devices, cfg.fsdp) == (1, False)
-    with pytest.raises(NotImplementedError, match="n_model_devices=2.*item 6"):
-        BaseTrainerConfig.from_dict(dict(saved, n_model_devices=2))
+    JTrainerConfig(output_dir="out", n_devices=2, n_model_devices=2, fsdp=True).save_json(
+        str(tmp_path / "2x2"), "training_config")
+    both = BaseTrainerConfig.from_json_file(str(tmp_path / "2x2" / "training_config.json"))
+    assert (both.n_devices, both.n_model_devices, both.fsdp) == (2, 2, True)
+    with pytest.raises(ValueError, match="n_devices=2, n_model_devices=2 but no process group"):
+        cases.trainer_of("MVTCAE", str(tmp_path / "run"), n_devices=2, n_model_devices=2,
+                         fsdp=True)
+    trainer = cases.trainer_of("MVTCAE", str(tmp_path / "run"), n_devices=1, fsdp=True)
+    assert (trainer.mesh.n_data, trainer.mesh.n_model) == (1, 1)
+    assert trainer._reducer is trainer._state and not trainer._state.active
 
 
 def test_the_workers_end_cleanly(workers):

@@ -355,9 +355,12 @@ def test_a_jax_training_config_with_the_cache_fields_loads(tmp_path):
     with them ``steps_per_execution``, ``pipeline_epochs``,
     ``pipeline_depth`` and ``mixed_precision``; the file loads unedited,
     its TPU fields at their defaults too, as does one saved by the JAX
-    ``BaseTrainerConfig()``; ``fsdp=True``, ``n_model_devices=2`` and
-    ``checkpoint_backend="orbax"`` raise ``NotImplementedError`` naming
-    the way out."""
+    ``BaseTrainerConfig()``. With ``fsdp=True`` it builds a trainer (one
+    process, a data axis of one) that trains as the replicated one does,
+    bit for bit; ``n_model_devices=2`` loads, and
+    building a trainer from it in one process raises for the missing group;
+    ``checkpoint_backend="orbax"`` raises ``NotImplementedError`` naming the
+    way out."""
     JTrainerConfig(output_dir="out", n_devices=1, cache_on_device=True,
                    device_cache_budget_gb=2.5, device_cache_layout="sharded",
                    steps_per_execution=4, pipeline_depth=3,
@@ -382,11 +385,29 @@ def test_a_jax_training_config_with_the_cache_fields_loads(tmp_path):
     assert defaults.to_dict() == BaseTrainerConfig().to_dict()
     assert BaseTrainerConfig.from_dict(dict(saved, async_checkpointing=False)).async_checkpointing \
         is False
-    for field, value, way_out in (("fsdp", True, "item 5"), ("n_model_devices", 2, "item 6"),
-                                  ("checkpoint_backend", "orbax", "checkpoint_backend='msgpack'")):
-        with pytest.raises(NotImplementedError, match=field) as refused:
-            BaseTrainerConfig.from_dict(dict(saved, **{field: value}))
-        assert way_out in str(refused.value)
+    runs = {}
+    for fsdp in (False, True):
+        config = BaseTrainerConfig.from_dict(dict(
+            saved, fsdp=fsdp, output_dir=str(tmp_path / f"fsdp_{fsdp}"),
+            **_common(num_epochs=2)))
+        assert config.fsdp is fsdp
+        train_set, eval_set = _sets()
+        trainer = BaseTrainer(_models()[1], train_set, eval_set, device="cpu",
+                              training_config=config)
+        assert (trainer._state is not None) is fsdp
+        if fsdp:   # every leaf judged by the JAX rule (this model's are too small to cut)
+            assert set(trainer._state.placements) == {
+                name for name, _ in trainer.model.named_parameters()}
+        trainer.train()
+        runs[fsdp] = trainer
+    _assert_same_run(runs[True], runs[False])
+    model_axis = BaseTrainerConfig.from_dict(dict(saved, n_model_devices=2))
+    assert model_axis.n_model_devices == 2
+    with pytest.raises(ValueError, match="n_model_devices=2 but no process group"):
+        BaseTrainer(_models()[1], *_sets(), device="cpu", training_config=model_axis)
+    with pytest.raises(NotImplementedError, match="checkpoint_backend") as refused:
+        BaseTrainerConfig.from_dict(dict(saved, checkpoint_backend="orbax"))
+    assert "checkpoint_backend='msgpack'" in str(refused.value)
     # the JAX package's own checks, with its messages
     with pytest.raises(AttributeError, match="checkpoint_backend must be"):
         BaseTrainerConfig(checkpoint_backend="pickle")

@@ -228,13 +228,19 @@ def refusal_case(outdir: str) -> dict:
 def reducer_case(outdir: str) -> dict:
     """The gradient all-reduce where gradients are None on some ranks only:
     three weights of 3 entries, ``a`` in every rank's loss, ``b`` in rank
-    0's only, ``c`` in none. Saves each rank's gradients after the
-    reducer (None where absent) and the bytes it reduced."""
-    from multivae_tpu_torch.parallel import GradientReducer
+    0's only, ``c`` in none, reduced by the trainer's reducer of a
+    replicated run (the whole state of a module holding them). Saves each
+    rank's gradients after the reducer (None where absent) and the bytes it
+    reduced."""
+    from multivae_tpu_torch.parallel import ShardedState, get_data_mesh
 
     rank = dist.get_rank()
-    a, b, c = (torch.nn.Parameter(torch.arange(3.0) + i) for i in range(3))
-    reducer = GradientReducer([a, b, c], "cpu")
+    module = torch.nn.Module()
+    for i, name in enumerate("abc"):
+        module.register_parameter(name, torch.nn.Parameter(torch.arange(3.0) + i))
+    a, b, c = module.a, module.b, module.c
+    reducer = ShardedState(module, get_data_mesh(None, "cpu"), fsdp=False)
+    assert not reducer.cuts and all(m is p for m, p in zip(reducer.masters(), (a, b, c)))
     loss = (a * (rank + 1)).sum() + ((b ** 2).sum() if rank == 0 else 0.0)
     loss.backward()
     reducer()

@@ -1,0 +1,276 @@
+"""The cases of ``test_torch_state_sharding.py``, run by its gloo worker
+processes (``torch_dp_worker.py --cases torch_state_sharding_cases``): a
+group of two ranks and a group of four, started together; and, for the
+one-process references, by the test process. Importing this module imports
+no JAX.
+
+Two ranks (data 2, or data 1 x model 2):
+
+- ``optimizers``: MVTCAE of ``torch_dp_cases`` (three tiny modalities,
+  default nets) trained with ``fsdp`` off and on under every optimizer of
+  ``OPTIMIZERS``: the histories, whole weights and whole optimizer states,
+  and each run's bytes at rest.
+- ``fsdp_conv`` / ``tp_conv``: ``conv_mmvae`` (two PolyMNIST-shaped
+  modalities, the conv nets, DReG) with ``fsdp`` over data 2, and over
+  data 1 x model 2 (every conv and dense layer of 64 output channels or
+  more computes its own columns).
+- ``tp_mvtcae``: the JAX ``test_tp_loss_matches_single_device`` model (two
+  modalities of 2 and 3 features, latent 4) over model 2, with rank 0's
+  prediction grids (whole weights, plain forwards, on rank 0 alone).
+- ``fsdp_bf16``: MVTCAE's ``mixed_precision`` run, replicated and with
+  ``fsdp``, and the masters' and moments' dtypes.
+- ``fsdp_checkpoint``: MVTCAE under ``fsdp`` for 3 epochs with a checkpoint
+  and the grids each epoch, and resumed from epoch 2's under ``fsdp`` (the test also
+  resumes it in one process).
+- ``fsdp_chunked``: MMVAE on the device cache under ``fsdp``, step by step
+  and at ``steps_per_execution`` 3.
+- ``fsdp_telbo``: TELBO through the ``MultistageTrainer`` (an optimizer
+  reset and frozen groups in stage 2), replicated and with ``fsdp``.
+- ``fsdp_microbatch``: MMVAE at ``microbatch_steps=2``, replicated and
+  with ``fsdp``.
+
+Four ranks (data 2 x model 2):
+
+- ``both``: the JAX ``test_tp_composes_with_fsdp`` model (latent 8) with
+  ``fsdp``.
+- ``cache_2x2``: the ``"sharded"`` device cache: each rank's block, its
+  batches of one epoch, and MVTCAE trained from it with ``fsdp``.
+"""
+
+import copy
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+import torch_dp_cases as cases
+from multivae_tpu_torch.data import MultimodalBaseDataset
+from multivae_tpu_torch.models import MMVAE, MVTCAE, MMVAEConfig, MVTCAEConfig
+from multivae_tpu_torch.nn import BaseAEConfig
+from multivae_tpu_torch.nn.mmnist import DecoderConvMMNIST, EncoderConvMMNIST_adapted
+from multivae_tpu_torch.parallel.state import state_nbytes
+from multivae_tpu_torch.trainers import BaseTrainer, BaseTrainerConfig
+
+# every optimizer of trainers/base/optim.py, the OptaxRule ones among them
+OPTIMIZERS = {
+    "Adam": ("Adam", None), "AdamW": ("AdamW", None),
+    "amsgrad": ("Adam", {"amsgrad": True}), "eps_root": ("Adam", {"eps_root": 1e-8}),
+    "Adagrad": ("Adagrad", None), "Adadelta": ("Adadelta", None),
+    "SGD": ("SGD", {"momentum": 0.9, "nesterov": True}),
+    "RMSprop": ("RMSprop", {"momentum": 0.5, "centered": True}),
+    "Adamax": ("Adamax", None), "RAdam": ("RAdam", None),
+}
+# conv_mmvae: two PolyMNIST-shaped modalities at latent CONV_LATENT
+CONV_DIMS = {"m0": (3, 28, 28), "m1": (3, 28, 28)}
+CONV_LATENT, CONV_TRAIN, CONV_EVAL = 16, 16, 8
+# the JAX tensor-parallel tests' model: two modalities of 2 and 3 features
+TP_DIMS = {"mod1": (2,), "mod2": (3,)}
+TP_ROWS = 48
+
+
+def tp_data():
+    rng = np.random.default_rng(3)
+    return MultimodalBaseDataset({m: rng.uniform(size=(TP_ROWS, *d)).astype(np.float32)
+                                  for m, d in TP_DIMS.items()})
+
+
+def tp_model(latent: int, seed: int):
+    torch.manual_seed(seed)
+    return MVTCAE(MVTCAEConfig(n_modalities=2, latent_dim=latent, input_dims=TP_DIMS),
+                  device="cpu")
+
+
+def conv_data():
+    rng = np.random.default_rng(4)
+    return [MultimodalBaseDataset({m: rng.uniform(size=(n, *d)).astype(np.float32)
+                                   for m, d in CONV_DIMS.items()})
+            for n in (CONV_TRAIN, CONV_EVAL)]
+
+
+def conv_mmvae():
+    torch.manual_seed(2)
+    cfg = BaseAEConfig(latent_dim=CONV_LATENT, input_dim=(3, 28, 28))
+    return MMVAE(MMVAEConfig(n_modalities=2, latent_dim=CONV_LATENT, input_dims=CONV_DIMS,
+                             K=2, loss="dreg_looser"),
+                 encoders={m: EncoderConvMMNIST_adapted(cfg) for m in CONV_DIMS},
+                 decoders={m: DecoderConvMMNIST(cfg) for m in CONV_DIMS}, device="cpu")
+
+
+def config(outdir, name, **kw):
+    base = dict(output_dir=os.path.join(outdir, name), num_epochs=2, learning_rate=1e-3,
+                seed=5, optimizer_cls="SGD", optimizer_params={"momentum": 0.9})
+    base.update(kw)
+    return BaseTrainerConfig(**base)
+
+
+def result(trainer) -> dict:
+    """The history, the whole weights (live and kept), the whole optimizer
+    state and this rank's bytes at rest of every parameter and its
+    optimizer state, with those of the cut leaves alone."""
+    state = trainer._state
+    out = dict(history=trainer.history, best=trainer._best_state,
+               live={k: v.detach().clone() for k, v in trainer.model.state_dict().items()},
+               world=trainer.mesh.world_size, n_data=trainer.mesh.n_data,
+               n_model=trainer.mesh.n_model)
+    # copies: a state_dict holds the live state tensors
+    if state is None:
+        out["optimizer"] = copy.deepcopy(trainer.optimizer.state_dict())
+        out["nbytes"] = state_nbytes(trainer.model.parameters(), trainer.optimizer)
+        return out
+    out["optimizer"] = copy.deepcopy(state.optimizer_state_whole(trainer.optimizer))
+    out["nbytes"] = state.nbytes(trainer.optimizer)["params_and_optimizer"]
+    out["cut"] = {leaf.name: (tuple(leaf.master.shape), leaf.master.dtype,
+                              sorted({v.dtype for v in trainer.optimizer.state.get(
+                                  leaf.master, {}).values() if isinstance(v, torch.Tensor)
+                                  and v.dim()}, key=str))
+                  for leaf in state.leaves if leaf.cut}
+    out["placements"] = state.placements
+    return out
+
+
+def replicated_nbytes(res: dict, names) -> int:
+    """Bytes of the ``names`` leaves and their optimizer state in a
+    replicated run's result."""
+    keys = list(res["live"])
+    index = {k: i for i, k in enumerate(keys)}
+    total = sum(res["live"][k].numel() * res["live"][k].element_size() for k in names)
+    for k in names:
+        for v in res["optimizer"]["state"].get(index[k], {}).values():
+            if isinstance(v, torch.Tensor) and v.dim():
+                total += v.numel() * v.element_size()
+    return total
+
+
+def train(trainer):
+    trainer.train()
+    return result(trainer)
+
+
+# --------------------------------------------------------------- two ranks
+def optimizers_case(outdir):
+    out = {}
+    for name, (cls, params) in OPTIMIZERS.items():
+        for fsdp in (False, True):
+            trainer = cases.trainer_of("MVTCAE", os.path.join(outdir, f"opt_{name}_{fsdp}"),
+                                       fsdp=fsdp, optimizer_cls=cls, optimizer_params=params,
+                                       scheduler_cls=None, scheduler_params=None)
+            out[(name, fsdp)] = train(trainer)
+    return out
+
+
+# SGD at a rate the conv model's first steps stay stable at (its loss of
+# ~5e3 sums over 2 x 2,352 pixels: at 1e-3 one step raises it a hundredfold,
+# and the float32 noise of the gradients with it)
+CONV_LR = 1e-5
+
+
+def conv_trainer(outdir, name, **kw):
+    train_set, eval_set = conv_data()
+    per_device = 8 // kw.get("n_devices", 1)
+    return BaseTrainer(conv_mmvae(), train_set, eval_set, device="cpu",
+                       training_config=config(outdir, name, num_epochs=2, learning_rate=CONV_LR,
+                                              per_device_train_batch_size=per_device,
+                                              per_device_eval_batch_size=per_device, **kw))
+
+
+def conv_case(outdir, name, **kw):
+    return train(conv_trainer(outdir, name, **kw))
+
+
+def tp_mvtcae_case(outdir, **kw):
+    return train(BaseTrainer(tp_model(4, 5), tp_data(), device="cpu",
+                             training_config=config(outdir, "tp_mvtcae", num_epochs=1,
+                                                    per_device_train_batch_size=16, seed=11,
+                                                    steps_predict=1, **kw)))
+
+
+def bf16_case(outdir):
+    return {fsdp: train(cases.trainer_of("MVTCAE", os.path.join(outdir, f"bf16_{fsdp}"),
+                                         fsdp=fsdp, mixed_precision=True))
+            for fsdp in (False, True)}
+
+
+def checkpoint_case(outdir):
+    """The run with its checkpoints, and the run resumed from its epoch 2 in
+    the same layout."""
+    trainer = cases.trainer_of("MVTCAE", os.path.join(outdir, "ckpt"), fsdp=True, num_epochs=3,
+                               steps_saving=1, steps_predict=1)
+    out = train(trainer)
+    out["training_dir"] = trainer.training_dir
+    out["resumed"] = train(cases.trainer_of(
+        "MVTCAE", os.path.join(outdir, "ckpt_resumed"), fsdp=True, num_epochs=3,
+        checkpoint=os.path.join(trainer.training_dir, "checkpoint_epoch_2")))
+    return out
+
+
+def chunked_case(outdir):
+    return {n: train(cases.trainer_of("MMVAE", os.path.join(outdir, f"chunk_{n}"), fsdp=True,
+                                      cache_on_device=True, steps_per_execution=n))
+            for n in (1, 3)}
+
+
+def microbatch_case(outdir):
+    return {fsdp: train(cases.trainer_of("MMVAE_microbatch", os.path.join(outdir, f"micro_{fsdp}"),
+                                         fsdp=fsdp))
+            for fsdp in (False, True)}
+
+
+def telbo_case(outdir):
+    return {fsdp: train(cases.trainer_of("TELBO", os.path.join(outdir, f"telbo_{fsdp}"),
+                                         fsdp=fsdp, num_epochs=3))
+            for fsdp in (False, True)}
+
+
+# -------------------------------------------------------------- four ranks
+def both_case(outdir):
+    return train(BaseTrainer(tp_model(8, 7), tp_data(), device="cpu",
+                             training_config=config(outdir, "both", n_devices=2,
+                                                    n_model_devices=2, fsdp=True,
+                                                    per_device_train_batch_size=8, seed=13)))
+
+
+def cache_2x2_case(outdir):
+    """Each rank's block of the row-sharded cache and its batches of one
+    epoch (with the host loader's columns beside them), then MVTCAE trained
+    from the cache with ``fsdp`` on the 2 x 2 mesh."""
+    trainer = cases.trainer_of("MVTCAE", os.path.join(outdir, "cache"), fsdp=True,
+                               n_model_devices=2, cache_on_device=True,
+                               device_cache_layout="sharded")
+    cache = trainer._train_cache
+    block = dict(kind=type(cache).__name__, start=cache.start, block=cache.block,
+                 rows=cache.data["a"].shape[0])
+    plan = trainer._plans["train"]
+    trainer.train_loader.set_epoch(0)
+    idx, weights = plan.upload()
+    batches = [cache.gather(idx[i], weights[i], plan.columns).data
+               for i in range(len(idx))]
+    host = [b.data for b in trainer.train_loader]
+    out = train(trainer)
+    out.update(block=block, batches=batches, host=host)
+    return out
+
+
+def jobs(outdir: str, port: str, world: int, rank: int, spec):
+    """The worker's jobs, in order, once it joined the gloo group of
+    ``world`` ranks at ``127.0.0.1:port``."""
+    import datetime
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=120))
+
+    def job(name, fn):
+        return name, lambda: cases.save(fn(), outdir, name)
+
+    if world == 4:
+        return [job("both", lambda: both_case(outdir)),
+                job("cache_2x2", lambda: cache_2x2_case(outdir))]
+    return [job("tp_conv", lambda: conv_case(outdir, "tp_conv", n_model_devices=2)),
+            job("fsdp_conv", lambda: conv_case(outdir, "fsdp_conv", n_devices=2, fsdp=True)),
+            job("tp_mvtcae", lambda: tp_mvtcae_case(outdir, n_model_devices=2)),
+            job("optimizers", lambda: optimizers_case(outdir)),
+            job("fsdp_bf16", lambda: bf16_case(outdir)),
+            job("fsdp_checkpoint", lambda: checkpoint_case(outdir)),
+            job("fsdp_chunked", lambda: chunked_case(outdir)),
+            job("fsdp_telbo", lambda: telbo_case(outdir)),
+            job("fsdp_microbatch", lambda: microbatch_case(outdir))]
