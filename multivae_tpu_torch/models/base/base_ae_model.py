@@ -47,6 +47,14 @@ def sum_except_batch(x, batch_ndims: int = 1):
     return sum_f32(x.reshape(*x.shape[:batch_ndims], -1))
 
 
+def pick_expert(stacked: torch.Tensor, idx) -> torch.Tensor:
+    """``stacked[idx]`` for an expert index from ``draw_expert`` (a 0-d
+    tensor, or an int from a test's hook), read on the device: no host
+    read, so a traced program keeps the pick as an input."""
+    idx = torch.as_tensor(idx, device=stacked.device).reshape(1)
+    return stacked.index_select(0, idx)[0]
+
+
 def _all_available(mask) -> bool:
     if isinstance(mask, torch.Tensor):
         return bool(mask.bool().all())
@@ -219,11 +227,13 @@ class BaseMultiVAE(BaseModel):
         return self._remat(lambda v: self.decoders[mod](v)["reconstruction"], z)
 
     def draw_expert(self, n_experts: int,
-                    generator: Optional[torch.Generator] = None) -> int:
+                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """A uniform random expert index in [0, n_experts) (the mixture
-        models' encode and NLL)."""
+        models' encode and NLL), a 0-d int64 tensor on the generator's
+        device: the encode picks the expert with it on the device
+        (``pick_expert``), so an exported endpoint takes it as an input."""
         device = self.device if generator is None else generator.device
-        return int(torch.randint(n_experts, (), generator=generator, device=device))
+        return torch.randint(n_experts, (), generator=generator, device=device)
 
     def stacked_gaussian_params(self, batch: MultimodalBatch, mods=None):
         """Encode ``mods`` (default all) and stack (mus, log_vars, mask) of

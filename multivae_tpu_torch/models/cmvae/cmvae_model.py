@@ -39,6 +39,7 @@ from ...data.batch import MultimodalBatch, as_batch
 from ...ops.gaussian import sum_f32
 from ...ops.kdist import dist_log_prob, dist_rsample, log_var_to_std
 from ...utils.model_output import ModelOutput
+from ..base.base_ae_model import pick_expert
 from ..mmvaePlus.mmvaePlus_model import MMVAEPlus
 from .cmvae_config import CMVAEConfig
 
@@ -115,7 +116,9 @@ class CMVAE(MMVAEPlus):
                           generator: Optional[torch.Generator]):
         """One random conditioning modality's posterior, whose mean
         ``return_mean`` takes."""
-        return posteriors[cond_mod[self.draw_expert(len(cond_mod), generator)]]["u"]
+        idx = self.draw_expert(len(cond_mod), generator)
+        return tuple(pick_expert(torch.stack([posteriors[m]["u"][i] for m in cond_mod]), idx)
+                     for i in range(2))
 
     def _style_prior(self, mod: str):
         if self.reconstruction_option == "single_prior":

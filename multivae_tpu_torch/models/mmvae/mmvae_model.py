@@ -43,7 +43,7 @@ from ...ops.kdist import (
     sample_noise,
 )
 from ...utils.model_output import ModelOutput
-from ..base.base_ae_model import BaseMultiVAE, sum_except_batch
+from ..base.base_ae_model import BaseMultiVAE, pick_expert, sum_except_batch
 from ..base.step import StepInfo
 from .mmvae_config import MMVAEConfig
 
@@ -194,7 +194,8 @@ class MMVAE(BaseMultiVAE):
             z = emb.expand(N, *emb.shape) if N > 1 else emb
         else:
             idx = self.draw_expert(len(cond_mod), generator)
-            mu, sigma = post_params[cond_mod[idx]]
+            mu = pick_expert(mus, idx)
+            sigma = pick_expert(torch.stack([post_params[m][1] for m in cond_mod]), idx)
             shape = mu.shape if N == 1 else (N, *mu.shape)
             z = dist_rsample(self.dist_name, mu, sigma, K=N,
                              u=self.data_shard.draw(self.draw_noise, shape, generator))

@@ -50,7 +50,7 @@ from ...ops.kdist import (
     sample_noise,
 )
 from ...utils.model_output import ModelOutput
-from ..base.base_ae_model import BaseMultiVAE, sum_except_batch
+from ..base.base_ae_model import BaseMultiVAE, pick_expert, sum_except_batch
 from ..base.step import StepInfo
 from .mmvaePlus_config import MMVAEPlusConfig
 
@@ -289,7 +289,9 @@ class MMVAEPlus(BaseMultiVAE):
         the posterior of one random conditioning modality."""
         if return_mean:
             return torch.stack([posteriors[m]["u"][0] for m in cond_mod]).mean(0), None
-        return posteriors[cond_mod[self.draw_expert(len(cond_mod), generator)]]["u"]
+        idx = self.draw_expert(len(cond_mod), generator)
+        return tuple(pick_expert(torch.stack([posteriors[m]["u"][i] for m in cond_mod]), idx)
+                     for i in range(2))
 
     def _encode_subset(self, batch: MultimodalBatch, *, cond_mod: tuple, N: int,
                        return_mean: bool, flatten: bool,

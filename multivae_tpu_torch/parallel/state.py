@@ -245,6 +245,8 @@ class ShardedState:
                     continue
                 leaf.master = nn.Parameter(self._shard_of(leaf, p.detach()),
                                            requires_grad=p.requires_grad)
+                # a piece, not a whole weight: what an endpoint's export refuses
+                leaf.master.sharded_piece = True
         # the state_dict keys of each leaf (a tied parameter has several)
         self._keys = {k: whole[id(v)] for k, v in model.state_dict(keep_vars=True).items()
                       if id(v) in whole}

@@ -16,6 +16,8 @@ rule, ``parallel/state.py``) against the JAX package's
   the same sums as the replicated run (gloo adds the two ranks' halves
   alike), so the two are bit-equal; against one process, the ranks' sums
   reorder float32 terms.
+- An endpoint exported after ``fsdp`` training over two ranks runs in the
+  test process, which has no group; an export inside ``train()`` raises.
 """
 
 import functools
@@ -43,6 +45,7 @@ from multivae_tpu.parallel.mesh import combined_state_sharding as jax_combined
 from multivae_tpu.parallel.mesh import fsdp_state_sharding as jax_fsdp
 from multivae_tpu.parallel.mesh import get_data_mesh as jax_data_mesh
 from multivae_tpu.parallel.mesh import tp_state_sharding as jax_tp
+from multivae_tpu_torch import serving
 from multivae_tpu_torch.nn.cub import TransformerEncoderLayer
 from multivae_tpu_torch.parallel import get_data_mesh
 from multivae_tpu_torch.parallel.mesh import (
@@ -65,6 +68,9 @@ LOSS_RTOL = 1e-5
 WEIGHT_TOL = dict(rtol=1e-4, atol=1e-6)
 # the JAX tensor-parallel tests' own tolerance on the loss
 JAX_TP_RTOL = 1e-4
+# a reply of the ranks' weights against one process's (``chip_smoke.py``'s
+# name): float32 noise of the weights through the decoders
+DP_RTOL = 1e-4
 MESHES = {"8": (8, 1), "4x2": (4, 2)}
 
 
@@ -587,6 +593,33 @@ def test_fsdp_with_microbatches_equals_the_replicated_run(workers):
     bit-equal to the replicated run."""
     runs = workers.load("fsdp_microbatch")
     _same_run(runs[True], runs[False], exact=True)
+
+
+def test_an_endpoint_exported_after_fsdp_training_holds_no_topology(workers, tmp_path):
+    """Rank 0's deterministic ``Predictor``, exported after ``fsdp`` training
+    over data 2, loaded and run in this process, which has no group: no
+    collective in its graph, its reply within ``DP_RTOL`` of the one-process
+    run's exported endpoint. An export inside ``train()``, while the
+    modules held the masters, raised."""
+    ours = workers.load("fsdp_export")
+    assert ours["n_data"] == 2 and ours["cut"]
+    assert "ShardedState" in ours["inside"], ours["inside"]
+    fn = serving.load_exported(ours["path"])
+    assert not [n.target for n in fn.program.graph.nodes if "c10d" in str(n.target)]
+    trainer = cases.trainer_of("MVTCAE", str(tmp_path),
+                               per_device_train_batch_size=2 * cases.PER_DEVICE,
+                               per_device_eval_batch_size=2 * cases.PER_DEVICE)
+    alone = ss.train(trainer)
+    ref_fn = serving.load_exported(ss.export_predictor(trainer.model).export(
+        str(tmp_path / "alone.pt2")))
+    rng = np.random.default_rng(6)
+    request = {m: torch.from_numpy(rng.uniform(size=(ss.EXPORT_BATCH, *cases.DIMS[m])).astype(
+        np.float32)) for m in ss.EXPORT_COND}
+    reply, ref = fn(ours["live"], request, []), ref_fn(alone["live"], request, [])
+    assert list(reply) == list(cases.DIMS)
+    for m in cases.DIMS:
+        np.testing.assert_allclose(reply[m].numpy(), ref[m].numpy(), rtol=DP_RTOL,
+                                   atol=1e-6, err_msg=m)
 
 
 # ------------------------------------------------------------ four ranks

@@ -28,6 +28,9 @@ Two ranks (data 2, or data 1 x model 2):
   reset and frozen groups in stage 2), replicated and with ``fsdp``.
 - ``fsdp_microbatch``: MMVAE at ``microbatch_steps=2``, replicated and
   with ``fsdp``.
+- ``fsdp_export``: MVTCAE with ``fsdp``; an endpoint's export at the end of
+  epoch 1 (the modules hold the masters) must raise, and after ``train()``
+  rank 0 exports a deterministic ``Predictor``.
 
 Four ranks (data 2 x model 2):
 
@@ -50,7 +53,9 @@ from multivae_tpu_torch.models import MMVAE, MVTCAE, MMVAEConfig, MVTCAEConfig
 from multivae_tpu_torch.nn import BaseAEConfig
 from multivae_tpu_torch.nn.mmnist import DecoderConvMMNIST, EncoderConvMMNIST_adapted
 from multivae_tpu_torch.parallel.state import state_nbytes
+from multivae_tpu_torch.serving import Predictor
 from multivae_tpu_torch.trainers import BaseTrainer, BaseTrainerConfig
+from multivae_tpu_torch.trainers.base.callbacks import TrainingCallback
 
 # every optimizer of trainers/base/optim.py, the OptaxRule ones among them
 OPTIMIZERS = {
@@ -222,6 +227,43 @@ def telbo_case(outdir):
             for fsdp in (False, True)}
 
 
+# the endpoint of ``fsdp_export``: MVTCAE generating every modality from two
+EXPORT_COND, EXPORT_BATCH = ["a", "b"], 8
+
+
+def export_predictor(model):
+    return Predictor(model, cond_mod=EXPORT_COND, batch_size=EXPORT_BATCH, deterministic=True)
+
+
+class _ExportInTraining(TrainingCallback):
+    """At the end of the first epoch, inside ``train()``, try to export."""
+
+    def __init__(self, model, path):
+        self.model, self.path, self.outcome = model, path, None
+
+    def on_epoch_end(self, training_config, **kwargs):
+        if self.outcome is None:
+            try:
+                export_predictor(self.model).export(self.path)
+                self.outcome = "exported"
+            except RuntimeError as err:
+                self.outcome = str(err)
+
+
+def export_case(outdir):
+    """The outcome of an export inside ``train()`` under ``fsdp``, the whole
+    weights after it, and rank 0's export of the trained model."""
+    trainer = cases.trainer_of("MVTCAE", os.path.join(outdir, "export"), fsdp=True)
+    inside = _ExportInTraining(trainer.model, os.path.join(outdir, "inside.pt2"))
+    trainer.callback_handler.add_callback(inside)
+    out = train(trainer)
+    out["inside"] = inside.outcome
+    if dist.get_rank() == 0:
+        out["path"] = export_predictor(trainer.model).export(
+            os.path.join(outdir, "fsdp_export.pt2"))
+    return out
+
+
 # -------------------------------------------------------------- four ranks
 def both_case(outdir):
     return train(BaseTrainer(tp_model(8, 7), tp_data(), device="cpu",
@@ -273,4 +315,5 @@ def jobs(outdir: str, port: str, world: int, rank: int, spec):
             job("fsdp_checkpoint", lambda: checkpoint_case(outdir)),
             job("fsdp_chunked", lambda: chunked_case(outdir)),
             job("fsdp_telbo", lambda: telbo_case(outdir)),
-            job("fsdp_microbatch", lambda: microbatch_case(outdir))]
+            job("fsdp_microbatch", lambda: microbatch_case(outdir)),
+            job("fsdp_export", lambda: export_case(outdir))]
