@@ -31,6 +31,17 @@ Phases (any failure exits non-zero and prints no result line):
    (``tools/mixture_sweep.time_ms``: CUDA events, median of 20 calls, the
    L2 flushed before each by writing 256 MB, host time kept out of the
    window), beside the plain version's time, the bound and the share of it;
+   at the slice, where a call's time goes (``fixed_cost``): the yardstick,
+   the same after a read-only flush (the L2 left clean), the kernel's own
+   duration from torch.profiler and the event window around an empty
+   kernel launched through the same ctypes path; then the same for the bf16
+   mixture kernels (``bf16_kernels``, ``csrc/mixture_bf16.cu``) at every
+   shape above, each shape's route printed, against the plain version in
+   float64 on the same bf16 values (output float32, gradients bf16 within
+   ``BF16_GRAD_RTOL``); the slice and ``mmvaeplus_k10`` shapes must take
+   the tensor-copy forward and dz-only backward (``bf16_routes``: the
+   plan's route and the one device kernel torch.profiler sees a call);
+   their times and bf16 bounds at those shapes, and the slice's fixed cost;
 4. slice: the full-width MMVAE (5 modalities of 3x28x28, latent 512,
    K=10, default MLP nets, Laplace decoders, DReG) trained by
    ``BaseTrainer.train()`` for 2 epochs of 2048 random samples (16 steps of
@@ -284,12 +295,8 @@ Phases (any failure exits non-zero and prints no result line):
     (each rank the same metrics, within ``DP_EVAL_RTOL`` /
     ``DP_EVAL_COUNT_ATOL`` of alone, each counting the paper NLL's mixture
     forwards); the phase's seconds;
-25. ``mixed_precision``: the trainer's bfloat16 mode. The bf16 instances of
-    the three mixture kernels (``csrc/mixture_bf16.cu``) at every shape of
-    phase 3, against the plain version in float64 on the same bf16 values
-    (output float32, gradients bf16 within ``BF16_GRAD_RTOL``), their
-    times at the slice and ``mmvaeplus_k10`` shapes with their bf16 bounds;
-    ``mmvae_conv``, ``crmvae_resnet``, ``mvae_conv`` and ``mvtcae_conv`` on
+25. ``mixed_precision``: the trainer's bfloat16 mode (its mixture kernels
+    are checked in phase 3): ``mmvae_conv``, ``crmvae_resnet``, ``mvae_conv`` and ``mvtcae_conv`` on
     1,024 rows and ``cmvae_polymnist`` on 256 (IWAE: the full bf16
     backward), 2 epochs each in float32 and in bf16: steps/s, peaks, every
     epoch's train and eval loss within ``MIXED_LOSS_RTOL`` of the f32 run,
@@ -329,6 +336,7 @@ import json
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -540,8 +548,11 @@ def mixture_case_bf16(mx, shape, dist):
     errs["dz_only"] = (dz_only.double() - grads_p[0]).abs().max().item()
     scale = {n: gp.abs().max().item() for n, gp in zip(names, grads_p)}
     scale["dz_only"] = scale["dz"]
-    print(f"  mixture bf16 {dist:7s} {shape}: fwd max abs err vs float64 "
-          f"{fwd_err:.3e}; grads max abs err / max|plain|: "
+    vec = mx._vectorized(shape["d"], z, mus, sig)
+    routes = "/".join(mx.route(torch.bfloat16, k, shape["d"], shape["mq"], vec)
+                      for k in ("fwd", "bwd_dz", "bwd"))
+    print(f"  mixture bf16 {dist:7s} {shape} (route fwd/bwd_dz/bwd {routes}): fwd max "
+          f"abs err vs float64 {fwd_err:.3e}; grads max abs err / max|plain|: "
           + ", ".join(f"{n} {errs[n]:.3e}/{scale[n]:.3e}" for n in errs))
     check(torch.allclose(out_k.double(), out_p, rtol=OUT_RTOL, atol=OUT_ATOL),
           f"bf16 forward differs for {shape} {dist}")
@@ -607,15 +618,136 @@ def mixture_timing(mx, s=SLICE_SHAPE, dtype=torch.float32):
     return {k + suffix: (kernel[k], plain[k], *bound(*work[k])) for k in work}
 
 
+def _profiled_ms(fn, flush, reps=20):
+    """Median device duration (ms) of the mixture kernel that one call of
+    ``fn`` launches, from torch.profiler over ``reps`` calls, each after a
+    ``zero_()`` flush; None where the profiler saw no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and "mixture" in e.name]
+    return statistics.median(us) / 1e3 if len(us) == reps else None
+
+
+def fixed_cost(mx, dtype=torch.float32, s=SLICE_SHAPE):
+    """Where a timed call of each mixture kernel goes at the shapes ``s``
+    (Laplace): the yardstick (``time_ms``: events around one call after a
+    256 MB ``zero_()`` flush, which leaves the L2 full of dirty lines), the
+    same after a read-only flush (a sum over the buffer: the L2 clean), the
+    kernel's own duration from torch.profiler, and the event window around
+    an empty kernel launched through the same ctypes path, after either
+    flush. Keys end in '_bf16' for bf16."""
+    from multivae_tpu_torch.tools.mixture_sweep import flush_buffer, op_calls, time_ms
+
+    z, mus, sig, mask, g = mixture_inputs(**s)
+    z, mus, sig, mask = (t.to(dtype) for t in (z, mus, sig, mask))
+    flush = flush_buffer()
+    lib = mx._lib(torch.bfloat16)
+
+    def empty():
+        mx._raise_on(lib.mixture_empty(torch.cuda.current_stream().cuda_stream),
+                     "mixture_empty")
+
+    suffix = "" if dtype == torch.float32 else "_bf16"
+    record = {"empty_kernel": {"zero_flush_ms": time_ms(empty, flush),
+                               "read_flush_ms": time_ms(empty, flush, read_only=True)}}
+    for k, fn in op_calls(mx.mixture_log_density, z, mus, sig, mask, g).items():
+        record[k + suffix] = {"yardstick_ms": time_ms(fn, flush),
+                              "read_flush_ms": time_ms(fn, flush, read_only=True),
+                              "profiler_kernel_ms": _profiled_ms(fn, flush)}
+    print(f"  fixed cost at the slice ({dtype}): empty kernel "
+          f"{record['empty_kernel']['zero_flush_ms']:.4f} ms after the zero_() flush, "
+          f"{record['empty_kernel']['read_flush_ms']:.4f} ms after the read-only one")
+    for k, v in record.items():
+        if k != "empty_kernel":
+            print(f"    mixture_{k}: yardstick {v['yardstick_ms']:.4f} ms, read-only flush "
+                  f"{v['read_flush_ms']:.4f} ms, kernel alone (profiler) "
+                  + ("not measured" if v["profiler_kernel_ms"] is None
+                     else f"{v['profiler_kernel_ms']:.4f} ms"))
+    return record
+
+
+def bf16_routes(mx):
+    """The bf16 forward and dz-only backward at the slice and
+    ``mmvaeplus_k10`` shapes must take the tensor-copy design: by the plan
+    (``launch_shape``'s route) and by the device kernel torch.profiler sees
+    in one call (exactly one, ``mixture_tma_kernel``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from multivae_tpu_torch.tools.mixture_sweep import op_calls
+
+    for label, sh in (("slice", SLICE_SHAPE), ("mmvaeplus_k10", K10_SHAPE)):
+        z, mus, sig, mask, g = (t.bfloat16() if i < 4 else t
+                                for i, t in enumerate(mixture_inputs(**sh)))
+        calls = op_calls(mx.mixture_log_density, z, mus, sig, mask, g)
+        for mode in ("fwd", "bwd_dz", "bwd"):
+            plan = mx.launch_shape(sh["mz"] * sh["k"], sh["b"], sh["d"], sh["mq"], mode,
+                                   dtype=torch.bfloat16)
+            names = []
+            for _ in range(3):  # a profile that saw no device activity at all is taken again
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    calls[mode]()
+                    torch.cuda.synchronize()
+                names = [e.name for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA]
+                if names:
+                    break
+            print(f"  bf16 {mode} at the {label} shape: {json.dumps(plan)}; kernels {names}")
+            want = "template" if mode == "bwd" else "tma"
+            check(plan["route"] == want,
+                  f"bf16 {mode} at the {label} shape takes the {plan['route']} route")
+            check(len(names) == 1 and ("mixture_tma_kernel" in names[0]) == (want == "tma"),
+                  f"bf16 {mode} at the {label} shape ran {names}, not the {want} kernel")
+
+
+def bf16_kernels(mx):
+    """The bf16 kernels against the plain version in float64 at every
+    checked shape, their routes, their times at the slice and
+    ``mmvaeplus_k10`` shapes and the fixed cost at the slice, printed.
+    Returns (their max abs errors, their times at the slice)."""
+    errs = {"fwd_bf16": 0.0, "bwd_bf16": 0.0, "bwd_dz_bf16": 0.0}
+    failures = []
+    for shape in CHECK_SHAPES:
+        for dist_name in ("laplace", "normal"):
+            try:
+                case = mixture_case_bf16(mx, shape, dist_name)
+            except SmokeFailure as e:
+                failures.append(str(e))
+                continue
+            errs = {k: max(errs[k], v) for k, v in case.items()}
+    check(not failures, "; ".join(failures))
+    bf16_routes(mx)
+    timing = mixture_timing(mx, SLICE_SHAPE, torch.bfloat16)
+    for label, shape, times in (("slice", SLICE_SHAPE, timing),
+                                ("mmvaeplus_k10", K10_SHAPE,
+                                 mixture_timing(mx, K10_SHAPE, torch.bfloat16))):
+        print(f"  bf16 at the {label} shape {shape}:")
+        for kname, (ms, plain_ms, bound_ms, bound_by) in times.items():
+            print(f"    mixture_{kname}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+                  f"bound {bound_ms:.4f} ms by {bound_by}, {100 * bound_ms / ms:.1f}% of bound)")
+    fixed_cost(mx, torch.bfloat16)
+    return errs, timing
+
+
 def ptxas_summary(report):
     """(kernel instance, registers, spill store bytes, spill load bytes) from
-    the compiler's -Xptxas -v report."""
+    the compiler's -Xptxas -v report: mixture.cu's kernels and the bf16
+    tensor-copy kernels of mixture_bf16.cu."""
     pat = re.compile(r"mixture_kernelI(f|13__nv_bfloat16)Lb(\d)ELi(\d+)ELi(\d+)ELi(\d)"
                      r"ELb(\d)ELb(\d)E")
+    tma = re.compile(r"mixture_tma_kernelILb(\d)ELi(\d+)ELi(\d)E")
     modes = ("fwd", "bwd_dz", "bwd")
     rows, name, spill = [], None, (0, 0)
     for line in report.splitlines():
-        m = pat.search(line)
+        m, mt = pat.search(line), tma.search(line)
         if "Function properties for" in line and m:
             elem, lap, q, w, mode, chunked, stream = m.groups()
             name = (f"{'laplace' if lap == '1' else 'normal'} {modes[int(mode)]} "
@@ -623,6 +755,10 @@ def ptxas_summary(report):
                     f"{'16-byte' if w != '1' else 'scalar'}"
                     f"{' streaming' if stream == '1' else ''}"
                     f"{'' if elem == 'f' else ' bf16'}")
+        elif "Function properties for" in line and mt:
+            lap, q, mode = mt.groups()
+            name = (f"{'laplace' if lap == '1' else 'normal'} {modes[int(mode)]} "
+                    f"MQ={q} bf16 tensor-copy")
         elif name and "spill stores" in line:
             nums = re.findall(r"(\d+) bytes spill", line)
             spill = (int(nums[0]), int(nums[1]))
@@ -4162,14 +4298,12 @@ MIXED_GRAPHED = ("mmvae_conv", 2048, 3, 8)
 
 def mixed_precision_phase(mx, device="cuda", one_process_backend="nccl",
                           workloads_=None, graphed_=None, rows=MIXED_ROWS):
-    """The ``mixed_precision`` phase: the bf16 kernel instances against the
-    plain version in float64 on the same bf16 values at every checked
-    shape, and their times at the slice and MMVAE+ K=10 shapes; the
-    workloads of ``MIXED_WORKLOADS`` in float32 and in bf16 (steps/s,
-    peaks, the loss gaps, exact launches); a graphed bf16 run against the
-    eager one and a bf16 run in a one-process NCCL group against none.
-    Returns (the record, the launches of its training runs, the bf16
-    kernels' max abs errors, their times at the slice).
+    """The ``mixed_precision`` phase (its kernels are checked and timed in
+    phase 3, ``bf16_kernels``): the workloads of ``MIXED_WORKLOADS`` in
+    float32 and in bf16 (steps/s, peaks, the loss gaps, exact launches); a
+    graphed bf16 run against the eager one and a bf16 run in a one-process
+    NCCL group against none. Returns (the record, the launches of its
+    training runs).
     ``one_process_backend``, ``workloads_`` (default ``MIXED_WORKLOADS``),
     ``graphed_`` (default ``MIXED_GRAPHED``) and ``rows`` (the NCCL run's)
     let a CPU rehearsal run it smaller over gloo."""
@@ -4182,33 +4316,6 @@ def mixed_precision_phase(mx, device="cuda", one_process_backend="nccl",
     t_phase = time.perf_counter()
     record = {"phase": "mixed_precision"}
     launches = {k: 0 for k in KERNELS}
-    errs = {"fwd_bf16": 0.0, "bwd_bf16": 0.0, "bwd_dz_bf16": 0.0}
-    failures = []
-    for shape in CHECK_SHAPES:
-        for dist_name in ("laplace", "normal"):
-            try:
-                case = mixture_case_bf16(mx, shape, dist_name)
-            except SmokeFailure as e:
-                failures.append(str(e))
-                continue
-            errs = {k: max(errs[k], v) for k, v in case.items()}
-    check(not failures, "; ".join(failures))
-    record["kernel_max_abs_err"] = errs
-    timing = mixture_timing(mx, SLICE_SHAPE, torch.bfloat16)
-    record["kernel_ms"] = {}
-    for label, shape, times in (("slice", SLICE_SHAPE, timing),
-                                ("mmvaeplus_k10", K10_SHAPE,
-                                 mixture_timing(mx, K10_SHAPE, torch.bfloat16))):
-        record["kernel_ms"][label] = times
-        print(f"  bf16 at the {label} shape {shape}:")
-        for kname, (ms, plain_ms, bound_ms, bound_by) in times.items():
-            print(f"    mixture_{kname}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-                  f"bound {bound_ms:.4f} ms by {bound_by}, {100 * bound_ms / ms:.1f}% of bound)")
-    sh = SLICE_SHAPE
-    record["launch_at_slice"] = {mode: mx.launch_shape(
-        sh["mz"] * sh["k"], sh["b"], sh["d"], sh["mq"], mode, dtype=torch.bfloat16)
-        for mode in ("fwd", "bwd_dz", "bwd")}
-    print(f"  bf16 launch at the slice: {json.dumps(record['launch_at_slice'])}")
 
     keys = ("steps_per_s", "peak_mem_bytes", "peak_above_held_bytes", "epoch_losses",
             "eval_losses", "launches")
@@ -4299,7 +4406,7 @@ def mixed_precision_phase(mx, device="cuda", one_process_backend="nccl",
         torch.backends.cudnn.deterministic = deterministic
     record["seconds"] = time.perf_counter() - t_phase
     print(f"  mixed_precision: {record['seconds']:.1f} s")
-    return record, launches, errs, timing
+    return record, launches
 
 
 # The state_sharding phase: the JAX package's fsdp and n_model_devices
@@ -4740,6 +4847,12 @@ def main():
                 print(f"    mixture_{kname}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
                       f"bound {bound_ms:.4f} ms by {bound_by}, "
                       f"{100 * bound_ms / ms:.1f}% of bound)")
+        fixed_cost(mx)
+        print("bf16 kernels vs plain in float64 (rtol/atol out "
+              f"{OUT_RTOL}/{OUT_ATOL}, grads {BF16_GRAD_RTOL}/{GRAD_ATOL}):")
+        errs_bf16, timing_bf16 = bf16_kernels(mx)
+        errs.update(errs_bf16)
+        timing.update(timing_bf16)
 
         # launches of every training and inference phase that runs the kernels
         launches = {k: 0 for k in KERNELS}
@@ -4849,11 +4962,9 @@ def main():
         record, counts = data_parallel(mx)
         print(json.dumps(record))
         add(counts)
-        record, counts, errs_bf16, timing_bf16 = mixed_precision_phase(mx)
+        record, counts = mixed_precision_phase(mx)
         print(json.dumps(record))
         add(counts)
-        errs.update(errs_bf16)
-        timing.update(timing_bf16)
         record, counts = state_sharding(mx)
         print(json.dumps(record))
         add(counts)

@@ -114,7 +114,9 @@
 //
 // bfloat16 (mixture_bf16.cu builds this file with MIXTURE_BF16: the C
 // entries then take z, mu, sig, mask, dz, dmu and dsig as bf16; the
-// trainer's mixed_precision hands them bf16). The element type In is a
+// trainer's mixed_precision hands them bf16). There the forward and the
+// dz-only backward on 16-byte rows take mixture_bf16.cu's own design; the
+// instances here take the full backward and the other shapes. The element type In is a
 // template parameter of the kernel: a 16-byte cp.async now holds 8
 // coordinates, so a thread's 8 coordinates of a row are one copy (kW = 8),
 // and the ring takes half the shared memory. Values are widened to float

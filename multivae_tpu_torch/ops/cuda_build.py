@@ -7,9 +7,9 @@ interface. On first use a ``.cu`` source is compiled with ``nvcc`` for
 ``build/native/``, at the root of the checkout (the file name carries a
 hash of the source, so an edited source is rebuilt), and loaded with
 ``ctypes``. ``build()`` compiles all sources at once, one compiler process
-per source. ``mixture_bf16.cu`` is ``mixture.cu`` built for bfloat16
-elements (it includes it), so its hash covers both files. Nothing is built
-when a module is imported.
+per source. ``mixture_bf16.cu`` includes ``mixture.cu`` (its instances
+for bfloat16 elements) beside its own bf16 kernels, so its hash covers both
+files. Nothing is built when a module is imported.
 """
 
 from __future__ import annotations

@@ -21,15 +21,22 @@ with f Laplace or Normal, NOT divided by the expert count.
   backward. The backward is one launch too, of the dz-only kernel when
   neither ``mus`` nor ``sigmas`` needs a gradient (the DReG path), else of
   the full one. Float32 inputs run the kernels of ``csrc/mixture.cu``,
-  bfloat16 inputs their bf16 instance (``csrc/mixture_bf16.cu``), which
-  reads bf16 and computes in float32: ``out`` is float32 for both, and
-  ``dz`` (``dmu``, ``dsig``) come back in the inputs' dtype. There is no
-  fallback and no cast: a CUDA input the kernels do not take (another
-  dtype, mixed dtypes, not contiguous, too large for shared memory)
-  raises.
+  bfloat16 inputs the kernels of ``csrc/mixture_bf16.cu``, which read
+  bf16 and compute in float32: ``out`` is float32 for both, and ``dz``
+  (``dmu``, ``dsig``) come back in the inputs' dtype. ``route`` names the
+  design a bf16 launch takes: the tensor-copy kernels written for bf16
+  (``"tma"``: the forward and the dz-only backward on 16-byte rows of at
+  most ``TMA_MAX_D`` coordinates and at most ``TMA_MAX_Q`` experts) or
+  ``mixture.cu``'s kernels built for bf16 (``"template"``: the full
+  backward and every other shape); float32 always takes
+  ``"template"``. There is no fallback and no cast: a CUDA input the
+  kernels do not take (another dtype, mixed dtypes, not contiguous, too
+  large for shared memory) raises, and so does a failed launch of the
+  design the route names.
 - ``_fwd_reference`` and ``_bwd_reference`` compute in plain PyTorch what
-  the C entries ``mixture_fwd`` and ``mixture_bwd`` compute, with the same
-  arguments and outputs, so the CPU tests can drive the autograd glue.
+  the C entries compute (``mixture_fwd`` and ``mixture_fwd_tma``,
+  ``mixture_bwd`` and ``mixture_bwd_dz_tma``), with the same arguments and
+  outputs, so the CPU tests can drive the autograd glue.
 
 ``launches`` counts kernel launches, one per launch of each kernel (the
 bf16 instances under ``fwd_bf16``, ``bwd_bf16`` and ``bwd_dz_bf16``). A
@@ -57,6 +64,11 @@ DISTS = ("laplace", "normal")
 _FWD, _BWD_DZ, _BWD = 0, 1, 2
 
 DTYPES = (torch.float32, torch.bfloat16)
+# The tensor-copy design's limits (csrc/mixture_bf16.cu): a thread holds 8
+# coordinates of a row (kElems), a slice at most kMaxThreads threads, and
+# the registers at most kMaxQ experts.
+TMA_MAX_D = 2048
+TMA_MAX_Q = 8
 KERNELS = ("fwd", "bwd", "bwd_dz", "fwd_bf16", "bwd_bf16", "bwd_dz_bf16")
 launches = {k: 0 for k in KERNELS}
 
@@ -129,11 +141,32 @@ def _bwd_reference(z3, mus, sigmas, logc, mask, out, g, laplace: bool,
             (w * df_dsig).sum(1).to(dtype))
 
 
+def route(dtype: torch.dtype, mode: str, d: int, mq: int, vec: bool) -> str:
+    """The design a launch of ``mode`` ('fwd', 'bwd_dz' or 'bwd') takes for
+    inputs of ``dtype`` with rows of ``d`` coordinates, ``mq`` experts and
+    16-byte rows (``vec``, see ``_vectorized``): ``"tma"`` (the bf16
+    forward and dz-only backward that TMA tensor copies feed) or
+    ``"template"``."""
+    if (dtype == torch.bfloat16 and mode in ("fwd", "bwd_dz") and vec
+            and d <= TMA_MAX_D and mq <= TMA_MAX_Q):
+        return "tma"
+    return "template"
+
+
 @functools.lru_cache(maxsize=None)
 def _lib(dtype: torch.dtype = torch.float32) -> ctypes.CDLL:
     """The library of the kernels for ``dtype`` (float32 or bfloat16)."""
     lib = cuda_build.load("mixture" if dtype == torch.float32 else "mixture_bf16")
     P, I = ctypes.c_void_p, ctypes.c_int
+    if dtype == torch.bfloat16:
+        lib.mixture_fwd_tma.argtypes = [P] * 6 + [I] * 4 + [ctypes.c_float, I, P]
+        lib.mixture_fwd_tma.restype = I
+        lib.mixture_bwd_dz_tma.argtypes = [P] * 8 + [I] * 5 + [P]
+        lib.mixture_bwd_dz_tma.restype = I
+        lib.mixture_tma_launch_shape.argtypes = [I] * 6 + [P]
+        lib.mixture_tma_launch_shape.restype = I
+        lib.mixture_empty.argtypes = [P]
+        lib.mixture_empty.restype = I
     lib.mixture_fwd.argtypes = [P] * 6 + [I] * 4 + [ctypes.c_float] + [I] * 2 + [P]
     lib.mixture_fwd.restype = I
     lib.mixture_bwd.argtypes = [P] * 10 + [I] * 6 + [P] * 2
@@ -152,15 +185,23 @@ def _lib(dtype: torch.dtype = torch.float32) -> ctypes.CDLL:
 def launch_shape(r: int, b: int, d: int, mq: int, mode: str, laplace=True,
                  vec=True, dtype: torch.dtype = torch.float32) -> dict:
     """How the kernel of ``mode`` ('fwd', 'bwd_dz' or 'bwd') for ``dtype``
-    launches at these shapes on the current card: blocks per SM
-    (occupancy), threads per block, row splits and shared memory per
-    block."""
-    vals = (ctypes.c_int * 4)()
+    launches at these shapes on the current card: its ``route``, blocks
+    per SM (occupancy), threads per block, row splits and shared memory
+    per block (and the rows a block holds, on the "tma" route)."""
     m = {"fwd": _FWD, "bwd_dz": _BWD_DZ, "bwd": _BWD}[mode]
-    err = _lib(dtype).mixture_launch_shape(r, b, d, mq, m, int(laplace), int(vec),
-                                           ctypes.cast(vals, ctypes.c_void_p))
+    design = route(dtype, mode, d, mq, vec)
+    keys = ("blocks_per_sm", "threads", "splits", "smem_bytes")
+    if design == "tma":
+        vals = (ctypes.c_int * 5)()
+        err = _lib(dtype).mixture_tma_launch_shape(r, b, d, mq, m, int(laplace),
+                                                   ctypes.cast(vals, ctypes.c_void_p))
+        keys += ("rows_per_block",)
+    else:
+        vals = (ctypes.c_int * 4)()
+        err = _lib(dtype).mixture_launch_shape(r, b, d, mq, m, int(laplace), int(vec),
+                                               ctypes.cast(vals, ctypes.c_void_p))
     _raise_on(err, "mixture_launch_shape")
-    return dict(zip(("blocks_per_sm", "threads", "splits", "smem_bytes"), vals))
+    return {"route": design, **dict(zip(keys, vals))}
 
 
 def _check_inputs(z, mus, sigmas, mask, dist):
@@ -233,51 +274,82 @@ def _counter(kernel: str, z3) -> str:
     return kernel if z3.dtype == torch.float32 else f"{kernel}_bf16"
 
 
-def _launch_fwd(z3, mus, sigmas, mask, laplace: bool):
-    """One launch of ``mixture_fwd``: out (R,B) and logc (MQ,B)."""
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _run_fwd(design, z3, mus, sigmas, mask, out, logc, laplace: bool, vec: bool):
+    """One launch of the C forward entry of ``design``, writing ``out``
+    and ``logc``."""
     r, b, d = z3.shape
     mq = mus.shape[0]
     lib = _lib(z3.dtype)
+    dc = d * (_LOG2 if laplace else _HALF_LOG_2PI)
+    args = (z3.data_ptr(), mus.data_ptr(), sigmas.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), logc.data_ptr(), r, b, d, mq, dc, int(laplace))
+    with torch.cuda.device(z3.device):
+        if design == "tma":
+            err = lib.mixture_fwd_tma(*args, _stream())
+        else:
+            _check_smem(lib, (r, b, d, mq), _FWD, vec, z3.device)
+            err = lib.mixture_fwd(*args, int(vec), _stream())
+    _raise_on(err, "mixture_fwd_tma" if design == "tma" else "mixture_fwd")
+
+
+def _run_bwd(design, z3, mus, sigmas, logc, mask, out, g, dz, dmu, dsig,
+             laplace: bool, vec: bool):
+    """One launch of the C backward entry of ``design``, writing ``dz``,
+    and ``dmu`` and ``dsig`` unless both are None (the dz-only kernel)."""
+    r, b, d = z3.shape
+    mq = mus.shape[0]
+    lib = _lib(z3.dtype)
+    ins = (z3.data_ptr(), mus.data_ptr(), sigmas.data_ptr(), logc.data_ptr(),
+           mask.data_ptr(), out.data_ptr(), g.data_ptr(), dz.data_ptr())
+    with torch.cuda.device(z3.device):
+        if design == "tma":
+            err = lib.mixture_bwd_dz_tma(*ins, r, b, d, mq, int(laplace), _stream())
+        else:
+            mode = _BWD if dmu is not None else _BWD_DZ
+            _check_smem(lib, (r, b, d, mq), mode, vec, z3.device)
+            # the bf16 chunked path's float partial sums (none elsewhere)
+            n_ws = lib.mixture_workspace(r, b, d, mq, mode, int(vec),
+                                         _smem_limit(z3.device))
+            ws = (torch.empty(n_ws, dtype=torch.float32, device=z3.device)
+                  if n_ws else None)
+            err = lib.mixture_bwd(*ins, _ptr(dmu), _ptr(dsig), r, b, d, mq,
+                                  int(laplace), int(vec), _ptr(ws), _stream())
+    _raise_on(err, "mixture_bwd_dz_tma" if design == "tma" else "mixture_bwd")
+
+
+def _launch_fwd(z3, mus, sigmas, mask, laplace: bool):
+    """One launch of the forward kernel that ``route`` names: out (R,B)
+    and logc (MQ,B)."""
+    r, b, d = z3.shape
+    mq = mus.shape[0]
     vec = _vectorized(d, z3, mus, sigmas)
-    _check_smem(lib, (r, b, d, mq), _FWD, vec, z3.device)
     out = torch.empty((r, b), dtype=torch.float32, device=z3.device)
     logc = torch.empty((mq, b), dtype=torch.float32, device=z3.device)
-    dc = d * (_LOG2 if laplace else _HALF_LOG_2PI)
-    with torch.cuda.device(z3.device):
-        err = lib.mixture_fwd(
-            z3.data_ptr(), mus.data_ptr(), sigmas.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), logc.data_ptr(), r, b, d, mq, dc, int(laplace),
-            int(vec), torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "mixture_fwd")
+    _run_fwd(route(z3.dtype, "fwd", d, mq, vec), z3, mus, sigmas, mask, out, logc,
+             laplace, vec)
     launches[_counter("fwd", z3)] += 1
     return out, logc
 
 
 def _launch_bwd(z3, mus, sigmas, logc, mask, out, g, laplace: bool,
                 need_params: bool):
-    """One launch of ``mixture_bwd``: dz, and dmu and dsig when
-    ``need_params`` (else the dz-only kernel, and None for both)."""
+    """One launch of the backward kernel that ``route`` names: dz, and dmu
+    and dsig when ``need_params`` (else the dz-only kernel, and None for
+    both)."""
     r, b, d = z3.shape
     mq = mus.shape[0]
-    lib = _lib(z3.dtype)
+    kernel = "bwd" if need_params else "bwd_dz"
     dz = torch.empty_like(z3)
     dmu = torch.empty_like(mus) if need_params else None
     dsig = torch.empty_like(mus) if need_params else None
     vec = _vectorized(d, z3, mus, sigmas)
-    mode = _BWD if need_params else _BWD_DZ
-    _check_smem(lib, (r, b, d, mq), mode, vec, z3.device)
-    # the bf16 chunked path's float partial sums (none elsewhere)
-    n_ws = lib.mixture_workspace(r, b, d, mq, mode, int(vec), _smem_limit(z3.device))
-    ws = (torch.empty(n_ws, dtype=torch.float32, device=z3.device)
-          if n_ws else None)
-    with torch.cuda.device(z3.device):
-        err = lib.mixture_bwd(
-            z3.data_ptr(), mus.data_ptr(), sigmas.data_ptr(), logc.data_ptr(),
-            mask.data_ptr(), out.data_ptr(), g.data_ptr(), dz.data_ptr(),
-            _ptr(dmu), _ptr(dsig), r, b, d, mq, int(laplace), int(vec), _ptr(ws),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "mixture_bwd")
-    launches[_counter("bwd" if need_params else "bwd_dz", z3)] += 1
+    _run_bwd(route(z3.dtype, kernel, d, mq, vec), z3, mus, sigmas, logc, mask, out,
+             g, dz, dmu, dsig, laplace, vec)
+    launches[_counter(kernel, z3)] += 1
     return dz, dmu, dsig
 
 

@@ -321,3 +321,121 @@ def test_kernel_takes_d_up_to_its_register_layout():
     mus = torch.zeros(1, 1, d)
     with pytest.raises(ValueError, match="CUDA device"):
         mx._check_inputs(z, mus, mus, torch.ones(1, 1), "laplace")
+
+
+# --- the route: which design a launch takes ---------------------------------
+
+@pytest.mark.parametrize("dtype, mode, d, mq, vec, design", [
+    (torch.bfloat16, "fwd", 512, 5, True, "tma"),        # the MMVAE slice
+    (torch.bfloat16, "bwd_dz", 512, 5, True, "tma"),
+    (torch.bfloat16, "bwd", 512, 5, True, "template"),   # the full backward
+    (torch.bfloat16, "fwd", 32, 5, True, "tma"),         # mmvaeplus_k10
+    (torch.bfloat16, "bwd_dz", 32, 5, True, "tma"),
+    (torch.bfloat16, "fwd", 2048, 8, True, "tma"),       # the design's edge
+    (torch.bfloat16, "bwd_dz", 64, 1, True, "tma"),
+    (torch.bfloat16, "fwd", 100, 3, False, "template"),  # D % 8 != 0: scalar
+    (torch.bfloat16, "bwd_dz", 64, 11, True, "template"),  # MQ > 8
+    (torch.bfloat16, "fwd", 2056, 2, True, "template"),  # rows over 2048
+    (torch.float32, "fwd", 512, 5, True, "template"),
+    (torch.float32, "bwd_dz", 512, 5, True, "template"),
+])
+def test_route(dtype, mode, d, mq, vec, design):
+    assert mx.route(dtype, mode, d, mq, vec) == design
+
+
+def test_route_limits_are_the_kernel_sources():
+    """The tensor-copy route's limits are mixture.cu's: kMaxQ experts in
+    registers, kMaxThreads threads of kElems coordinates a row."""
+    import re
+    from multivae_tpu_torch.ops import cuda_build
+
+    src = (cuda_build.CSRC_DIR / "mixture.cu").read_text()
+    consts = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert mx.TMA_MAX_Q == consts["kMaxQ"]
+    assert mx.TMA_MAX_D == consts["kMaxThreads"] * consts["kElems"]
+    bf16 = (cuda_build.CSRC_DIR / "mixture_bf16.cu").read_text()
+    assert "int mixture_fwd_tma(" in bf16 and "int mixture_bwd_dz_tma(" in bf16
+
+
+@pytest.fixture
+def reference_entries(monkeypatch):
+    """Replace the C entries by their plain stand-ins, writing the outputs
+    the wrapper allocated; returns the list of (kernel, design) launched."""
+    calls = []
+
+    def run_fwd(design, z3, mus, sigmas, mask, out, logc, laplace, vec):
+        calls.append(("fwd", design))
+        o, c = mx._fwd_reference(z3, mus, sigmas, mask, laplace)
+        out.copy_(o)
+        logc.copy_(c)
+
+    def run_bwd(design, z3, mus, sigmas, logc, mask, out, g, dz, dmu, dsig, laplace, vec):
+        calls.append(("bwd" if dmu is not None else "bwd_dz", design))
+        grads = mx._bwd_reference(z3, mus, sigmas, logc, mask, out, g, laplace,
+                                  dmu is not None)
+        for dst, src in zip((dz, dmu, dsig), grads):
+            if dst is not None:
+                dst.copy_(src)
+
+    monkeypatch.setattr(mx, "_run_fwd", run_fwd)
+    monkeypatch.setattr(mx, "_run_bwd", run_bwd)
+    return calls
+
+
+def _bf16_inputs(d, seed=11):
+    rng = np.random.default_rng(seed)
+    z = torch.tensor(rng.normal(size=(2, 3, 8, d)), dtype=torch.float32).bfloat16()
+    mus = torch.tensor(rng.normal(size=(3, 8, d)), dtype=torch.float32).bfloat16()
+    sig = torch.tensor(rng.uniform(0.5, 1.5, size=(3, 8, d)),
+                       dtype=torch.float32).bfloat16()
+    mask = torch.ones(3, 8, dtype=torch.bfloat16)
+    mask[1, :3] = 0.0   # a masked expert on some columns
+    mask[:, 0] = 0.0    # a fully masked column
+    g = torch.tensor(rng.normal(size=(2, 3, 8)), dtype=torch.float32)
+    return z, mus, sig, mask, g
+
+
+@pytest.mark.parametrize("dist", ["laplace", "normal"])
+@pytest.mark.parametrize("d, design", [(16, "tma"), (12, "template")])
+def test_bf16_glue_through_the_routed_entries(reference_entries, dist, d, design):
+    """The DReG path on bf16 inputs (mus and sigmas detached) asks the
+    entries of the design ``route`` names for the forward and the dz-only
+    backward, counts them under ``fwd_bf16`` and ``bwd_dz_bf16``, returns
+    a float32 out and a bf16 dz, against the plain version in float64 on
+    the same bf16 values, with exactly zero dz on the fully masked
+    column."""
+    calls = reference_entries
+    z, mus, sig, mask, g = _bf16_inputs(d)
+    before = dict(mx.launches)
+    z_leaf = z.clone().requires_grad_()
+    out = _glue(z_leaf, mus, sig, mask, dist)
+    (dz,) = torch.autograd.grad(out, [z_leaf], g)
+    assert calls == [("fwd", design), ("bwd_dz", design)]
+    assert mx.launches == {**before, "fwd_bf16": before["fwd_bf16"] + 1,
+                           "bwd_dz_bf16": before["bwd_dz_bf16"] + 1}
+    assert out.dtype == torch.float32 and dz.dtype == torch.bfloat16
+    z64 = z.double().requires_grad_()
+    out64 = mx.mixture_log_density_plain(z64, mus.double(), sig.double(), mask.double(),
+                                         dist)
+    (dz64,) = torch.autograd.grad(out64, [z64], g.double())
+    np.testing.assert_allclose(out.detach()[..., 1:].numpy(),
+                               out64.detach()[..., 1:].numpy(), rtol=1e-5, atol=1e-4)
+    # float32 arithmetic, then one bf16 rounding of each entry
+    assert (dz.double() - dz64).abs().max() <= 4e-3 * dz64.abs().max() + 1e-3
+    assert (dz[:, :, 0] == 0).all()
+
+
+def test_bf16_full_backward_and_float32_take_the_template(reference_entries):
+    """With mus and sigmas needing gradients a bf16 backward takes the
+    template's full backward (``bwd_bf16``); float32 takes the template
+    for every kernel."""
+    calls = reference_entries
+    z, mus, sig, mask, g = _bf16_inputs(16)
+    leaves = [t.clone().requires_grad_() for t in (z, mus, sig)]
+    grads = torch.autograd.grad(_glue(*leaves, mask, "laplace"), leaves, g)
+    assert all(t.dtype == torch.bfloat16 for t in grads)
+    z32 = z.float().requires_grad_()
+    torch.autograd.grad(_glue(z32, mus.float(), sig.float(), mask.float(), "laplace"),
+                        [z32], g)
+    assert calls == [("fwd", "tma"), ("bwd", "template"),
+                     ("fwd", "template"), ("bwd_dz", "template")]
