@@ -38,10 +38,13 @@ Phases (any failure exits non-zero and prints no result line):
    mixture kernels (``bf16_kernels``, ``csrc/mixture_bf16.cu``) at every
    shape above, each shape's route printed, against the plain version in
    float64 on the same bf16 values (output float32, gradients bf16 within
-   ``BF16_GRAD_RTOL``); the slice and ``mmvaeplus_k10`` shapes must take
-   the tensor-copy forward and dz-only backward (``bf16_routes``: the
-   plan's route and the one device kernel torch.profiler sees a call);
-   their times and bf16 bounds at those shapes, and the slice's fixed cost;
+   ``BF16_GRAD_RTOL``); the slice, ``mmvaeplus_k10`` and
+   ``cmvae_polymnist`` (R=5, B=32, D=32) shapes must take the tensor-copy
+   forward, dz-only backward and full backward (``bf16_routes``: the
+   plan's route and the one device kernel torch.profiler sees a call); two
+   full backward calls must give bit-equal dz, dmu and dsig at the slice,
+   ``mmvaeplus_k10`` and R=500 shapes (``bf16_determinism``); their times
+   and bf16 bounds at those three shapes, and the slice's fixed cost;
 4. slice: the full-width MMVAE (5 modalities of 3x28x28, latent 512,
    K=10, default MLP nets, Laplace decoders, DReG) trained by
    ``BaseTrainer.train()`` for 2 epochs of 2048 random samples (16 steps of
@@ -675,15 +678,17 @@ def fixed_cost(mx, dtype=torch.float32, s=SLICE_SHAPE):
 
 
 def bf16_routes(mx):
-    """The bf16 forward and dz-only backward at the slice and
-    ``mmvaeplus_k10`` shapes must take the tensor-copy design: by the plan
-    (``launch_shape``'s route) and by the device kernel torch.profiler sees
-    in one call (exactly one, ``mixture_tma_kernel``)."""
+    """The bf16 forward, dz-only and full backward at the slice,
+    ``mmvaeplus_k10`` and ``cmvae_polymnist`` (``PLUS_SHAPES[0]``) shapes
+    must take the tensor-copy design: by the plan (``launch_shape``'s
+    route) and by the device kernel torch.profiler sees in one call
+    (exactly one, ``mixture_tma_kernel``)."""
     from torch.profiler import ProfilerActivity, profile
 
     from multivae_tpu_torch.tools.mixture_sweep import op_calls
 
-    for label, sh in (("slice", SLICE_SHAPE), ("mmvaeplus_k10", K10_SHAPE)):
+    for label, sh in (("slice", SLICE_SHAPE), ("mmvaeplus_k10", K10_SHAPE),
+                      ("cmvae_polymnist", PLUS_SHAPES[0])):
         z, mus, sig, mask, g = (t.bfloat16() if i < 4 else t
                                 for i, t in enumerate(mixture_inputs(**sh)))
         calls = op_calls(mx.mixture_log_density, z, mus, sig, mask, g)
@@ -701,18 +706,47 @@ def bf16_routes(mx):
                 if names:
                     break
             print(f"  bf16 {mode} at the {label} shape: {json.dumps(plan)}; kernels {names}")
-            want = "template" if mode == "bwd" else "tma"
-            check(plan["route"] == want,
+            check(plan["route"] == "tma",
                   f"bf16 {mode} at the {label} shape takes the {plan['route']} route")
-            check(len(names) == 1 and ("mixture_tma_kernel" in names[0]) == (want == "tma"),
-                  f"bf16 {mode} at the {label} shape ran {names}, not the {want} kernel")
+            check(len(names) == 1 and "mixture_tma_kernel" in names[0],
+                  f"bf16 {mode} at the {label} shape ran {names}, not the tma kernel")
+
+
+# the full backward's bit-equal reruns: the slice (one block a column),
+# mmvaeplus_k10 (a column over a cluster of 7 blocks) and the R=500 NLL
+# shape (clusters of 3 blocks, each in two rounds of 84 rows)
+DETERMINISM_SHAPES = (SLICE_SHAPE, K10_SHAPE, NLL_SHAPES[0])
+
+
+def bf16_determinism(mx):
+    """Two bf16 full backward calls on the same inputs give bit-equal dz,
+    dmu and dsig, Laplace and Normal, at each of ``DETERMINISM_SHAPES``;
+    returns the plan of each shape."""
+    plans = {}
+    for sh in DETERMINISM_SHAPES:
+        z, mus, sig, mask, g = (t.bfloat16() if i < 4 else t
+                                for i, t in enumerate(mixture_inputs(**sh, seed=5)))
+        plan = mx.launch_shape(sh["mz"] * sh["k"], sh["b"], sh["d"], sh["mq"], "bwd",
+                               dtype=torch.bfloat16)
+        plans[f"R={sh['mz'] * sh['k']},B={sh['b']},D={sh['d']}"] = plan
+        for dist in ("laplace", "normal"):
+            leaves = [t.clone().requires_grad_() for t in (z, mus, sig)]
+            out = mx.mixture_log_density(*leaves, mask, dist)
+            first = torch.autograd.grad(out, leaves, g, retain_graph=True)
+            second = torch.autograd.grad(out, leaves, g)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(first, second)),
+                  f"bf16 full backward reruns differ at {sh} {dist} (plan {plan})")
+        print(f"  bf16 full backward bit-equal on a rerun at {sh}: plan {json.dumps(plan)}")
+    return plans
 
 
 def bf16_kernels(mx):
     """The bf16 kernels against the plain version in float64 at every
-    checked shape, their routes, their times at the slice and
-    ``mmvaeplus_k10`` shapes and the fixed cost at the slice, printed.
-    Returns (their max abs errors, their times at the slice)."""
+    checked shape, their routes, the full backward's reruns, their times at
+    the slice, ``mmvaeplus_k10`` and ``cmvae_polymnist`` shapes and the
+    fixed cost at the slice, printed. Returns (their max abs errors, their
+    times at the slice)."""
     errs = {"fwd_bf16": 0.0, "bwd_bf16": 0.0, "bwd_dz_bf16": 0.0}
     failures = []
     for shape in CHECK_SHAPES:
@@ -725,10 +759,13 @@ def bf16_kernels(mx):
             errs = {k: max(errs[k], v) for k, v in case.items()}
     check(not failures, "; ".join(failures))
     bf16_routes(mx)
+    bf16_determinism(mx)
     timing = mixture_timing(mx, SLICE_SHAPE, torch.bfloat16)
     for label, shape, times in (("slice", SLICE_SHAPE, timing),
                                 ("mmvaeplus_k10", K10_SHAPE,
-                                 mixture_timing(mx, K10_SHAPE, torch.bfloat16))):
+                                 mixture_timing(mx, K10_SHAPE, torch.bfloat16)),
+                                ("cmvae_polymnist", PLUS_SHAPES[0],
+                                 mixture_timing(mx, PLUS_SHAPES[0], torch.bfloat16))):
         print(f"  bf16 at the {label} shape {shape}:")
         for kname, (ms, plain_ms, bound_ms, bound_by) in times.items():
             print(f"    mixture_{kname}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
@@ -4815,12 +4852,13 @@ def main():
             print(f"  {name}: {len(rows)} kernel instances, {len(spilling)} "
                   "with spills (registers, spill store/load bytes):")
             for inst, regs, st, ld in rows:
-                if "MQ=5 " in inst or st or ld:
+                if "MQ=5 " in inst or "tensor-copy" in inst or st or ld:
                     print(f"    {inst}: {regs} registers, spill {st}/{ld} bytes")
         sh = SLICE_SHAPE
         for mode in ("fwd", "bwd_dz", "bwd"):
-            print(f"  launch at the slice, {mode}: " + json.dumps(mx.launch_shape(
-                sh["mz"] * sh["k"], sh["b"], sh["d"], sh["mq"], mode)))
+            for dtype in (torch.float32, torch.bfloat16):
+                print(f"  launch at the slice, {mode} {dtype}: " + json.dumps(mx.launch_shape(
+                    sh["mz"] * sh["k"], sh["b"], sh["d"], sh["mq"], mode, dtype=dtype)))
 
         print("kernels vs plain (rtol/atol out "
               f"{OUT_RTOL}/{OUT_ATOL}, grads {GRAD_RTOL}/{GRAD_ATOL}):")
@@ -4982,8 +5020,11 @@ def main():
         ms, plain_ms, bound_ms, bound_by = timing[kname]
         src = "multivae_tpu_torch/csrc/" + (
             "mixture_bf16.cu" if kname.endswith("_bf16") else "mixture.cu")
+        base = kname.replace("_bf16", "")
         kernels.append({
             "name": f"mixture_{kname}", "route": "cuda", "source": src,
+            "design": mx.route(torch.bfloat16 if kname.endswith("_bf16") else torch.float32,
+                               base, SLICE_SHAPE["d"], SLICE_SHAPE["mq"], True),
             "replaces": f"multivae_tpu/ops/pallas_mixture.py:{line}",
             "launches": launches[kname], "max_abs_err": errs[kname], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,

@@ -25,17 +25,20 @@ with f Laplace or Normal, NOT divided by the expert count.
   bf16 and compute in float32: ``out`` is float32 for both, and ``dz``
   (``dmu``, ``dsig``) come back in the inputs' dtype. ``route`` names the
   design a bf16 launch takes: the tensor-copy kernels written for bf16
-  (``"tma"``: the forward and the dz-only backward on 16-byte rows of at
-  most ``TMA_MAX_D`` coordinates and at most ``TMA_MAX_Q`` experts) or
-  ``mixture.cu``'s kernels built for bf16 (``"template"``: the full
-  backward and every other shape); float32 always takes
+  (``"tma"``: the forward, the dz-only backward and the full backward on
+  16-byte rows of at most ``TMA_MAX_D`` coordinates and at most
+  ``TMA_MAX_Q`` experts; the full backward adds dmu and dsig across a
+  column's row splits in a thread block cluster, bound by its 31.5 MB at
+  the slice, 9.4 us) or ``mixture.cu``'s kernels built for bf16
+  (``"template"``: every other shape); float32 always takes
   ``"template"``. There is no fallback and no cast: a CUDA input the
   kernels do not take (another dtype, mixed dtypes, not contiguous, too
   large for shared memory) raises, and so does a failed launch of the
   design the route names.
 - ``_fwd_reference`` and ``_bwd_reference`` compute in plain PyTorch what
   the C entries compute (``mixture_fwd`` and ``mixture_fwd_tma``,
-  ``mixture_bwd`` and ``mixture_bwd_dz_tma``), with the same arguments and
+  ``mixture_bwd``, ``mixture_bwd_dz_tma`` and ``mixture_bwd_tma``), with the
+  same arguments and
   outputs, so the CPU tests can drive the autograd glue.
 
 ``launches`` counts kernel launches, one per launch of each kernel (the
@@ -145,9 +148,8 @@ def route(dtype: torch.dtype, mode: str, d: int, mq: int, vec: bool) -> str:
     """The design a launch of ``mode`` ('fwd', 'bwd_dz' or 'bwd') takes for
     inputs of ``dtype`` with rows of ``d`` coordinates, ``mq`` experts and
     16-byte rows (``vec``, see ``_vectorized``): ``"tma"`` (the bf16
-    forward and dz-only backward that TMA tensor copies feed) or
-    ``"template"``."""
-    if (dtype == torch.bfloat16 and mode in ("fwd", "bwd_dz") and vec
+    kernels that TMA tensor copies feed) or ``"template"``."""
+    if (dtype == torch.bfloat16 and mode in ("fwd", "bwd_dz", "bwd") and vec
             and d <= TMA_MAX_D and mq <= TMA_MAX_Q):
         return "tma"
     return "template"
@@ -163,6 +165,8 @@ def _lib(dtype: torch.dtype = torch.float32) -> ctypes.CDLL:
         lib.mixture_fwd_tma.restype = I
         lib.mixture_bwd_dz_tma.argtypes = [P] * 8 + [I] * 5 + [P]
         lib.mixture_bwd_dz_tma.restype = I
+        lib.mixture_bwd_tma.argtypes = [P] * 10 + [I] * 5 + [P]
+        lib.mixture_bwd_tma.restype = I
         lib.mixture_tma_launch_shape.argtypes = [I] * 6 + [P]
         lib.mixture_tma_launch_shape.restype = I
         lib.mixture_empty.argtypes = [P]
@@ -187,15 +191,17 @@ def launch_shape(r: int, b: int, d: int, mq: int, mode: str, laplace=True,
     """How the kernel of ``mode`` ('fwd', 'bwd_dz' or 'bwd') for ``dtype``
     launches at these shapes on the current card: its ``route``, blocks
     per SM (occupancy), threads per block, row splits and shared memory
-    per block (and the rows a block holds, on the "tma" route)."""
+    per block; on the "tma" route also the rows a block takes, the rows it
+    holds in shared memory at once, the blocks of a cluster (the full
+    backward's splits) and whether all blocks are resident at once."""
     m = {"fwd": _FWD, "bwd_dz": _BWD_DZ, "bwd": _BWD}[mode]
     design = route(dtype, mode, d, mq, vec)
     keys = ("blocks_per_sm", "threads", "splits", "smem_bytes")
     if design == "tma":
-        vals = (ctypes.c_int * 5)()
+        keys += ("rows_per_block", "rows_per_round", "cluster", "one_wave")
+        vals = (ctypes.c_int * len(keys))()
         err = _lib(dtype).mixture_tma_launch_shape(r, b, d, mq, m, int(laplace),
                                                    ctypes.cast(vals, ctypes.c_void_p))
-        keys += ("rows_per_block",)
     else:
         vals = (ctypes.c_int * 4)()
         err = _lib(dtype).mixture_launch_shape(r, b, d, mq, m, int(laplace), int(vec),
@@ -306,9 +312,15 @@ def _run_bwd(design, z3, mus, sigmas, logc, mask, out, g, dz, dmu, dsig,
     ins = (z3.data_ptr(), mus.data_ptr(), sigmas.data_ptr(), logc.data_ptr(),
            mask.data_ptr(), out.data_ptr(), g.data_ptr(), dz.data_ptr())
     with torch.cuda.device(z3.device):
-        if design == "tma":
+        if design == "tma" and dmu is None:
+            entry = "mixture_bwd_dz_tma"
             err = lib.mixture_bwd_dz_tma(*ins, r, b, d, mq, int(laplace), _stream())
+        elif design == "tma":
+            entry = "mixture_bwd_tma"
+            err = lib.mixture_bwd_tma(*ins, dmu.data_ptr(), dsig.data_ptr(), r, b, d, mq,
+                                      int(laplace), _stream())
         else:
+            entry = "mixture_bwd"
             mode = _BWD if dmu is not None else _BWD_DZ
             _check_smem(lib, (r, b, d, mq), mode, vec, z3.device)
             # the bf16 chunked path's float partial sums (none elsewhere)
@@ -318,7 +330,7 @@ def _run_bwd(design, z3, mus, sigmas, logc, mask, out, g, dz, dmu, dsig,
                   if n_ws else None)
             err = lib.mixture_bwd(*ins, _ptr(dmu), _ptr(dsig), r, b, d, mq,
                                   int(laplace), int(vec), _ptr(ws), _stream())
-    _raise_on(err, "mixture_bwd_dz_tma" if design == "tma" else "mixture_bwd")
+    _raise_on(err, entry)
 
 
 def _launch_fwd(z3, mus, sigmas, mask, laplace: bool):

@@ -328,14 +328,18 @@ def test_kernel_takes_d_up_to_its_register_layout():
 @pytest.mark.parametrize("dtype, mode, d, mq, vec, design", [
     (torch.bfloat16, "fwd", 512, 5, True, "tma"),        # the MMVAE slice
     (torch.bfloat16, "bwd_dz", 512, 5, True, "tma"),
-    (torch.bfloat16, "bwd", 512, 5, True, "template"),   # the full backward
+    (torch.bfloat16, "bwd", 512, 5, True, "tma"),        # the full backward
     (torch.bfloat16, "fwd", 32, 5, True, "tma"),         # mmvaeplus_k10
     (torch.bfloat16, "bwd_dz", 32, 5, True, "tma"),
     (torch.bfloat16, "fwd", 2048, 8, True, "tma"),       # the design's edge
+    (torch.bfloat16, "bwd", 2048, 8, True, "tma"),
     (torch.bfloat16, "bwd_dz", 64, 1, True, "tma"),
     (torch.bfloat16, "fwd", 100, 3, False, "template"),  # D % 8 != 0: scalar
     (torch.bfloat16, "bwd_dz", 64, 11, True, "template"),  # MQ > 8
     (torch.bfloat16, "fwd", 2056, 2, True, "template"),  # rows over 2048
+    (torch.bfloat16, "bwd", 100, 3, False, "template"),
+    (torch.bfloat16, "bwd", 64, 11, True, "template"),
+    (torch.bfloat16, "bwd", 2056, 2, True, "template"),
     (torch.float32, "fwd", 512, 5, True, "template"),
     (torch.float32, "bwd_dz", 512, 5, True, "template"),
 ])
@@ -355,6 +359,7 @@ def test_route_limits_are_the_kernel_sources():
     assert mx.TMA_MAX_D == consts["kMaxThreads"] * consts["kElems"]
     bf16 = (cuda_build.CSRC_DIR / "mixture_bf16.cu").read_text()
     assert "int mixture_fwd_tma(" in bf16 and "int mixture_bwd_dz_tma(" in bf16
+    assert "int mixture_bwd_tma(" in bf16
 
 
 @pytest.fixture
@@ -427,15 +432,68 @@ def test_bf16_glue_through_the_routed_entries(reference_entries, dist, d, design
 
 def test_bf16_full_backward_and_float32_take_the_template(reference_entries):
     """With mus and sigmas needing gradients a bf16 backward takes the
-    template's full backward (``bwd_bf16``); float32 takes the template
-    for every kernel."""
+    full backward of the design ``route`` names (``bwd_bf16``): the
+    tensor-copy kernel on 16-byte rows, the template's at D % 8 != 0;
+    float32 takes the template for every kernel."""
     calls = reference_entries
-    z, mus, sig, mask, g = _bf16_inputs(16)
-    leaves = [t.clone().requires_grad_() for t in (z, mus, sig)]
-    grads = torch.autograd.grad(_glue(*leaves, mask, "laplace"), leaves, g)
-    assert all(t.dtype == torch.bfloat16 for t in grads)
+    for d in (16, 12):
+        z, mus, sig, mask, g = _bf16_inputs(d)
+        leaves = [t.clone().requires_grad_() for t in (z, mus, sig)]
+        grads = torch.autograd.grad(_glue(*leaves, mask, "laplace"), leaves, g)
+        assert all(t.dtype == torch.bfloat16 for t in grads)
     z32 = z.float().requires_grad_()
     torch.autograd.grad(_glue(z32, mus.float(), sig.float(), mask.float(), "laplace"),
                         [z32], g)
-    assert calls == [("fwd", "tma"), ("bwd", "template"),
-                     ("fwd", "template"), ("bwd_dz", "template")]
+    assert calls == [("fwd", "tma"), ("bwd", "tma"), ("fwd", "template"),
+                     ("bwd", "template"), ("fwd", "template"), ("bwd_dz", "template")]
+
+
+@pytest.mark.parametrize("dist", ["laplace", "normal"])
+def test_bf16_full_backward_through_the_tma_entry(reference_entries, dist):
+    """The full backward on bf16 inputs at D = 16 asks the tensor-copy
+    entry for it, counts it under ``bwd_bf16``, and gives bf16 dz, dmu and
+    dsig against the plain version in float64 on the same bf16 values, with
+    exactly zero dmu and dsig on the masked expert and zero gradients on the
+    fully masked column."""
+    calls = reference_entries
+    z, mus, sig, mask, g = _bf16_inputs(16)
+    before = dict(mx.launches)
+    leaves = [t.clone().requires_grad_() for t in (z, mus, sig)]
+    grads = torch.autograd.grad(_glue(*leaves, mask, dist), leaves, g)
+    assert calls == [("fwd", "tma"), ("bwd", "tma")]
+    assert mx.launches == {**before, "fwd_bf16": before["fwd_bf16"] + 1,
+                           "bwd_bf16": before["bwd_bf16"] + 1}
+    assert all(t.dtype == torch.bfloat16 for t in grads)
+    l64 = [t.double().requires_grad_() for t in (z, mus, sig)]
+    grads64 = torch.autograd.grad(
+        mx.mixture_log_density_plain(*l64, mask.double(), dist), l64, g.double())
+    for got, want in zip(grads, grads64):
+        # float32 arithmetic, then one bf16 rounding of each entry
+        assert (got.double() - want).abs().max() <= 4e-3 * want.abs().max() + 1e-3
+    dz, dmu, dsig = grads
+    assert (dz[:, :, 0] == 0).all() and (dmu[:, 0] == 0).all() and (dsig[:, 0] == 0).all()
+    assert (dmu[1, :3] == 0).all() and (dsig[1, :3] == 0).all()
+    assert (dmu[1, 3:] != 0).any() and (dsig[1, 3:] != 0).any()
+
+
+def test_bf16_full_backward_matches_tpu_kernel_in_interpret_mode(reference_entries,
+                                                                 interpret_mode):
+    """The bf16 full backward through the tensor-copy entry against the
+    TPU kernel's ``_bwd_kernel`` (interpret mode) on the same bf16-rounded
+    values, widened to float32 for JAX: Normal, since the TPU kernel takes
+    the Laplace sign as +1 at z == mu, which bf16 values often hit, and no
+    fully masked column, whose gradient the TPU kernel does not zero. Each
+    entry carries one bf16 rounding (2^-8 of itself) beside float32
+    noise."""
+    calls = reference_entries
+    z, mus, sig, mask, g = _bf16_inputs(16)
+    mask[:, 0] = 1.0
+    leaves = [t.clone().requires_grad_() for t in (z, mus, sig)]
+    grads = torch.autograd.grad(_glue(*leaves, mask, "normal"), leaves, g)
+    assert calls == [("fwd", "tma"), ("bwd", "tma")]
+    _, grads_p = _jax_value_and_grads(pm._mixture_pallas,
+                                      *(t.float().numpy() for t in (z, mus, sig, mask)),
+                                      g.numpy(), "normal")
+    for got, want in zip(grads, grads_p):
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=2 ** -8 + 1e-4,
+                                   atol=1e-4)
