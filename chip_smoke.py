@@ -240,10 +240,10 @@ Phases (any failure exits non-zero and prints no result line):
     latents equal the host loop's, with no second upload (device memory
     grows by the latents only);
 23. ``graphed_steps``: ``steps_per_execution`` as CUDA graphs, under
-    cuDNN's deterministic algorithms: ``mmvaeplus_partial`` (1,024 rows;
+    cuDNN's deterministic algorithms: ``mmvaeplus_partial`` (384 rows;
     the mixture kernels inside the graphs), ``mvtcae_conv``,
     ``dmvae_mnist_svhn``, ``mvae_conv`` (the warm-up from ``batch_ratio``,
-    the random subsets; 2,048 rows each) and ``telbo_conv`` (4,096 rows;
+    the random subsets; 2,048 rows each) and ``telbo_conv`` (3,072 rows;
     the optimizer reset and the stage flip drop the graphs; 4 epochs, so
     that stage 2 replays), each on its cached rows for 3 epochs: eager,
     with ``steps_per_execution`` 8, and with the epoch's batch count and
@@ -271,8 +271,8 @@ Phases (any failure exits non-zero and prints no result line):
     group (``parallel/mesh.py``), under cuDNN's deterministic algorithms:
     ``mmvae_conv`` (1,024 incomplete rows, DReG: the mixture kernels in
     every rank's step) and ``mvtcae_conv`` (1,000 rows: the last batch's 24
-    padding rows on rank 1; ReduceLROnPlateau on the global eval loss), 2
-    epochs at the global batch of 256, each (a) in one process with no
+    padding rows on rank 1; ReduceLROnPlateau on the global eval loss), 1
+    epoch at the global batch of 256, each (a) in one process with no
     group, (b) in a group of one process over NCCL opened in this process,
     equal to (a) bit for bit (every epoch's losses, the weights), and (c) by
     two ranks on the one card over gloo, spawned (``--dp-rank``), at 128
@@ -324,7 +324,19 @@ Phases (any failure exits non-zero and prints no result line):
     and 1 dz-only backward a rank a step; (c) with four cards, four NCCL
     ranks as data 2 x model 2 with ``fsdp``, graphed, against (a)'s
     replicated run (``python3 chip_smoke.py --state-sharding-four`` runs
-    (c) and that run alone); the phase's seconds;
+    (b) and (c) and that run alone); and the checkpoints of
+    ``checkpoint_backend="orbax"``, asynchronous: (a)'s ``fsdp`` run saves
+    every epoch, each epoch's ``train_state/`` restored bit-equal to the
+    masters and moments copied at its save, and a run resumed from epoch 1
+    bit-equal to the final weights with the same launches a step; (b)'s
+    ``fsdp`` ranks save sharded (each rank's file about its bytes at rest),
+    restored whole in one process bit-equal to their final weights, and
+    with four cards by (c)'s ranks in their layout; one ``crmvae_resnet``
+    trainer after one step saves with "msgpack" and twice with "orbax",
+    each restored to the saved state bit for bit; a line a save with the
+    seconds the loop was blocked, to the files written and to the commit,
+    the bytes a rank and the restore's seconds, beside the card's name and
+    power limit; the phase's seconds;
 27. the seconds the whole run took, a ``kernels`` JSON line (launches
     summed over every training and inference phase that runs the kernels,
     each kernel at least once), then the last line
@@ -3065,18 +3077,19 @@ GRAPHED_RTOL = 1e-6
 GRAPHED_SPREAD_FACTOR = 10.0
 GRAPHED_SPREAD_RUNS = ("eager_nondeterministic", "eager_nondeterministic_2")
 # (workload, rows, mixture launches a train step, epochs). MMVAE+ (batch
-# 32) on 512 rows: 16 steps an epoch, as its whole-epoch graph's capture
-# takes ~0.2 s a step (1,024 rows until the state_sharding phase needed the
-# time); TELBO takes 16 steps an epoch, so that graphs are
+# 32) on 384 rows: 12 steps an epoch, a chunk of 8 and one of 4, as its
+# whole-epoch graph's capture takes ~0.2 s a step (1,024 rows until the
+# state_sharding phase needed the time, then 512 until its checkpoints
+# did); TELBO takes 12 steps an epoch, so that graphs are
 # captured within each stage around its reset, and a fourth epoch: its
 # reset (epoch 2) and stage flip (3) drop the graphs, so the whole-epoch
 # run replays only in epoch 4
-GRAPHED_WORKLOADS = (("mmvaeplus_partial", GRAPHED_ROWS // 4, {"fwd": 2, "bwd_dz": 1},
+GRAPHED_WORKLOADS = (("mmvaeplus_partial", GRAPHED_ROWS * 3 // 16, {"fwd": 2, "bwd_dz": 1},
                       GRAPHED_EPOCHS),
                      ("mvtcae_conv", GRAPHED_ROWS, None, GRAPHED_EPOCHS),
                      ("dmvae_mnist_svhn", GRAPHED_ROWS, None, GRAPHED_EPOCHS),
                      ("mvae_conv", GRAPHED_ROWS, None, GRAPHED_EPOCHS),
-                     ("telbo_conv", 2 * GRAPHED_ROWS, None, GRAPHED_EPOCHS + 1))
+                     ("telbo_conv", GRAPHED_ROWS * 3 // 2, None, GRAPHED_EPOCHS + 1))
 # The pipelined finalization on and off: dmvae_mnist_svhn (no
 # ReduceLROnPlateau, no eval set) for 12 epochs of whole-epoch graphs under
 # a StepLR that halves the rate every 4 epochs, so that two rate changes
@@ -3089,12 +3102,14 @@ PIPELINE_SETTINGS = dict(scheduler_cls="StepLR", scheduler_params={"step_size": 
 
 
 def _graphed_run(mx, name, rows, epochs, device, steps, pipeline, out, checkpoint=None,
-                 steps_saving=None, capturable=False, overrides=None, callbacks=()):
+                 steps_saving=None, capturable=False, overrides=None, callbacks=(),
+                 on_trainer=None):
     """``name`` of ``tools/workloads.py`` on ``rows`` cached rows (seeded
     weights and data), trained ``epochs`` epochs with ``steps_per_execution``
     = ``steps`` (0: the epoch's batch count), its optimizer made
     ``capturable`` on request, ``overrides`` of its trainer settings,
-    ``callbacks`` beside its own.
+    ``callbacks`` beside its own, ``on_trainer`` called with the trainer
+    once it is built.
     Returns (record, trainer, the live weights
     before training, the final ones). The train steps' span
     of each epoch comes from CUDA events at the start of its train pass and
@@ -3143,6 +3158,8 @@ def _graphed_run(mx, name, rows, epochs, device, steps, pipeline, out, checkpoin
     check(trainer._train_cache is not None and (w.eval is None or trainer._eval_cache is not None),
           f"{name}: a cache came back None")
     spans.graphs = trainer._graphs["train"]
+    if on_trainer is not None:
+        on_trainer(trainer)
     if capturable and torch.device(device).type == "cuda":
         from multivae_tpu_torch.trainers.base.optim import make_capturable
 
@@ -3213,6 +3230,9 @@ def _replayed_kernels(trainer, n):
     from torch.profiler import ProfilerActivity, profile
 
     (graph, captured), = [v for k, v in trainer._graphs["train"].graphs.items() if k[0] == n]
+    # the chunk's first plan row: the epoch's last chunk may have been a
+    # shorter remainder, whose start would take this graph past the plan
+    trainer._chunk_start["train"].fill_(0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         graph.replay()
@@ -3437,7 +3457,7 @@ def _pipeline_runs(mx, device, out):
 # rows make 4 full global batches of 256; mvtcae_conv's 1,000 leave a last
 # batch of 232 rows and 24 padding rows, which fall on rank 1 of 2.
 DP_WORKLOADS = (("mmvae_conv", 1024, {"fwd": 2, "bwd_dz": 1}), ("mvtcae_conv", 1000, {}))
-DP_EPOCHS = 2
+DP_EPOCHS = 1
 DP_BATCH = 256                 # the global train and eval batch
 DP_RANK_TIMEOUT = 480          # seconds a spawned rank may take
 DP_GROUP_TIMEOUT = 120         # seconds a collective may wait for its partners
@@ -3515,14 +3535,16 @@ def _pass_launches(mx):
 
 
 def _dp_run(mx, name, rows, per_step, per_device, device="cuda", epochs=DP_EPOCHS,
-            eval_step=None, overrides=None):
+            eval_step=None, overrides=None, output_dir=None):
     """``name`` of ``tools/workloads.py`` on ``rows`` seeded rows, trained
     ``epochs`` epochs by ``BaseTrainer`` at ``per_device`` rows a device
     (``overrides`` of its trainer settings), alone or as this rank of the
     process group that exists; returns (its record, the start and final
     weights on the host). The mixture kernels must launch ``per_step``
     times on each train step and ``eval_step`` (default: its forwards) on
-    each eval step, on this process's counters."""
+    each eval step, on this process's counters. The training folder is
+    removed at the end, unless it is under ``output_dir``; the record holds
+    its checkpoints' ``checkpoint_times``."""
     from multivae_tpu_torch.tools import workloads
     from multivae_tpu_torch.trainers import BaseTrainer, BaseTrainerConfig
 
@@ -3532,7 +3554,8 @@ def _dp_run(mx, name, rows, per_step, per_device, device="cuda", epochs=DP_EPOCH
     passes = _pass_launches(mx)
     trainer = BaseTrainer(w.model, w.train, w.eval, device=device, callbacks=[passes],
                           training_config=BaseTrainerConfig(
-                              output_dir=os.path.join(ROOT, "build", "chip_smoke", "dp"),
+                              output_dir=output_dir or os.path.join(ROOT, "build", "chip_smoke",
+                                                                    "dp"),
                               num_epochs=epochs, seed=0, **kwargs))
     start = {k: v.detach().cpu().clone() for k, v in w.model.state_dict().items()}
     timer = None
@@ -3588,8 +3611,11 @@ def _dp_run(mx, name, rows, per_step, per_device, device="cuda", epochs=DP_EPOCH
 
         record["train_cache"] = {"kind": type(trainer._train_cache).__name__,
                                  "bytes": cache_per_device_nbytes(trainer._train_cache)}
+    if trainer.checkpoint_times:
+        record["checkpoint"] = dict(trainer.checkpoint_times, training_dir=trainer.training_dir)
     final = {k: v.detach().cpu().clone() for k, v in w.model.state_dict().items()}
-    if trainer.is_main_process:   # every rank has left train(): the final model is written
+    # every rank has left train(): the final model is written
+    if trainer.is_main_process and output_dir is None:
         shutil.rmtree(trainer.training_dir, ignore_errors=True)
     del trainer, w
     torch.cuda.empty_cache()
@@ -3735,8 +3761,8 @@ def _dp_compare(label, ref, ref_start, ref_final, run, final, exact):
 # evaluators over ranks.
 # (workload, rows, epochs, steps a chunk): mmvae_conv's DReG step (partial
 # PolyMNIST, batch 256) on 2,048 cached rows, 8 steps an epoch: epoch 1 runs
-# the eager chunk, epoch 2 captures, epochs 3 and 4 replay
-DP_GRAPHED = ("mmvae_conv", 2048, 4, 8)
+# the eager chunk, epoch 2 captures, epoch 3 replays
+DP_GRAPHED = ("mmvae_conv", 2048, 3, 8)
 # (workload, rows): the two gloo ranks' sharded-cache runs; "auto" gets a
 # budget of DP_AUTO_BUDGET of the set's bytes, which only the sharded layout
 # (half a set a rank) fits
@@ -4453,11 +4479,11 @@ def mixed_precision_phase(mx, device="cuda", one_process_backend="nccl",
 # algorithms.
 # (a) (workload, rows, epochs, steps a chunk): 8-step CUDA graphs on 2,048
 # cached rows in a one-process NCCL group, fsdp off and on: epoch 1 runs
-# the eager chunk, epoch 2 captures, epochs 3 and 4 replay. Over a data axis
+# the eager chunk, epoch 2 captures, epoch 3 replays. Over a data axis
 # of one the gathers and scatters copy and the optimizer steps the same
 # numbers in flat masters: bit-equal, else within GRAPHED_RTOL (the loss
 # gaps and the weights' moves), the reason printed.
-SS_GRAPHED = ("mmvae_conv", 2048, 4, 8)
+SS_GRAPHED = ("mmvae_conv", 2048, 3, 8)
 # (b) two gloo ranks on the one card, eager, one epoch of SS_ROWS rows at the
 # global batch DP_BATCH, each layout against one process on the global
 # batch within DP_RTOL / DP_MOVE_RTOL (the data_parallel phase's gates):
@@ -4471,6 +4497,18 @@ SS_LAYOUTS = (("fsdp_data2", dict(n_devices=2, fsdp=True)),
 # at 128 rows a data index, against (a)'s graphed run without fsdp within
 # DP_RTOL / DP_MOVE_RTOL
 SS_FOUR = dict(n_devices=2, n_model_devices=2, fsdp=True)
+# The checkpoints part: checkpoint_backend="orbax" (trainers/base/checkpoint.py),
+# each rank writing its own pieces of the train state, in the background.
+# (a) the fsdp run of SS_GRAPHED saves every epoch; each epoch's train_state
+# restored into its trainer must give the masters and optimizer moments
+# copied at the save, bit for bit, and a run resumed from epoch 1 the run's
+# final weights. (b) the fsdp_data2 ranks save at their end; this process
+# restores the checkpoint whole, replicated, and (c) four NCCL ranks into
+# data 2 x model 2. (d) one crmvae_resnet trainer (103.1 M parameters) after
+# one step of SS_LARGE rows saves with "msgpack", then with "orbax" twice
+# (the first save pins its host buffers), each restored in turn.
+SS_CHECKPOINT = dict(checkpoint_backend="orbax", async_checkpointing=True)
+SS_LARGE = ("crmvae_resnet", 256)
 # seconds a spawned rank of this phase may take
 SS_RANK_TIMEOUT = 240
 SS_PER_STEP, SS_EVAL_FWD = {"fwd": 2, "bwd_dz": 1}, 2
@@ -4544,10 +4582,13 @@ def ss_graphed(mx, device="cuda", backend="nccl", fsdps=(False, True)):
     runs, launches = {}, {k: 0 for k in KERNELS}
     try:
         for fsdp in fsdps:
+            saved = {}
             with _capture_log() as log:
                 run, trainer, start, end = _graphed_run(
                     mx, name, rows, epochs, device, chunk, False,
-                    os.path.join(out, str(fsdp)), overrides={"fsdp": fsdp})
+                    os.path.join(out, str(fsdp)), steps_saving=1 if fsdp else None,
+                    overrides={"fsdp": fsdp, **(SS_CHECKPOINT if fsdp else {})},
+                    on_trainer=(lambda t: saved.update(_checkpoint_log(t))) if fsdp else None)
             check(run["launches"] == _expected_launches(run),
                   f"ss_graphed fsdp={fsdp}: expected {_expected_launches(run)} launches, "
                   f"got {run['launches']}")
@@ -4568,6 +4609,11 @@ def ss_graphed(mx, device="cuda", backend="nccl", fsdps=(False, True)):
                       f"{seen}, counted {counted}, expected {want}")
                 run.update(mixture_a_replay=seen, nccl_in_a_replay=nccl,
                            device_activities_in_a_replay=events)
+            if fsdp:
+                run["checkpoints"], resumed = _ss_checkpoints(mx, trainer, saved, end, out,
+                                                              device)
+                for k in KERNELS:
+                    launches[k] += resumed[k]
             runs[fsdp] = (run, start, end)
             del trainer
             torch.cuda.empty_cache()
@@ -4599,6 +4645,7 @@ def ss_graphed(mx, device="cuda", backend="nccl", fsdps=(False, True)):
                                    "fsdp": ours.get("nccl_in_a_replay")},
               "peak_above_held_bytes": {"replicated": rep["peak_above_held_bytes"],
                                         "fsdp": ours["peak_above_held_bytes"]},
+              "checkpoints": ours["checkpoints"],
               "epoch_losses": ours["epoch_losses"], "eval_losses": ours["eval_losses"]}
     if not same:
         record["reason"] = ("not bit-equal to the replicated graphed run: within GRAPHED_RTOL "
@@ -4625,10 +4672,13 @@ def _progress(tag):
 
 
 def ss_rank_main(argv, device="cuda"):
-    """A spawned rank: ``--ss-rank R WORLD PORT BACKEND OUT MODE``. Joins the
-    group at ``tcp://127.0.0.1:PORT``; MODE ``eager`` trains each layout of
-    ``SS_LAYOUTS`` (b), ``graphed`` trains ``SS_FOUR`` as graphs (c); each
-    record and final weights saved under ``OUT``."""
+    """A spawned rank: ``--ss-rank R WORLD PORT BACKEND OUT MODE
+    [CHECKPOINT]``. Joins the group at ``tcp://127.0.0.1:PORT``; MODE
+    ``eager`` trains each layout of ``SS_LAYOUTS`` (b), the first saving its
+    sharded train state under ``OUT``; ``graphed`` first restores
+    CHECKPOINT in ``SS_FOUR``'s layout where it is given, then trains
+    ``SS_FOUR`` as graphs (c); each record and final weights saved under
+    ``OUT``."""
     import datetime
 
     import torch.distributed as dist
@@ -4652,15 +4702,27 @@ def ss_rank_main(argv, device="cuda"):
     try:
         if mode == "eager":
             for label, layout in SS_LAYOUTS:
+                # fsdp over data 2 saves its train state sharded, kept for the parent
+                saving = dict(SS_CHECKPOINT, steps_saving=1) if label == "fsdp_data2" else {}
                 record, _, final = _dp_run(mx, SS_GRAPHED[0], SS_ROWS, SS_PER_STEP,
                                            DP_BATCH // layout["n_devices"], device,
-                                           epochs=SS_EPOCHS, overrides=layout)
+                                           epochs=SS_EPOCHS, overrides={**layout, **saving},
+                                           output_dir=(os.path.join(out, "checkpoints")
+                                                       if saving else None))
                 torch.save(final, os.path.join(out, f"{label}_rank{rank}.pt"))
                 with open(os.path.join(out, f"{label}_rank{rank}.json"), "w") as f:
                     json.dump(record, f)
         else:
             name, rows, epochs, chunk = SS_GRAPHED
             per = DP_BATCH // SS_FOUR["n_devices"]
+            if len(argv) > 6:   # the two gloo ranks' checkpoint, restored in this layout
+                whole, restore_s = _restored(name, SS_ROWS, per, device, argv[6],
+                                             overrides=SS_FOUR)
+                if rank == 0:
+                    torch.save(whole, os.path.join(out, "four_restored.pt"))
+                with open(os.path.join(out, f"four_restore_rank{rank}.json"), "w") as f:
+                    json.dump({"restore_s": restore_s}, f)
+                print(f"[{time.strftime('%H:%M:%S')}] restore done", flush=True)
             # eager first: one epoch of SS_ROWS rows, as (b)
             record, _, final = _dp_run(mx, name, SS_ROWS, SS_PER_STEP, per, device,
                                        epochs=SS_EPOCHS, overrides=SS_FOUR)
@@ -4721,16 +4783,31 @@ def _ss_ranks(label, world, out, alone, alone_start, alone_final, counts):
         "launches_per_step")} for r in ranks]}
 
 
-def ss_four(mx, device, alone_run, eager_alone, counts, rank_command=None, backend="nccl"):
+def ss_four(mx, device, alone_run, eager_alone, counts, rank_command=None, backend="nccl",
+            checkpoint=None):
     """(c): four ``backend`` ranks, one card each, as data 2 x model 2 with
-    fsdp: one eager epoch against ``eager_alone`` (``_dp_run``'s (record,
-    start, final) of one process) as (b), then graphs of 8 steps against
-    (a)'s replicated graphed run."""
+    fsdp: ``checkpoint`` (``(folder, the saving ranks' final weights)``)
+    restored and held to those weights bit for bit, one eager epoch against
+    ``eager_alone`` (``_dp_run``'s (record, start, final) of one process) as
+    (b), then graphs of 8 steps against (a)'s replicated graphed run."""
     out = os.path.join(ROOT, "build", "chip_smoke", "state_sharding", "four")
     t0 = time.perf_counter()
     _spawn_ranks(4, backend, out, (rank_command or [
-        sys.executable, os.path.abspath(__file__), "--ss-rank"]), extra=["graphed"],
-        timeout=SS_RANK_TIMEOUT)
+        sys.executable, os.path.abspath(__file__), "--ss-rank"]),
+        extra=["graphed"] + ([checkpoint[0]] if checkpoint else []), timeout=SS_RANK_TIMEOUT)
+    restore = None
+    if checkpoint:
+        whole = torch.load(os.path.join(out, "four_restored.pt"), weights_only=True)
+        check(list(whole) == list(checkpoint[1])
+              and all(torch.equal(whole[k], v) for k, v in checkpoint[1].items()),
+              "state_sharding four: the two gloo ranks' checkpoint restored on data 2 x "
+              "model 2 is not their final weights")
+        restore = []
+        for r in range(4):
+            with open(os.path.join(out, f"four_restore_rank{r}.json")) as f:
+                restore.append(json.load(f)["restore_s"])
+        print(f"  checkpoint {SS_GRAPHED[0]} of the gloo ranks into data 2 x model 2: restore "
+              f"{max(restore):.4f} s (slowest of 4 ranks), bit-equal | {_card()}", flush=True)
     eager = _ss_ranks("four_eager", 4, out, *eager_alone, counts)
     alone, start, end = alone_run
     ranks, finals = [], []
@@ -4751,6 +4828,7 @@ def ss_four(mx, device, alone_run, eager_alone, counts, rank_command=None, backe
           f"state_sharding four: beyond {DP_RTOL} / {DP_MOVE_RTOL} of the run alone: {gaps}")
     shutil.rmtree(out, ignore_errors=True)
     return {"eager": eager, "gaps": gaps, "spawn_and_train_s": time.perf_counter() - t0,
+            "restore_s": restore,
             "alone_steps_per_s": alone["steps_per_s"],
             "ranks": [{k: r.get(k) for k in (
                 "rank", "steps_per_s", "captures", "replays", "state_bytes", "mixture_a_replay",
@@ -4767,14 +4845,224 @@ def _ss_eager_alone(mx, device, counts):
     return run
 
 
+def _card():
+    """The card's name and power limit, for each checkpoint line."""
+    return card_line() if torch.cuda.is_available() else "no card"
+
+
+def _checkpoint_log(trainer) -> dict:
+    """Hooks on ``trainer``: ``saves``, each save's ``checkpoint_times`` in
+    order (the dict the commit at the next wait completes), and
+    ``copies``, this rank's train state copied at each epoch's end, the
+    state each save writes."""
+    from multivae_tpu_torch.trainers.base.callbacks import TrainingCallback
+
+    saves, copies, plain = [], [], trainer.save_checkpoint
+
+    def save(dir_path, epoch):
+        plain(dir_path, epoch)
+        saves.append(trainer.checkpoint_times)
+
+    class Copies(TrainingCallback):
+        def on_epoch_end(self, training_config, **kwargs):
+            copies.append(_train_state(trainer))
+
+    trainer.save_checkpoint = save
+    trainer.callback_handler.add_callback(Copies())
+    return {"saves": saves, "copies": copies}
+
+
+def _train_state(trainer):
+    """Copies of this rank's masters and optimizer state tensors, where
+    they are."""
+    masters = [leaf.master.detach().clone() for leaf in trainer._layout().leaves]
+    optimizer = {i: {k: v.detach().clone() for k, v in entry.items()
+                     if isinstance(v, torch.Tensor)}
+                 for i, entry in trainer.optimizer.state_dict()["state"].items()}
+    return masters, optimizer
+
+
+def _same_train_state(a, b) -> bool:
+    (ma, oa), (mb, ob) = a, b
+
+    def same(x, y):   # a step count may sit on the host on one side
+        return x.shape == y.shape and torch.equal(x, y.to(x.device))
+
+    return (len(ma) == len(mb) and all(same(x, y) for x, y in zip(ma, mb))
+            and oa.keys() == ob.keys()
+            and all(oa[i].keys() == ob[i].keys()
+                    and all(same(oa[i][k], ob[i][k]) for k in oa[i]) for i in oa))
+
+
+def _timed_restore(trainer, checkpoint_dir) -> float:
+    """Seconds of ``trainer``'s resume from ``checkpoint_dir`` (what its
+    construction with ``checkpoint=`` runs)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer._resume_from_checkpoint(checkpoint_dir)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path)
+               for f in files)
+
+
+def _checkpoint_line(label, times, restore_s, card, extra=""):
+    """One save's line: the seconds the loop was blocked, those to its files
+    written and to its commit (a sharded save's, in the background: the
+    commit waits for the trainer's next wait), its bytes a rank and the
+    restore's seconds, beside the card's name and power limit."""
+    line = (f"  checkpoint {label}: blocked {times['blocked_s']:.4f} s, "
+            + (f"written {times['written_s']:.4f} s, commit {times['commit_s']:.4f} s, "
+               if "commit_s" in times else "")
+            + f"{times['bytes']} bytes a rank, restore {restore_s:.4f} s{extra} | {card}")
+    print(line, flush=True)
+
+
+def _ss_checkpoints(mx, trainer, saved, end, out, device):
+    """(a)'s checkpoints: each epoch's restored into ``trainer`` against the
+    copy taken at its save, then a run resumed from epoch 1 against the
+    final weights ``end``. Returns (the record, the resumed run's
+    launches)."""
+    name, rows, epochs, chunk = SS_GRAPHED
+    t0 = time.perf_counter()
+    card, saves, copies = _card(), saved["saves"], saved["copies"]
+    check(len(saves) == len(copies) == epochs and all("commit_s" in t for t in saves),
+          f"ss_graphed checkpoints: {len(saves)} saves committed of {epochs} epochs")
+    record = {"saves": [], "card": card}
+    for epoch, (times, copy) in enumerate(zip(saves, copies), 1):
+        path = os.path.join(trainer.training_dir, f"checkpoint_epoch_{epoch}")
+        restore_s = _timed_restore(trainer, path)
+        check(_same_train_state(_train_state(trainer), copy),
+              f"ss_graphed checkpoints: epoch {epoch}'s train_state restored is not the "
+              "state at its save")
+        record["saves"].append(dict(times, restore_s=restore_s))
+        _checkpoint_line(f"{name} graphed fsdp, 1 rank, epoch {epoch}", times, restore_s, card)
+    resumed, rtrainer, _, rend = _graphed_run(
+        mx, name, rows, epochs, device, chunk, False, os.path.join(out, "resumed"),
+        checkpoint=os.path.join(trainer.training_dir, "checkpoint_epoch_1"), steps_saving=1,
+        overrides={"fsdp": True, **SS_CHECKPOINT})
+    check(resumed["epochs_run"] == epochs - 1
+          and resumed["launches"] == _expected_launches(resumed),
+          f"ss_graphed checkpoints: the resumed run launched {resumed['launches']} in "
+          f"{resumed['epochs_run']} epochs, expected {_expected_launches(resumed)}")
+    same = all(torch.equal(rend[k], v) for k, v in end.items())
+    check(same, "ss_graphed checkpoints: the run resumed from epoch 1 does not repeat the "
+          f"uninterrupted run's final weights (move gap {_move_gap(end, rend, end)})")
+    record["resumed_bit_equal"] = same
+    del rtrainer
+    record["seconds"] = time.perf_counter() - t0
+    print(f"  state_sharding checkpoints (a): {record['seconds']:.1f} s", flush=True)
+    return record, resumed["launches"]
+
+
+def _restored(name, rows, per_device, device, checkpoint, overrides=None):
+    """A trainer of ``name`` on ``rows`` seeded rows at ``per_device`` rows a
+    device (``overrides``), as this rank of the group that exists, resumed
+    from ``checkpoint``; returns (its whole weights on the host, the
+    restore's seconds)."""
+    from multivae_tpu_torch.tools import workloads
+    from multivae_tpu_torch.trainers import BaseTrainer, BaseTrainerConfig
+
+    w = workloads.build(name, n=rows, device=device)
+    kwargs = dict(w.trainer_kwargs, per_device_train_batch_size=per_device,
+                  per_device_eval_batch_size=per_device, **(overrides or {}))
+    trainer = BaseTrainer(w.model, w.train, w.eval, device=device,
+                          training_config=BaseTrainerConfig(
+                              output_dir=os.path.join(ROOT, "build", "chip_smoke", "restored"),
+                              num_epochs=1, seed=0, **kwargs))
+    restore_s = _timed_restore(trainer, checkpoint)
+    whole = (trainer._state.whole_state_dict() if trainer._state is not None
+             else trainer.model.state_dict())
+    whole = {k: v.detach().cpu().clone() for k, v in whole.items()}
+    if trainer.is_main_process:
+        shutil.rmtree(trainer.training_dir, ignore_errors=True)
+    del trainer, w
+    torch.cuda.empty_cache()
+    return whole, restore_s
+
+
+def _ss_gloo_checkpoint(out, ranks, card, device, whole_state):
+    """(b)'s checkpoint: the two ranks' ``fsdp_data2`` save, restored whole
+    in this process and held to their final weights bit for bit; each
+    rank's file about its bytes at rest, not the whole state. Returns (the
+    record, the checkpoint's folder, rank 0's final weights)."""
+    final = torch.load(os.path.join(out, "fsdp_data2_rank0.pt"), weights_only=True)
+    saves = [r["checkpoint"] for r in ranks]
+    path = os.path.join(saves[0]["training_dir"], f"checkpoint_epoch_{SS_EPOCHS}")
+    whole, restore_s = _restored(SS_GRAPHED[0], SS_ROWS, DP_BATCH, device, path)
+    check(list(whole) == list(final) and all(torch.equal(whole[k], v) for k, v in final.items()),
+          "state_sharding checkpoints: the two ranks' sharded checkpoint restored in one "
+          "process is not their final weights")
+    files = [os.path.getsize(os.path.join(path, "train_state", f"rank_{r}.pt")) for r in (0, 1)]
+    at_rest = [r["state_bytes"]["params_and_optimizer"] for r in ranks]
+    check(all(f <= 1.05 * b for f, b in zip(files, at_rest)) and max(files) < 0.6 * whole_state,
+          f"state_sharding checkpoints: rank files of {files} bytes against {at_rest} at rest "
+          f"and {whole_state} in one process")
+    for r, times in enumerate(saves):
+        _checkpoint_line(f"{SS_GRAPHED[0]} fsdp over data 2, gloo, rank {r}",
+                         dict(times, bytes=files[r]), restore_s, card,
+                         f" (into one process), {at_rest[r]} bytes at rest")
+    return {"saves": saves, "rank_file_bytes": files, "bytes_at_rest": at_rest,
+            "restore_alone_s": restore_s, "restored_bit_equal": True}, path, final
+
+
+def _ss_large(device, card):
+    """(d): ``SS_LARGE`` trained one step, then saved and restored each way;
+    every restore held to the state at the saves bit for bit."""
+    from multivae_tpu_torch.tools import workloads
+    from multivae_tpu_torch.trainers import BaseTrainer, BaseTrainerConfig
+
+    name, rows = SS_LARGE
+    out = os.path.join(ROOT, "build", "chip_smoke", "ss_large")
+    shutil.rmtree(out, ignore_errors=True)
+    w = workloads.build(name, n=rows, device=device)
+    kwargs = dict(w.trainer_kwargs, per_device_train_batch_size=rows)
+    trainer = BaseTrainer(w.model, w.train, None, device=device, training_config=BaseTrainerConfig(
+        output_dir=out, num_epochs=1, seed=0, **kwargs))
+    trainer.train()
+    state = _train_state(trainer)
+    record = {"workload": name, "parameters": sum(p.numel() for p in w.model.parameters()),
+              "card": card}
+    try:
+        saves = [("msgpack", None)] + [("orbax", i) for i in (1, 2)]
+        for backend, i in saves:
+            trainer.training_config.checkpoint_backend = backend
+            where = os.path.join(out, backend if i is None else f"{backend}_{i}")
+            trainer.save_checkpoint(where, epoch=1)
+            trainer.wait_for_checkpoint()
+            times = dict(trainer.checkpoint_times)
+            path = os.path.join(where, "checkpoint_epoch_1")
+            times["checkpoint_dir_bytes"] = _dir_bytes(path)
+            if backend == "msgpack":   # rank 0 writes it all
+                times["bytes"] = times["checkpoint_dir_bytes"]
+            times["restore_s"] = _timed_restore(trainer, path)
+            check(_same_train_state(_train_state(trainer), state),
+                  f"state_sharding checkpoints: {name}'s {backend} restore is not the saved state")
+            key = backend if i is None else f"{backend}_{i}"
+            record[key] = times
+            extra = f", {times['checkpoint_dir_bytes']} bytes in the folder" + (
+                "" if backend == "msgpack" else
+                f", msgpack blocked {record['msgpack']['blocked_s']:.4f} s")
+            _checkpoint_line(f"{name}, 1 rank, {key}", times, times["restore_s"], card, extra)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    del trainer, w
+    torch.cuda.empty_cache()
+    return record
+
+
 def state_sharding(mx, device="cuda", one_process_backend="nccl", rank_command=None,
                    four_only=False):
     """The ``state_sharding`` phase: (a) ``ss_graphed``; (b) two gloo ranks
     on the one card, spawned (``--ss-rank``), fsdp over data 2 and data 1 x
     model 2, each against one process on the global batch, with each
     rank's bytes at rest of parameters and optimizer state beside the one
-    process's; (c) where the machine shows four cards, ``ss_four``.
-    ``four_only`` leaves out (b) and (a)'s fsdp run: (c) and the runs it is
+    process's, and the first's sharded checkpoint restored in this process;
+    (c) where the machine shows four cards, ``ss_four``; (d) ``_ss_large``.
+    ``four_only`` leaves out (a)'s fsdp run and (d): (c) and the runs it is
     held to. Returns (the record, the launches of every run and rank)."""
     t_phase = time.perf_counter()
     deterministic = torch.backends.cudnn.deterministic
@@ -4790,26 +5078,40 @@ def state_sharding(mx, device="cuda", one_process_backend="nccl", rank_command=N
             record["graphed"] = graphed
             print(json.dumps({"phase": "state_sharding", "graphed": graphed}), flush=True)
         eager_alone = alone, start, final = _ss_eager_alone(mx, device, counts)
+        # (b) in both modes: (c) restores its checkpoint
+        out = os.path.join(ROOT, "build", "chip_smoke", "state_sharding", "gloo2")
+        t0 = time.perf_counter()
+        _spawn_ranks(2, "gloo", out, rank_command or [
+            sys.executable, os.path.abspath(__file__), "--ss-rank"], extra=["eager"],
+            timeout=SS_RANK_TIMEOUT)
+        record["gloo2_spawn_and_train_s"] = time.perf_counter() - t0
+        record["alone"] = {k: alone[k] for k in ("steps_per_s", "epoch_losses",
+                                                 "eval_losses", "state_bytes",
+                                                 "launches_per_step")}
+        for label, _ in SS_LAYOUTS:
+            record[label] = _ss_ranks(label, 2, out, alone, start, final, counts)
+            for r in record[label]["ranks"]:
+                check(r["launches_per_step"]["train"] == {
+                    k: float(SS_PER_STEP.get(k, 0)) for k in KERNELS},
+                    f"state_sharding {label}: a rank's launches a step "
+                    f"{r['launches_per_step']}")
+        card = _card()
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(out, f"fsdp_data2_rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        t0 = time.perf_counter()
+        record["checkpoints"], saved, saved_final = _ss_gloo_checkpoint(
+            out, ranks, card, device, alone["state_bytes"]["params_and_optimizer"])
         if not four_only:
-            out = os.path.join(ROOT, "build", "chip_smoke", "state_sharding", "gloo2")
-            t0 = time.perf_counter()
-            _spawn_ranks(2, "gloo", out, rank_command or [
-                sys.executable, os.path.abspath(__file__), "--ss-rank"], extra=["eager"],
-                timeout=SS_RANK_TIMEOUT)
-            record["gloo2_spawn_and_train_s"] = time.perf_counter() - t0
-            record["alone"] = {k: alone[k] for k in ("steps_per_s", "epoch_losses",
-                                                     "eval_losses", "state_bytes",
-                                                     "launches_per_step")}
-            for label, _ in SS_LAYOUTS:
-                record[label] = _ss_ranks(label, 2, out, alone, start, final, counts)
-                for r in record[label]["ranks"]:
-                    check(r["launches_per_step"]["train"] == {
-                        k: float(SS_PER_STEP.get(k, 0)) for k in KERNELS},
-                        f"state_sharding {label}: a rank's launches a step "
-                        f"{r['launches_per_step']}")
-            shutil.rmtree(out, ignore_errors=True)
+            record["checkpoints"]["large"] = _ss_large(device, card)
+        record["checkpoints"]["seconds"] = time.perf_counter() - t0
+        print(f"  state_sharding checkpoints (b) and (d): "
+              f"{record['checkpoints']['seconds']:.1f} s", flush=True)
         if torch.cuda.device_count() >= 4:
-            record["four"] = ss_four(mx, device, alone_run, eager_alone, counts, rank_command)
+            record["four"] = ss_four(mx, device, alone_run, eager_alone, counts, rank_command,
+                                     checkpoint=(saved, saved_final))
+        shutil.rmtree(out, ignore_errors=True)
     finally:
         torch.backends.cudnn.deterministic = deterministic
     record["seconds"] = time.perf_counter() - t_phase

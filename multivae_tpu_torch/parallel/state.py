@@ -48,7 +48,11 @@ process alone (no group) keeps the same layout over axes of one and copies.
 Whole weights (``whole_state_dict``), whole optimizer state
 (``optimizer_state_whole``) and their inverses (``load_whole``,
 ``load_optimizer_whole``) convert to and from what a replicated run holds,
-keys and shapes alike: checkpoints and kept weights stay whole.
+keys and shapes alike: the msgpack checkpoints and the kept weights stay
+whole. The sharded checkpoints (``trainers/base/checkpoint.py``) write
+each master where ``place`` puts it in its leaf, one rank a distinct piece
+(``pieces``), and read them back into any layout through ``load_leaf``
+and ``_shard_of``, with no collective.
 """
 
 from __future__ import annotations
@@ -303,22 +307,54 @@ class ShardedState:
             shape[leaf.column_dim] //= self.model_axis.size
         return torch.Size(shape)
 
+    def place(self, leaf: _Leaf, data_index: Optional[int] = None,
+              model_index: Optional[int] = None) -> tuple:
+        """``(columns, flat)``: where the master of the rank at ``data_index``
+        x ``model_index`` (default: this rank) lies in ``leaf``'s whole
+        tensor. ``columns`` is its ``(start, stop)`` on ``leaf.column_dim``,
+        ``flat`` its ``(start, stop)`` in the flattened column block: its
+        piece of the model axis, then of the data axis. None where it keeps
+        all of it."""
+        di = self.data.index if data_index is None else data_index
+        mi = self.model_axis.index if model_index is None else model_index
+        columns = None
+        if leaf.column_dim is not None:
+            width = leaf.shape[leaf.column_dim] // self.model_axis.size
+            columns = (mi * width, (mi + 1) * width)
+        if not leaf.swapped:
+            return columns, None
+        start, n = 0, leaf.compute_shape.numel()
+        for cut, axis, index in ((leaf.model_cut, self.model_axis, mi),
+                                 (leaf.data_cut, self.data, di)):
+            if cut:
+                n //= axis.size
+                start += index * n
+        return columns, (start, start + n)
+
+    def pieces(self, leaf: _Leaf) -> list:
+        """``[(rank, columns, flat)]``: one rank for each distinct master of
+        ``leaf`` over the mesh, the lowest that holds it (a whole leaf:
+        rank 0; a leaf cut over one axis only: index 0 of the other)."""
+        out = []
+        for rank in range(self.data.size * self.model_axis.size):
+            di, mi = divmod(rank, self.model_axis.size)
+            if (di and not leaf.data_cut) or (
+                    mi and not (leaf.model_cut or leaf.column_dim is not None)):
+                continue
+            out.append((rank, *self.place(leaf, di, mi)))
+        return out
+
     def _shard_of(self, leaf: _Leaf, whole: torch.Tensor) -> torch.Tensor:
         """This rank's master of ``whole`` (the leaf's whole tensor): its
         columns, then its piece of the model axis and of the data axis, as
         a new tensor."""
+        columns, flat = self.place(leaf)
         x = whole
-        if leaf.column_dim is not None:
-            width = x.shape[leaf.column_dim] // self.model_axis.size
-            x = x.narrow(leaf.column_dim, self.model_axis.index * width, width)
-        if not leaf.swapped:
+        if columns is not None:
+            x = x.narrow(leaf.column_dim, columns[0], columns[1] - columns[0])
+        if flat is None:
             return x.contiguous().clone()
-        flat = x.reshape(-1)
-        for cut, axis in ((leaf.model_cut, self.model_axis), (leaf.data_cut, self.data)):
-            if cut:
-                n = flat.numel() // axis.size
-                flat = flat[axis.index * n:(axis.index + 1) * n]
-        return flat.clone()
+        return x.reshape(-1)[flat[0]:flat[1]].clone()
 
     # -------------------------------------------------------------- install
     def _set(self, leaf: _Leaf, tensor):
@@ -513,6 +549,23 @@ class ShardedState:
             out[key] = (value.detach().clone() if leaf is None
                         else whole[leaf] if leaf.cut else whole[leaf].clone())
         return out
+
+    def load_leaf(self, leaf: _Leaf, whole: torch.Tensor):
+        """``leaf``'s whole weights into this rank's state, with no
+        collective: its master cut from them and, where the modules hold
+        whole weights (outside ``reshard`` ... ``unshard``), the module's
+        parameter too."""
+        with torch.no_grad():
+            if leaf.cut:
+                leaf.master.copy_(self._shard_of(leaf, whole.to(self.device, leaf.master.dtype)))
+            if not (leaf.cut and self.active):
+                module, attr = leaf.owners[0]
+                param = module._parameters[attr]
+                param.copy_(whole.to(param.device, param.dtype))
+
+    def buffers(self) -> dict:
+        """The model's ``state_dict`` entries that are no parameter's."""
+        return {k: v for k, v in self.model.state_dict().items() if k not in self._keys}
 
     def _load_buffers(self, state_dict: dict):
         for key, value in self.model.state_dict(keep_vars=True).items():

@@ -32,8 +32,16 @@ draws from a generator seeded with ``seed + 1000 + epoch``. A checkpoint
 generator's (``generator.pt``), ``training_config.json`` and
 ``info_checkpoint.json``: the JAX package's layout, with torch files
 where it writes msgpack, and the generator's state where it re-derives
-its noise from the step count. A trainer built with ``checkpoint=`` goes
-on from epoch N + 1 as the uninterrupted run would.
+its noise from the step count. With ``checkpoint_backend="orbax"`` (JAX
+``_orbax_save_state``) the live weights, the optimizer's and the
+generator's states go instead to ``train_state/``, sharded: every rank
+writes its own pieces (``checkpoint.py``), no gather, in the background
+where ``async_checkpointing`` (the default) is on: the save returns once
+the pieces are in host memory, and ``wait_for_checkpoint`` (before the
+next save, before a resume and at the end of ``train()``) commits it. A
+trainer built with ``checkpoint=`` goes on from epoch N + 1 as the
+uninterrupted run would, from ``train_state/`` where the folder has one,
+in its own layout whatever the saving one.
 
 Batches reach the device in one of two ways. With ``cache_on_device``
 the train and eval sets are uploaded at construction
@@ -112,8 +120,9 @@ their optimizer state as this rank's piece, gathered inside each step
 (``_gathered``) and their gradients reduce-scattered; the wide Linear and
 convolution layers cut over "model" computing their own output columns.
 The modules hold the masters inside ``train`` only (whole weights, plain,
-before and after it); the keep-best state, checkpoints and the final model
-stay whole weights (collectives of every rank, then rank 0 writes). A graphed chunk under
+before and after it); the keep-best state, the msgpack checkpoints and the
+final model stay whole weights (collectives of every rank, then rank 0
+writes), and the sharded checkpoints hold each rank's pieces. A graphed chunk under
 NCCL captures the gathers, the reduce-scatter and the model axis's
 collectives with the rest.
 
@@ -131,9 +140,8 @@ the optimizer updates in place at each replay. The eval pass and the
 sanity check's forward stay float32.
 
 The JAX trainer's fused whole-epoch blocks (and the in-graph plateau
-scheduler they carry) and sharded (orbax) checkpoints exist to amortize
-TPU launch costs or to spread over a TPU mesh and are not part of the
-port. ``history`` holds each epoch's logged metrics.
+scheduler they carry) exist to amortize TPU launch costs and are not part
+of the port. ``history`` holds each epoch's logged metrics.
 """
 
 from __future__ import annotations
@@ -145,6 +153,7 @@ import json
 import logging
 import math
 import os
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -175,6 +184,7 @@ from .callbacks import (
     ProgressBarCallback,
     TrainingCallback,
 )
+from .checkpoint import STATE_DIR, Checkpointer, is_sharded
 from .graphs import ChunkGraphs
 from .mixed_precision import bf16_parameters
 from .optim import make_capturable, make_optimizer, make_scheduler
@@ -293,6 +303,11 @@ class BaseTrainer:
         self.start_keep_best_epoch = getattr(model, "start_keep_best_epoch", 0)
         self.history = []
         self._file_logger = None
+        self._checkpointer = None
+        # the last checkpoint's seconds (``blocked_s``: the save's call; the
+        # sharded one's ``copy_s`` to host, and once committed
+        # ``written_s``, ``commit_s`` and this rank's ``bytes``)
+        self.checkpoint_times = {}
 
         self._train_cache = self._eval_cache = None
         if cfg.cache_on_device:
@@ -771,6 +786,10 @@ class BaseTrainer:
         if self.is_main_process:
             self.save_model(final_dir)
             logger.info("Training ended! Saved final model in %s", final_dir)
+        # every save committed when train() returns, and the writer stopped
+        self.wait_for_checkpoint()
+        if self._checkpointer is not None:
+            self._checkpointer.close()
         self._barrier()   # the final model is on disk when train() returns
         self.callback_handler.on_train_end(cfg)
 
@@ -971,8 +990,35 @@ class BaseTrainer:
     def save_checkpoint(self, dir_path: str, epoch: int):
         """``<dir_path>/checkpoint_epoch_<epoch>``: the kept model, the live
         weights, the optimizer's, scheduler's and training generator's
-        states, the training config and the loop's counters. Rank 0 writes
-        it; every rank leaves when it is on disk."""
+        states, the training config and the loop's counters. A collective
+        of every rank. With ``checkpoint_backend="msgpack"`` rank 0 writes
+        it all, whole, and every rank leaves when it is on disk. With
+        ``"orbax"`` every rank, once the save before is committed, writes
+        its pieces of the live weights and the optimizer's state into
+        ``train_state/`` (rank 0 also the generator's state), in the
+        background where ``async_checkpointing``; rank 0 writes the rest at
+        once, as the msgpack path does."""
+        cfg = self.training_config
+        if cfg.checkpoint_backend == "orbax":
+            self.wait_for_checkpoint()
+            t0 = time.perf_counter()
+            if self._checkpointer is None:
+                self._checkpointer = Checkpointer(self.mesh, self._barrier)
+            self._checkpointer.save(
+                os.path.join(dir_path, f"checkpoint_epoch_{epoch}", STATE_DIR),
+                self._layout(), self.optimizer, self.generator.get_state(), cfg.fsdp)
+            # the kept weights are whole on every rank: the live ones are
+            # gathered only for a model file without them (JAX best_params)
+            live = (self._state.whole_state_dict()
+                    if self._sharded and self._best_state is None else None)
+            if self.is_main_process:
+                self._write_checkpoint(dir_path, epoch, live, sharded=True)
+            self.checkpoint_times = {"blocked_s": time.perf_counter() - t0,
+                                     **self._checkpointer.last}
+            if not cfg.async_checkpointing:
+                self.wait_for_checkpoint()
+            return
+        t0 = time.perf_counter()
         # whole, as a replicated run writes them
         live = self._state.whole_state_dict() if self._sharded else None
         optimizer = (self._state.optimizer_state_whole(self.optimizer)
@@ -980,20 +1026,41 @@ class BaseTrainer:
         if self.is_main_process:
             self._write_checkpoint(dir_path, epoch, live, optimizer)
         self._barrier()
+        self.checkpoint_times = {"blocked_s": time.perf_counter() - t0}
 
-    def _write_checkpoint(self, dir_path: str, epoch: int, live=None, optimizer=None):
+    def wait_for_checkpoint(self):
+        """Block until the pending sharded save, if any, is committed to
+        disk (JAX name): before the next save, before a resume, at the end
+        of ``train()`` and after the ``MultistageTrainer``'s boundary save.
+        A collective of every rank where a save is pending; an error of any
+        rank's writer raises here, on every rank."""
+        if self._checkpointer is not None:
+            self._checkpointer.wait()
+            self.checkpoint_times.update(self._checkpointer.last)
+
+    def _layout(self) -> ShardedState:
+        """The parameters by their placements: the trainer's state, else (one
+        process, no leaf cut) a mesh of one over the model's own
+        parameters."""
+        if self._state is not None:
+            return self._state
+        return ShardedState(self.model, self.mesh, fsdp=False)
+
+    def _write_checkpoint(self, dir_path: str, epoch: int, live=None, optimizer=None,
+                          sharded: bool = False):
         checkpoint_dir = os.path.join(dir_path, f"checkpoint_epoch_{epoch}")
         os.makedirs(checkpoint_dir, exist_ok=True)
-        torch.save(optimizer if optimizer is not None else self.optimizer.state_dict(),
-                   os.path.join(checkpoint_dir, "optimizer.pt"))
-        # The model files hold the kept weights, which are not those
-        # training goes on from whenever the loss is not monotonic: the live
-        # weights and the generator's state ride beside them, so a resume
-        # repeats the uninterrupted run.
-        torch.save(live if live is not None else self.model.state_dict(),
-                   os.path.join(checkpoint_dir, "live_params.pt"))
-        torch.save(self.generator.get_state(),
-                   os.path.join(checkpoint_dir, "generator.pt"))
+        if not sharded:
+            torch.save(optimizer if optimizer is not None else self.optimizer.state_dict(),
+                       os.path.join(checkpoint_dir, "optimizer.pt"))
+            # The model files hold the kept weights, which are not those
+            # training goes on from whenever the loss is not monotonic: the
+            # live weights and the generator's state ride beside them, so a
+            # resume repeats the uninterrupted run.
+            torch.save(live if live is not None else self.model.state_dict(),
+                       os.path.join(checkpoint_dir, "live_params.pt"))
+            torch.save(self.generator.get_state(),
+                       os.path.join(checkpoint_dir, "generator.pt"))
         if self.scheduler is not None:
             with open(os.path.join(checkpoint_dir, "scheduler.json"), "w") as f:
                 # a capturable optimizer's rates are 0-d tensors
@@ -1015,7 +1082,11 @@ class BaseTrainer:
 
     def _resume_from_checkpoint(self, checkpoint_dir: str):
         """Load the weights, the optimizer's, scheduler's and generator's
-        states and the counters of a checkpoint."""
+        states and the counters of a checkpoint: the live ones from its
+        ``train_state/`` where it has one (whatever this trainer's
+        backend, as in JAX), into this trainer's layout; else from its
+        whole files."""
+        self.wait_for_checkpoint()
         with open(os.path.join(checkpoint_dir, "info_checkpoint.json")) as fp:
             info = json.load(fp)
         self.trained_epochs = info["trained_epochs"]
@@ -1023,6 +1094,29 @@ class BaseTrainer:
         self.best_eval_loss = info["best_eval_loss"]
 
         self._best_state = self._load(checkpoint_dir, "model.pt")
+        if is_sharded(checkpoint_dir):
+            self.generator.set_state(Checkpointer.restore(
+                os.path.join(checkpoint_dir, STATE_DIR), self._layout(), self.optimizer))
+        else:
+            self._load_whole_files(checkpoint_dir)
+        sch_path = os.path.join(checkpoint_dir, "scheduler.json")
+        if self.scheduler is not None and os.path.exists(sch_path):
+            with open(sch_path) as f:
+                state = json.load(f)
+            if "milestones" in state:
+                # MultiStepLR keeps a Counter of int epochs; JSON made its
+                # keys strings, which no epoch would ever match again
+                state["milestones"] = collections.Counter(
+                    {int(k): v for k, v in state["milestones"].items()})
+            self.scheduler.load_state_dict(state)
+        if self._graphed:   # the loaded state may be a synchronous run's
+            make_capturable(self.optimizer)
+        self._drop_graphs()
+
+    def _load_whole_files(self, checkpoint_dir: str):
+        """The live weights, the optimizer's and the generator's states of a
+        checkpoint's whole files (``live_params.pt``, ``optimizer.pt``,
+        ``generator.pt``)."""
         live, optimizer = (self._load(checkpoint_dir, name)
                            for name in ("live_params.pt", "optimizer.pt"))
         # whole files, either layout's: cut into the masters where they are used
@@ -1034,24 +1128,11 @@ class BaseTrainer:
             self._state.load_optimizer_whole(self.optimizer, optimizer)
         else:
             self.optimizer.load_state_dict(optimizer)
-        sch_path = os.path.join(checkpoint_dir, "scheduler.json")
-        if self.scheduler is not None and os.path.exists(sch_path):
-            with open(sch_path) as f:
-                state = json.load(f)
-            if "milestones" in state:
-                # MultiStepLR keeps a Counter of int epochs; JSON made its
-                # keys strings, which no epoch would ever match again
-                state["milestones"] = collections.Counter(
-                    {int(k): v for k, v in state["milestones"].items()})
-            self.scheduler.load_state_dict(state)
         # without the generator's state the run goes on, from the seed's
         # noise instead of the uninterrupted run's
         gen_path = os.path.join(checkpoint_dir, "generator.pt")
         if os.path.exists(gen_path):
             self.generator.set_state(torch.load(gen_path, weights_only=True))
-        if self._graphed:   # the loaded state may be a synchronous run's
-            make_capturable(self.optimizer)
-        self._drop_graphs()
 
     # ----------------------------------------------------------- prediction
     def predict(self, epoch: int = 0, n_data: int = 8) -> dict:

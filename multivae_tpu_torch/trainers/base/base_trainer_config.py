@@ -10,10 +10,13 @@ parallelism's four (``n_devices``, ``coordinator_address``,
 (``fsdp``, ``n_model_devices``: ``parallel/state.py``) and bfloat16's
 ``mixed_precision`` (the trainer's ``_train_loss``). The JAX package's
 other fields load at their defaults, so that a ``training_config.json``
-it saved loads unedited: ``checkpoint_backend`` ("msgpack", the port's
-torch files; "orbax" raises ``NotImplementedError``) and
-``async_checkpointing`` (kept without effect: it acts with orbax only).
-Optimizer and scheduler specs are validated eagerly.
+it saved loads unedited. ``checkpoint_backend`` and
+``async_checkpointing`` keep the JAX meaning: "msgpack" writes the whole
+state from rank 0, "orbax" the train state sharded, each rank its own
+pieces, in the background where ``async_checkpointing`` is on
+(``checkpoint.py``). The port's files are torch files in both: "orbax"
+names the feature, not orbax's format, which the port neither writes nor
+reads. Optimizer and scheduler specs are validated eagerly.
 """
 
 from __future__ import annotations
@@ -100,6 +103,17 @@ class BaseTrainerConfig(BaseConfig):
             group at ``host:port`` with this many processes, this one being
             ``process_id``; unset, a group opened by the caller or by
             torchrun (its ``env://`` variables) is joined.
+        checkpoint_backend: "msgpack" (default: rank 0 writes the whole
+            live weights and optimizer state, ``live_params.pt`` and
+            ``optimizer.pt``, gathered over the ranks) or "orbax" (the train
+            state in ``train_state/``, sharded: each rank writes the pieces
+            it holds, no gather; any layout restores it).
+        async_checkpointing: with "orbax", a save returns once this rank's
+            pieces are copied to host memory, and a background thread writes
+            them; the trainer waits for the commit before the next save,
+            before a resume and at the end of ``train()``
+            (``wait_for_checkpoint``). False: every save waits for its own.
+            Without effect with "msgpack". Default True.
         mixed_precision: run each train step's loss in bfloat16 (fp32
             master weights and optimizer state; grads are cast back to
             fp32): the loss on bf16 copies of the parameters and of the
@@ -151,11 +165,6 @@ class BaseTrainerConfig(BaseConfig):
                 "n_model_devices must be a positive integer, got "
                 f"{self.n_model_devices}."
             )
-        if self.checkpoint_backend == "orbax":
-            raise NotImplementedError(
-                "checkpoint_backend='orbax': the port has no orbax checkpoints (a limit "
-                "kept on purpose: it writes torch files in the JAX package's layout). "
-                "Use checkpoint_backend='msgpack'.")
         if self.steps_per_execution < 1:
             raise AttributeError(
                 "steps_per_execution must be a positive integer, got "

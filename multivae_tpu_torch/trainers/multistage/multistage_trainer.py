@@ -3,7 +3,8 @@
 Counterpart of ``multivae_tpu/trainers/multistage/multistage_trainer.py``.
 Before each epoch the model's stage is set from ``stage_for_epoch`` (where
 the model has stages). At each epoch of ``model.reset_optimizer_epochs``
-the trainer first saves ``checkpoint_epoch_<epoch - 1>``, then the kept
+the trainer first saves ``checkpoint_epoch_<epoch - 1>`` (every rank: a
+sharded save is a collective; committed before the reset), then the kept
 weights (the live ones when none were kept) are loaded into the model, a
 fresh optimizer and scheduler are built over its parameters, the kept
 weights are dropped and both best losses restart at 1e12, as in the JAX
@@ -59,6 +60,7 @@ class MultistageTrainer(BaseTrainer):
         logger.info("Epoch %s: reset the optimizer and the best losses, going on "
                     "from the best model so far.", epoch)
         self.save_checkpoint(dir_path=self.training_dir, epoch=epoch - 1)
+        self.wait_for_checkpoint()   # the boundary's checkpoint committed first
         self._restore_best()
         self._build_optimizer()
         self._best_state = None

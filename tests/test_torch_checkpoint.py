@@ -12,11 +12,16 @@ port's feed. Compared: the epoch curves (1e-4 relative: float32 drift over
 a dozen Adam steps of two implementations, as in the other trainer
 tests), the checkpoint epochs and ``info_checkpoint.json``, the kept and
 live weights (``torch_parity.assert_same_moves``). The port's own resume,
-on its own generator, is held to its uninterrupted run exactly.
+on its own generator, is held to its uninterrupted run exactly. With
+``checkpoint_backend="orbax"`` both packages write the train state sharded
+(``train_state/``; the port's own torch files and index) and resume from
+it; the port's saves run in the background with ``async_checkpointing``.
 """
 
 import json
 import os
+import shutil
+import threading
 
 import numpy as np
 import pytest
@@ -42,6 +47,7 @@ from multivae_tpu_torch.trainers import (
     MultistageTrainer,
     MultistageTrainerConfig,
 )
+from multivae_tpu_torch.trainers.base import checkpoint as sharded
 from multivae_tpu_torch.trainers.base.optim import _SCHEDULERS
 from test_torch_telbo import _arrays as telbo_arrays
 from test_torch_telbo import _models as telbo_models
@@ -60,6 +66,10 @@ CHECKPOINT_FILES = {"environment.json", "generator.pt", "info_checkpoint.json",
                     "training_config.json"}
 JAX_NAMES = {"live_params.pt": "live_params.msgpack", "model.pt": "model.msgpack",
              "optimizer.pt": "optimizer.msgpack"}
+# "orbax": the live weights, the optimizer's and the generator's states in
+# the sharded train state instead
+SHARDED_FILES = CHECKPOINT_FILES - {"generator.pt", "live_params.pt", "optimizer.pt"} | {
+    "train_state"}
 
 
 def _models():
@@ -120,30 +130,44 @@ def _curve(logs, key="train_epoch_loss"):
     return [h[key] for h in logs]
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """The JAX trainer and the port, 4 epochs with a checkpoint every 2, each
-    then resumed from its own ``checkpoint_epoch_2``."""
-    tmp = tmp_path_factory.mktemp("checkpoint")
-    jmodel, tmodel = _models()
-    start = {k: v.clone() for k, v in tmodel.state_dict().items()}
-    jfull, jlogs = _jax_run(jmodel, tmp / "jax")
-    jresumed, jresumed_logs = _jax_run(
-        _models()[0], tmp / "jax_resumed",
-        checkpoint=os.path.join(jfull.training_dir, "checkpoint_epoch_2"))
-
-    full = _port_trainer(tmodel, tmp / "torch")
+def _fed_runs(tmp, tmodel, full_epochs=4, **extra):
+    """The port fed the JAX draws, ``full_epochs`` epochs with a checkpoint
+    every 2, and resumed from its ``checkpoint_epoch_2`` to epoch 4."""
+    full = _port_trainer(tmodel, tmp / "torch", num_epochs=full_epochs, **extra)
     feed_trainer_noise(full, tmodel, _keyed_noise, SEED)
     full.train()
     resumed_model = _models()[1]
-    resumed = _port_trainer(resumed_model, tmp / "torch_resumed",
+    resumed = _port_trainer(resumed_model, tmp / "torch_resumed", **extra,
                             checkpoint=os.path.join(full.training_dir, "checkpoint_epoch_2"))
     steps = feed_trainer_noise(resumed, resumed_model, _keyed_noise, SEED,
                                first_step=2 * STEPS)
     resumed.train()
     assert next(steps) == 4 * STEPS
-    return dict(start=start, jfull=jfull, jlogs=jlogs, jresumed=jresumed,
-                jresumed_logs=jresumed_logs, full=full, resumed=resumed)
+    return full, resumed
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """The JAX trainer and the port, 4 epochs with a checkpoint every 2, each
+    then resumed from its own ``checkpoint_epoch_2``; and both again with
+    ``checkpoint_backend="orbax"``, where the first run stops at the
+    checkpoint the resume needs (the JAX trainers' compiles and orbax saves
+    are most of the file's time)."""
+    tmp = tmp_path_factory.mktemp("checkpoint")
+    out = {}
+    for backend, epochs in (("msgpack", 4), ("orbax", 2)):
+        jmodel, tmodel = _models()
+        out["start"] = {k: v.clone() for k, v in tmodel.state_dict().items()}
+        jfull, jlogs = _jax_run(jmodel, tmp / backend / "jax", checkpoint_backend=backend,
+                                num_epochs=epochs)
+        jresumed, jresumed_logs = _jax_run(
+            _models()[0], tmp / backend / "jax_resumed", checkpoint_backend=backend,
+            checkpoint=os.path.join(jfull.training_dir, "checkpoint_epoch_2"))
+        full, resumed = _fed_runs(tmp / backend, tmodel, full_epochs=epochs,
+                                  checkpoint_backend=backend)
+        out[backend] = dict(jfull=jfull, jlogs=jlogs, jresumed=jresumed,
+                            jresumed_logs=jresumed_logs, full=full, resumed=resumed)
+    return {"start": out["start"], **out["msgpack"], "orbax": out["orbax"]}
 
 
 def _info(trainer, epoch):
@@ -182,19 +206,37 @@ def test_checkpointed_curve_and_info_match_jax(runs):
         assert {JAX_NAMES.get(f, f) for f in files - {"generator.pt"}} == jfiles
 
 
+def _assert_same_resume(one, start):
+    resumed, jresumed = one["resumed"], one["jresumed"]
+    assert resumed.trained_epochs == jresumed.trained_epochs == 2
+    assert len(resumed.history) == len(one["jresumed_logs"]) == 2
+    for key in ("train_epoch_loss", "eval_epoch_loss"):
+        np.testing.assert_allclose(_curve(resumed.history, key),
+                                   _curve(one["jresumed_logs"], key),
+                                   rtol=CURVE_RTOL, err_msg=key)
+    assert_same_moves(resumed.model.state_dict(), state_of(jresumed.state.params), start, LR)
+    assert_same_moves(resumed._best_state, state_of(jresumed.best_params), start, LR)
+
+
 def test_resume_matches_the_jax_resume(runs):
     """Epochs 3-4 from ``checkpoint_epoch_2`` in both packages: the same
     curve, and the same kept and live weights at the end."""
-    resumed, jresumed = runs["resumed"], runs["jresumed"]
-    assert resumed.trained_epochs == jresumed.trained_epochs == 2
-    assert len(resumed.history) == len(runs["jresumed_logs"]) == 2
-    for key in ("train_epoch_loss", "eval_epoch_loss"):
-        np.testing.assert_allclose(_curve(resumed.history, key),
-                                   _curve(runs["jresumed_logs"], key),
-                                   rtol=CURVE_RTOL, err_msg=key)
-    start = runs["start"]
-    assert_same_moves(resumed.model.state_dict(), state_of(jresumed.state.params), start, LR)
-    assert_same_moves(resumed._best_state, state_of(jresumed.best_params), start, LR)
+    _assert_same_resume(runs, runs["start"])
+
+
+def test_sharded_resume_matches_the_jax_orbax_resume(runs):
+    """``checkpoint_backend="orbax"`` in both packages: each resumes epochs
+    3-4 from its own sharded train state (the live weights and the
+    optimizer's state; the port's also holds the generator's), with the
+    same curve and kept and live weights; both checkpoints hold the same
+    files but for the weights' format, and no whole optimizer or live
+    weights file."""
+    one = runs["orbax"]
+    _assert_same_resume(one, runs["start"])
+    for trainer, names in ((one["full"], SHARDED_FILES),
+                           (one["jfull"], {JAX_NAMES.get(f, f) for f in SHARDED_FILES})):
+        files = set(os.listdir(os.path.join(trainer.training_dir, "checkpoint_epoch_2")))
+        assert files - {"encoders.pkl", "decoders.pkl"} == names
 
 
 def test_resumed_run_repeats_the_uninterrupted_one(tmp_path):
@@ -223,6 +265,118 @@ def test_resumed_run_repeats_the_uninterrupted_one(tmp_path):
     other = _port_trainer(_models()[1], tmp_path / "other", checkpoint=str(bare))
     other.train()
     assert other.history[0]["train_epoch_loss"] != full.history[2]["train_epoch_loss"]
+
+
+def _assert_same_run(ours, ref):
+    assert ours.history == ref.history[-len(ours.history):]
+    for name, v in ref.model.state_dict().items():
+        assert torch.equal(ours.model.state_dict()[name], v), name
+    for name, v in ref._best_state.items():
+        assert torch.equal(ours._best_state[name], v), name
+
+
+@pytest.mark.parametrize("async_checkpointing", [True, False])
+def test_sharded_resume_repeats_the_uninterrupted_run(tmp_path, async_checkpointing):
+    """``checkpoint_backend="orbax"`` with a checkpoint every epoch (JAX
+    ``test_orbax_async_checkpointing_durable_and_correct``): when ``train()``
+    returns every epoch's ``train_state/`` is committed, with no temporary
+    folder left, and holds this process's pieces (one rank: the whole
+    leaves), the index and the common state. An asynchronous save returns
+    before its files are written, a blocking one once it is committed.
+    Resumed from ``checkpoint_epoch_2``, on its own generator, the port
+    repeats epochs 3-4 and the weights, kept and live, bit for bit."""
+    extra = dict(checkpoint_backend="orbax", async_checkpointing=async_checkpointing,
+                 steps_saving=1)
+    writers = {t for t in threading.enumerate() if t.name.startswith("checkpoint-writer")}
+    full = _port_trainer(_models()[1], tmp_path / "full", **extra)
+    full.train()
+    for epoch in range(1, 5):
+        path = os.path.join(full.training_dir, f"checkpoint_epoch_{epoch}")
+        assert set(os.listdir(path)) - {"encoders.pkl", "decoders.pkl"} == SHARDED_FILES
+        assert sorted(os.listdir(os.path.join(path, "train_state"))) == [
+            "common.pt", "index.json", "rank_0.pt"]
+    assert set(full.checkpoint_times) == {"blocked_s", "copy_s", "written_s", "commit_s",
+                                          "bytes"}
+    # train() stopped its writer thread
+    assert {t for t in threading.enumerate()
+            if t.name.startswith("checkpoint-writer")} <= writers
+    resumed = _port_trainer(_models()[1], tmp_path / "resumed", **extra,
+                            checkpoint=os.path.join(full.training_dir, "checkpoint_epoch_2"))
+    resumed.train()
+    _assert_same_run(resumed, full)
+
+    # a save whose writer is held: async, it returns with nothing committed
+    release, plain = threading.Event(), sharded._write
+
+    def held(folder, files):
+        assert release.wait(30)
+        return plain(folder, files)
+
+    sharded._write = held
+    try:
+        if async_checkpointing:
+            full.save_checkpoint(str(tmp_path / "held"), epoch=5)
+            assert not os.path.exists(tmp_path / "held" / "checkpoint_epoch_5" / "train_state")
+            release.set()
+            full.wait_for_checkpoint()
+        else:
+            release.set()
+            full.save_checkpoint(str(tmp_path / "held"), epoch=5)
+    finally:
+        sharded._write = plain
+    assert os.path.isdir(tmp_path / "held" / "checkpoint_epoch_5" / "train_state")
+    assert not os.path.exists(tmp_path / "held" / "checkpoint_epoch_5" / "train_state.tmp")
+
+
+def test_keep_best_chunked_run_resumes_from_a_sharded_checkpoint(tmp_path):
+    """Keep-best on the train loss, at a rate (0.3) where the loss is not
+    monotonic, with chunks of ``steps_per_execution`` 2 on the device cache
+    (JAX ``test_fused_epoch_blocks_keep_best_checkpoint_resume[orbax-1]``):
+    resumed from a sharded checkpoint, the kept and the final weights are
+    the uninterrupted run's, bit for bit."""
+    extra = dict(checkpoint_backend="orbax", num_epochs=5, keep_best_on_train=True,
+                 learning_rate=0.3, cache_on_device=True, steps_per_execution=2)
+    full = _port_trainer(_models()[1], tmp_path / "full", **extra)
+    full.train()
+    losses = _curve(full.history)
+    # the precondition: the kept weights are not the final ones
+    assert int(np.argmin(losses)) != len(losses) - 1, losses
+    resumed = _port_trainer(_models()[1], tmp_path / "resumed", **extra,
+                            checkpoint=os.path.join(full.training_dir, "checkpoint_epoch_2"))
+    resumed.train()
+    assert resumed.best_train_loss == full.best_train_loss
+    _assert_same_run(resumed, full)
+
+
+def test_a_broken_sharded_checkpoint_raises(tmp_path, monkeypatch):
+    """No fall-back to the whole files: a train state without a rank's file,
+    or never committed, raises naming it; a writer's error raises at the
+    next wait, here the end of ``train()``."""
+    full = _port_trainer(_models()[1], tmp_path / "full", checkpoint_backend="orbax",
+                         num_epochs=2)
+    full.train()
+    source = os.path.join(full.training_dir, "checkpoint_epoch_2")
+    missing, uncommitted = tmp_path / "missing", tmp_path / "uncommitted"
+    shutil.copytree(source, missing)
+    os.remove(missing / "train_state" / "rank_0.pt")
+    with pytest.raises(FileNotFoundError, match="rank_0.pt"):
+        _port_trainer(_models()[1], tmp_path / "a", checkpoint=str(missing))
+    shutil.copytree(source, uncommitted)
+    os.rename(uncommitted / "train_state", uncommitted / "train_state.tmp")
+    with pytest.raises(RuntimeError, match="not committed"):
+        _port_trainer(_models()[1], tmp_path / "b", checkpoint=str(uncommitted))
+
+    def broken(folder, files):
+        raise OSError("disk full")
+
+    monkeypatch.setattr(sharded, "_write", broken)
+    trainer = _port_trainer(_models()[1], tmp_path / "c", checkpoint_backend="orbax",
+                            num_epochs=2)
+    with pytest.raises(RuntimeError, match="checkpoint writer of rank 0 failed") as err:
+        trainer.train()
+    assert "disk full" in str(err.value)
+    assert not os.path.exists(os.path.join(trainer.training_dir, "checkpoint_epoch_2",
+                                           "train_state"))
 
 
 SCHEDULER_PARAMS = {

@@ -22,6 +22,7 @@ have an exact zero gradient (a logit added to a whole row leaves the
 softmax as it is), and both packages leave ~2e-6 of float32 noise there.
 """
 
+import functools
 import numpy as np
 import pytest
 import torch
@@ -44,6 +45,7 @@ from multivae_tpu_torch.nn import cub
 from multivae_tpu_torch.tools.dataset_files import write_cub
 from multivae_tpu_torch.utils.convert import params_from_jax
 from test_torch_mvtcae import _JaxNoise
+from torch_parity import compiled_init
 
 torch.set_num_threads(2)
 
@@ -215,17 +217,33 @@ def cub_rows(tmp_path_factory):
     return data, ours.vocab_size
 
 
-def _models(vocab):
+def _kwargs(vocab):
     dims = {"image": (3, 64, 64), "text": (L, vocab)}
-    kw = dict(n_modalities=2, input_dims=dims, latent_dim=LATENT,
-              decoders_dist={"image": "laplace", "text": "categorical"}, beta=5.0, alpha=0.9)
-    text = dict(embed_size=E, nhead=HEADS, ff_size=FF, n_layers=LAYERS)
-    jmodel = _JMVTCAE(JMVTCAEConfig(**kw), seed=0, encoders={
-        "image": jcub.CUB_Resnet_Encoder(latent_dim=LATENT, nfilter=NF, nfilter_max=NF_MAX),
-        "text": jcub.CubTextEncoder(latent_dim=LATENT, max_sentence_length=L, ntokens=vocab,
-                                    **text)}, decoders={
-        "image": jcub.CUB_Resnet_Decoder(latent_dim=LATENT, nfilter=NF, nfilter_max=NF_MAX),
-        "text": jcub.CubTextDecoderMLP(JAEConfig(latent_dim=LATENT, input_dim=(L, vocab)))})
+    return (dict(n_modalities=2, input_dims=dims, latent_dim=LATENT,
+                 decoders_dist={"image": "laplace", "text": "categorical"}, beta=5.0,
+                 alpha=0.9),
+            dict(embed_size=E, nhead=HEADS, ff_size=FF, n_layers=LAYERS))
+
+
+@functools.cache
+def _jax_model(vocab):
+    """The JAX model, built once for the tests that only read it (its
+    init, compiled, is most of their time)."""
+    kw, text = _kwargs(vocab)
+    with compiled_init(JMVTCAE):
+        jmodel = _JMVTCAE(JMVTCAEConfig(**kw), seed=0, encoders={
+            "image": jcub.CUB_Resnet_Encoder(latent_dim=LATENT, nfilter=NF, nfilter_max=NF_MAX),
+            "text": jcub.CubTextEncoder(latent_dim=LATENT, max_sentence_length=L,
+                                        ntokens=vocab, **text)}, decoders={
+            "image": jcub.CUB_Resnet_Decoder(latent_dim=LATENT, nfilter=NF, nfilter_max=NF_MAX),
+            "text": jcub.CubTextDecoderMLP(JAEConfig(latent_dim=LATENT, input_dim=(L, vocab)))})
+    return jmodel
+
+
+def _models(vocab):
+    """The shared JAX model and a fresh port model with its weights."""
+    kw, text = _kwargs(vocab)
+    jmodel = _jax_model(vocab)
     tmodel = MVTCAE(MVTCAEConfig(**kw), device="cpu", encoders={
         "image": cub.CUB_Resnet_Encoder(LATENT, nfilter=NF, nfilter_max=NF_MAX),
         "text": cub.CubTextEncoder(LATENT, L, vocab, **text)}, decoders={

@@ -359,8 +359,8 @@ def test_a_jax_training_config_with_the_cache_fields_loads(tmp_path):
     process, a data axis of one) that trains as the replicated one does,
     bit for bit; ``n_model_devices=2`` loads, and
     building a trainer from it in one process raises for the missing group;
-    ``checkpoint_backend="orbax"`` raises ``NotImplementedError`` naming the
-    way out."""
+    with ``checkpoint_backend="orbax"`` it builds a trainer that writes its
+    train state sharded, ``train_state/`` and no whole optimizer file."""
     JTrainerConfig(output_dir="out", n_devices=1, cache_on_device=True,
                    device_cache_budget_gb=2.5, device_cache_layout="sharded",
                    steps_per_execution=4, pipeline_depth=3,
@@ -405,9 +405,15 @@ def test_a_jax_training_config_with_the_cache_fields_loads(tmp_path):
     assert model_axis.n_model_devices == 2
     with pytest.raises(ValueError, match="n_model_devices=2 but no process group"):
         BaseTrainer(_models()[1], *_sets(), device="cpu", training_config=model_axis)
-    with pytest.raises(NotImplementedError, match="checkpoint_backend") as refused:
-        BaseTrainerConfig.from_dict(dict(saved, checkpoint_backend="orbax"))
-    assert "checkpoint_backend='msgpack'" in str(refused.value)
+    orbax = BaseTrainerConfig.from_dict(dict(
+        saved, checkpoint_backend="orbax", output_dir=str(tmp_path / "orbax"),
+        **_common(num_epochs=1, steps_saving=1)))
+    assert (orbax.checkpoint_backend, orbax.async_checkpointing) == ("orbax", True)
+    trainer = BaseTrainer(_models()[1], *_sets(), device="cpu", training_config=orbax)
+    trainer.train()
+    checkpoint = os.path.join(trainer.training_dir, "checkpoint_epoch_1")
+    assert os.path.isdir(os.path.join(checkpoint, "train_state"))
+    assert not {"optimizer.pt", "live_params.pt"} & set(os.listdir(checkpoint))
     # the JAX package's own checks, with its messages
     with pytest.raises(AttributeError, match="checkpoint_backend must be"):
         BaseTrainerConfig(checkpoint_backend="pickle")

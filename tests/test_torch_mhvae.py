@@ -199,16 +199,26 @@ def _arrays(kind, incomplete, seed=0, n=B):
     return data, masks, weights
 
 
-def _jax_model(kind, shared):
-    if kind == "mlp":
-        blocks = build_mhvae_blocks(MLP_DIMS, n_latent=3, latent_dim=MLP_LATENT,
-                                    shared_posteriors=shared)
-    else:
-        blocks = _jax_conv_blocks(shared)
-    jmodel = JMHVAE(JMHVAEConfig(**_config_kwargs(kind)), **_block_kwargs(blocks), seed=0)
+def _jax_models(kind):
+    """The JAX models of ``kind`` with shared and with unshared posteriors,
+    their inits (each on its own next key, as ``init_params_with_batch``
+    draws it) compiled as one function: run op by op, a conv model's first
+    init takes 20 s."""
+    models = {}
+    for shared in (True, False):
+        blocks = (build_mhvae_blocks(MLP_DIMS, n_latent=3, latent_dim=MLP_LATENT,
+                                     shared_posteriors=shared)
+                  if kind == "mlp" else _jax_conv_blocks(shared))
+        models[shared] = JMHVAE(JMHVAEConfig(**_config_kwargs(kind)), **_block_kwargs(blocks),
+                                seed=0)
     data, _, _ = _arrays(kind, False)
-    jmodel.init_params_with_batch(j_batch_from_arrays(data=data))
-    return jmodel
+    keys = {shared: jmodel.next_rng() for shared, jmodel in models.items()}
+    params = jax.jit(lambda batch, keys: {
+        shared: jmodel.init_params_with_batch(batch, keys[shared])
+        for shared, jmodel in models.items()})(j_batch_from_arrays(data=data), keys)
+    for shared, jmodel in models.items():
+        jmodel.params = params[shared]
+    return models
 
 
 def _port(jmodel, kind, shared):
@@ -224,9 +234,9 @@ def jax_models():
     cache = {}
 
     def get(kind, shared):
-        if (kind, shared) not in cache:
-            cache[kind, shared] = _jax_model(kind, shared)
-        return cache[kind, shared]
+        if kind not in cache:
+            cache[kind] = _jax_models(kind)
+        return cache[kind][shared]
     return get
 
 

@@ -21,6 +21,7 @@ rule, ``parallel/state.py``) against the JAX package's
 """
 
 import functools
+import json
 import os
 import socket
 import subprocess
@@ -568,6 +569,79 @@ def test_a_sharded_checkpoint_resumes_in_one_process(workers, tmp_path):
     np.testing.assert_allclose(_losses(out), _losses(ours)[2:], rtol=LOSS_RTOL)
     for k, v in ours["live"].items():
         torch.testing.assert_close(out["live"][k], v, **WEIGHT_TOL, msg=k)
+
+
+def _same_restore(got: dict, ref: dict):
+    """Whole weights and whole optimizer state, bit for bit."""
+    assert list(got["live"]) == list(ref["live"])
+    for k, v in ref["live"].items():
+        assert got["live"][k].shape == v.shape and torch.equal(got["live"][k], v), k
+    _same_optimizer_state(got["optimizer"], ref["optimizer"])
+
+
+def test_a_sharded_checkpoint_restores_into_any_layout(workers, tmp_path):
+    """``checkpoint_backend="orbax"`` under ``fsdp`` over two ranks (JAX
+    ``test_orbax_checkpoint_with_fsdp_sharded_state`` and
+    ``test_orbax_restore_cross_topology``): each rank wrote its own half of
+    every cut leaf, and of its optimizer state, and no rank a whole one;
+    the whole leaves rank 0 alone; no ``optimizer.pt`` or
+    ``live_params.pt``. The two ranks resumed from epoch 2 repeat their
+    epoch 3 bit for bit. Epoch 3's checkpoint restores bit-equal, whole
+    weights and optimizer state, into one process replicated, into one
+    process with ``fsdp`` and into data 2 x model 2 with ``fsdp`` on four
+    ranks, each then training a finite epoch; the four ranks' own sharded
+    checkpoint restores bit-equal in one process."""
+    ranks = workers.ranks("fsdp_orbax")
+    _ranks_agree(ranks)
+    ours = ranks[0]
+    assert ours["resumed"]["history"] == ours["history"][2:]
+    for k, v in ours["live"].items():
+        assert torch.equal(ours["resumed"]["live"][k], v), k
+    checkpoint = os.path.join(ours["training_dir"], "checkpoint_epoch_3")
+    files = set(os.listdir(checkpoint))
+    assert "train_state" in files
+    assert not files & {"optimizer.pt", "live_params.pt", "generator.pt", "train_state.tmp"}
+    state_dir = os.path.join(checkpoint, "train_state")
+    assert sorted(os.listdir(state_dir)) == ["common.pt", "index.json", "rank_0.pt", "rank_1.pt"]
+    with open(os.path.join(state_dir, "index.json")) as f:
+        index = json.load(f)
+    assert (index["world_size"], index["n_data"], index["n_model"], index["fsdp"]) == (
+        2, 2, 1, True)
+    held = [torch.load(os.path.join(state_dir, f"rank_{r}.pt"), weights_only=True)
+            for r in (0, 1)]
+    cut = set(ours["cut"])
+    assert cut and cut <= {entry["name"] for entry in index["leaves"]}
+    for entry in index["leaves"]:
+        name, numel = entry["name"], int(np.prod(entry["shape"]))
+        writers = [p["rank"] for p in entry["pieces"]]
+        assert writers == ([0, 1] if name in cut else [0]), name
+        for r in writers:
+            pieces = held[r][name]
+            assert set(pieces) == {"param", *entry["state_keys"]}, name
+            for v in pieces.values():
+                assert v.numel() == (numel // 2 if name in cut else numel), name
+        assert name in cut or name not in held[1]
+    per_device = dict(per_device_train_batch_size=2 * cases.PER_DEVICE,
+                      per_device_eval_batch_size=2 * cases.PER_DEVICE)
+    for fsdp in (False, True):
+        trainer = cases.trainer_of("MVTCAE", str(tmp_path / f"fsdp_{fsdp}"), fsdp=fsdp,
+                                   num_epochs=4, checkpoint=checkpoint, **per_device)
+        assert (trainer._state is not None) is fsdp and trainer.trained_epochs == 3
+        _same_restore(ss.restored(trainer), ours)
+        out = ss.train(trainer)
+        assert len(out["history"]) == 1 and np.isfinite(_losses(out)).all()
+    fours = workers.ranks("orbax_2x2", world=4)
+    for four in fours:
+        assert (four["n_data"], four["n_model"]) == (2, 2)
+        assert any("model" in s for s in four["placements"].values())
+        _same_restore(four["restored"], ours)
+        assert len(four["history"]) == 1 and np.isfinite(_losses(four)).all()
+    # and back: the four ranks' epoch 4, saved in their layout (column
+    # pieces, flat pieces of column blocks), restored in one process
+    trainer = cases.trainer_of("MVTCAE", str(tmp_path / "from_2x2"), num_epochs=4, **per_device,
+                               checkpoint=os.path.join(fours[0]["training_dir"],
+                                                       "checkpoint_epoch_4"))
+    _same_restore(ss.restored(trainer), fours[0])
 
 
 def test_fsdp_chunks_equal_the_step_by_step_loop(workers):

@@ -22,6 +22,10 @@ Two ranks (data 2, or data 1 x model 2):
 - ``fsdp_checkpoint``: MVTCAE under ``fsdp`` for 3 epochs with a checkpoint
   and the grids each epoch, and resumed from epoch 2's under ``fsdp`` (the test also
   resumes it in one process).
+- ``fsdp_orbax``: the same with ``checkpoint_backend="orbax"``: each rank
+  writes its pieces of every epoch's train state in the background, and the
+  two ranks resume from epoch 2's (the test restores epoch 3's in one
+  process, replicated and with ``fsdp``).
 - ``fsdp_chunked``: MMVAE on the device cache under ``fsdp``, step by step
   and at ``steps_per_execution`` 3.
 - ``fsdp_telbo``: TELBO through the ``MultistageTrainer`` (an optimizer
@@ -38,6 +42,9 @@ Four ranks (data 2 x model 2):
   ``fsdp``.
 - ``cache_2x2``: the ``"sharded"`` device cache: each rank's block, its
   batches of one epoch, and MVTCAE trained from it with ``fsdp``.
+- ``orbax_2x2``: ``fsdp_orbax``'s epoch 3 restored with ``fsdp``: the whole
+  weights and optimizer state right after the restore, then one epoch,
+  saved sharded in this layout (the test restores it in one process).
 """
 
 import copy
@@ -209,6 +216,38 @@ def checkpoint_case(outdir):
     return out
 
 
+def orbax_case(outdir):
+    """``checkpoint_case`` with sharded, asynchronous checkpoints."""
+    trainer = cases.trainer_of("MVTCAE", os.path.join(outdir, "orbax"), fsdp=True, num_epochs=3,
+                               steps_saving=1, checkpoint_backend="orbax")
+    out = train(trainer)
+    out["training_dir"] = trainer.training_dir
+    out["resumed"] = train(cases.trainer_of(
+        "MVTCAE", os.path.join(outdir, "orbax_resumed"), fsdp=True, num_epochs=3,
+        checkpoint_backend="orbax",
+        checkpoint=os.path.join(trainer.training_dir, "checkpoint_epoch_2")))
+    return out
+
+
+def restored(trainer) -> dict:
+    """The whole weights and whole optimizer state of a trainer that was
+    just built from a checkpoint (a collective of every rank)."""
+    state = trainer._state
+    if state is None:
+        return dict(live=copy.deepcopy(trainer.model.state_dict()),
+                    optimizer=copy.deepcopy(trainer.optimizer.state_dict()))
+    return dict(live=state.whole_state_dict(),
+                optimizer=copy.deepcopy(state.optimizer_state_whole(trainer.optimizer)))
+
+
+def orbax_checkpoint(outdir: str, epoch: int) -> str:
+    """``fsdp_orbax``'s checkpoint of ``epoch`` in the two ranks' result
+    folder ``outdir``."""
+    parent = os.path.join(outdir, "orbax")
+    (training_dir,) = os.listdir(parent)
+    return os.path.join(parent, training_dir, f"checkpoint_epoch_{epoch}")
+
+
 def chunked_case(outdir):
     return {n: train(cases.trainer_of("MMVAE", os.path.join(outdir, f"chunk_{n}"), fsdp=True,
                                       cache_on_device=True, steps_per_execution=n))
@@ -265,6 +304,17 @@ def export_case(outdir):
 
 
 # -------------------------------------------------------------- four ranks
+def orbax_2x2_case(outdir):
+    trainer = cases.trainer_of(
+        "MVTCAE", os.path.join(outdir, "orbax_2x2"), fsdp=True, n_model_devices=2, num_epochs=4,
+        checkpoint_backend="orbax", steps_saving=1,
+        checkpoint=orbax_checkpoint(os.path.join(os.path.dirname(outdir), "world2"), 3))
+    at_restore = restored(trainer)
+    out = train(trainer)
+    out.update(restored=at_restore, training_dir=trainer.training_dir)
+    return out
+
+
 def both_case(outdir):
     return train(BaseTrainer(tp_model(8, 7), tp_data(), device="cpu",
                              training_config=config(outdir, "both", n_devices=2,
@@ -306,13 +356,15 @@ def jobs(outdir: str, port: str, world: int, rank: int, spec):
 
     if world == 4:
         return [job("both", lambda: both_case(outdir)),
-                job("cache_2x2", lambda: cache_2x2_case(outdir))]
+                job("cache_2x2", lambda: cache_2x2_case(outdir)),
+                job("orbax_2x2", lambda: orbax_2x2_case(outdir))]
     return [job("tp_conv", lambda: conv_case(outdir, "tp_conv", n_model_devices=2)),
             job("fsdp_conv", lambda: conv_case(outdir, "fsdp_conv", n_devices=2, fsdp=True)),
             job("tp_mvtcae", lambda: tp_mvtcae_case(outdir, n_model_devices=2)),
             job("optimizers", lambda: optimizers_case(outdir)),
             job("fsdp_bf16", lambda: bf16_case(outdir)),
             job("fsdp_checkpoint", lambda: checkpoint_case(outdir)),
+            job("fsdp_orbax", lambda: orbax_case(outdir)),
             job("fsdp_chunked", lambda: chunked_case(outdir)),
             job("fsdp_telbo", lambda: telbo_case(outdir)),
             job("fsdp_microbatch", lambda: microbatch_case(outdir)),
