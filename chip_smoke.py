@@ -283,10 +283,10 @@ Phases (any failure exits non-zero and prints no result line):
     card, also by min(cards, 4) ranks over NCCL, one card each. Steps/s of
     each, the gradient bytes all-reduced a step and the all-reduce's ms a
     step (CUDA events around it) under NCCL and gloo. Then the rest of the
-    JAX package's data-parallel surface: ``mmvae_conv`` (2,048 cached rows)
-    as CUDA graphs of 8 steps alone and in a one-process NCCL group, bit
+    JAX package's data-parallel surface: ``mmvae_conv`` (1,024 cached rows)
+    as CUDA graphs of 4 steps alone and in a one-process NCCL group, bit
     for bit, with the collectives the captures issued and one profiled
-    replay's mixture kernels (16 forwards and 8 dz-only backwards) and
+    replay's mixture kernels (8 forwards and 4 dz-only backwards) and
     NCCL activities; the spawned ranks cache ``mmvae_conv``'s 2,048 rows
     replicated, row-sharded and "auto" under a budget only the sharded
     layout fits (an epoch's batches bit-equal, half the bytes a rank, the
@@ -310,7 +310,7 @@ Phases (any failure exits non-zero and prints no result line):
     for bit; the phase's seconds;
 26. ``state_sharding``: the JAX package's ``fsdp`` and ``n_model_devices``
     (``parallel/state.py``) on ``mmvae_conv``, cuDNN deterministic: (a)
-    8-step CUDA graphs on 2,048 cached rows in a one-process NCCL group,
+    4-step CUDA graphs on 1,024 cached rows in a one-process NCCL group,
     ``fsdp`` off and on, bit-equal (else within ``GRAPHED_RTOL``, the
     reason printed), their steps/s ratio, the collectives each train and
     eval capture issues (all-gathers, reduce-scatters, all-reduces, bytes),
@@ -321,10 +321,21 @@ Phases (any failure exits non-zero and prints no result line):
     process, the replicas bit-equal, each rank's bytes at rest of
     parameters and optimizer state, and with the whole weights best-model
     tracking keeps, beside one process's, 2 mixture forwards
-    and 1 dz-only backward a rank a step; (c) with four cards, four NCCL
-    ranks as data 2 x model 2 with ``fsdp``, graphed, against (a)'s
-    replicated run (``python3 chip_smoke.py --state-sharding-four`` runs
-    (b) and (c) and that run alone); and the checkpoints of
+    and 1 dz-only backward a rank a step; then ``mvtcae_cub`` (the CUB
+    example's widths on synthetic CUB files written once into the phase's
+    folder, its text encoder's attention projections placed by their
+    per-head JAX leaves) one epoch of 4 steps at the global batch of 64 in
+    the same two layouts, against one process within ``DP_RTOL`` /
+    ``DP_MOVE_RTOL``, no mixture launch, steps/s alone and in each layout,
+    each rank's bytes at rest and the text encoder's cut leaves, the
+    ``fsdp`` ranks' sharded checkpoint restored in one process bit-equal;
+    (c) with four cards, four NCCL ranks as data 2 x model 2 with
+    ``fsdp``, graphed, against (a)'s replicated run, and ``mvtcae_cub``
+    with ``fsdp`` over data 4, where 2 heads do not divide over 4 and each
+    rank keeps the out projections whole (4x a query projection's bytes at
+    rest), against one process (``python3 chip_smoke.py
+    --state-sharding-four`` runs (b) and (c) and those runs alone); and the
+    checkpoints of
     ``checkpoint_backend="orbax"``, asynchronous: (a)'s ``fsdp`` run saves
     every epoch, each epoch's ``train_state/`` restored bit-equal to the
     masters and moments copied at its save, and a run resumed from epoch 1
@@ -3535,20 +3546,23 @@ def _pass_launches(mx):
 
 
 def _dp_run(mx, name, rows, per_step, per_device, device="cuda", epochs=DP_EPOCHS,
-            eval_step=None, overrides=None, output_dir=None):
-    """``name`` of ``tools/workloads.py`` on ``rows`` seeded rows, trained
-    ``epochs`` epochs by ``BaseTrainer`` at ``per_device`` rows a device
-    (``overrides`` of its trainer settings), alone or as this rank of the
-    process group that exists; returns (its record, the start and final
-    weights on the host). The mixture kernels must launch ``per_step``
-    times on each train step and ``eval_step`` (default: its forwards) on
-    each eval step, on this process's counters. The training folder is
-    removed at the end, unless it is under ``output_dir``; the record holds
-    its checkpoints' ``checkpoint_times``."""
+            eval_step=None, overrides=None, output_dir=None, workload=None):
+    """``name`` of ``tools/workloads.py`` on ``rows`` seeded rows (or the
+    built ``workload``), trained ``epochs`` epochs by ``BaseTrainer`` at
+    ``per_device`` rows a device (``overrides`` of its trainer settings),
+    alone or as this rank of the process group that exists; returns (its
+    record, the start and final weights on the host). The mixture kernels
+    must launch ``per_step`` times on each train step and ``eval_step``
+    (default: its forwards) on each eval step, on this process's counters.
+    The training folder is removed at the end, unless it is under
+    ``output_dir``; the record holds its checkpoints' ``checkpoint_times``,
+    and where a leaf is cut the placements of the cut leaves and every
+    leaf's bytes at rest with its optimizer state."""
+    from multivae_tpu_torch.parallel.state import state_nbytes
     from multivae_tpu_torch.tools import workloads
     from multivae_tpu_torch.trainers import BaseTrainer, BaseTrainerConfig
 
-    w = workloads.build(name, n=rows, device=device)
+    w = workload if workload is not None else workloads.build(name, n=rows, device=device)
     kwargs = dict(w.trainer_kwargs, per_device_train_batch_size=per_device,
                   per_device_eval_batch_size=per_device, **(overrides or {}))
     passes = _pass_launches(mx)
@@ -3605,6 +3619,10 @@ def _dp_run(mx, name, rows, per_step, per_device, device="cuda", epochs=DP_EPOCH
               f"{name}: {record['all_reduce']['calls']} gradient all-reduces in {steps} steps")
     if trainer._state is not None:
         record["mesh"] = {"n_data": trainer.mesh.n_data, "n_model": trainer.mesh.n_model}
+        if trainer._state.cuts:
+            record["placements"] = {k: v for k, v in trainer._state.placements.items() if v}
+            record["leaf_bytes"] = {leaf.name: state_nbytes([leaf.master], trainer.optimizer)
+                                    for leaf in trainer._state.leaves}
     record["state_bytes"] = _state_bytes(trainer)
     if trainer._train_cache is not None:
         from multivae_tpu_torch.data.device_cache import cache_per_device_nbytes
@@ -3760,9 +3778,10 @@ def _dp_compare(label, ref, ref_start, ref_final, run, final, exact):
 # chunks in an NCCL group, the row-sharded device cache over ranks and the
 # evaluators over ranks.
 # (workload, rows, epochs, steps a chunk): mmvae_conv's DReG step (partial
-# PolyMNIST, batch 256) on 2,048 cached rows, 8 steps an epoch: epoch 1 runs
-# the eager chunk, epoch 2 captures, epoch 3 replays
-DP_GRAPHED = ("mmvae_conv", 2048, 3, 8)
+# PolyMNIST, batch 256) on 1,024 cached rows, 4 steps an epoch: epoch 1 runs
+# the eager chunk, epoch 2 captures, epoch 3 replays (2,048 rows and 8 steps
+# until the state_sharding phase's mvtcae_cub needed the time)
+DP_GRAPHED = ("mmvae_conv", 1024, 3, 4)
 # (workload, rows): the two gloo ranks' sharded-cache runs; "auto" gets a
 # budget of DP_AUTO_BUDGET of the set's bytes, which only the sharded layout
 # (half a set a rank) fits
@@ -3824,7 +3843,7 @@ def dp_graphed(mx, device="cuda", backend="nccl"):
     in a one-process ``backend`` group opened here, cuDNN deterministic,
     each with the capturable optimizer the graphs use: bit-equal losses and
     weights, exact mixture launches, the collectives issued inside the
-    captures, and one replay of the 8-step graph profiled (its mixture
+    captures, and one replay of the 4-step graph profiled (its mixture
     kernels, and what NCCL launched). Returns (record, launches)."""
     import datetime
 
@@ -3911,7 +3930,7 @@ def dp_graphed_rank(mx, device="cuda"):
     rank's share of the global batch of ``DP_BATCH``, from row-sharded
     caches (so that each captured step also exchanges its batch), with
     exact mixture launches on this rank's counters and one replay of the
-    8-step graph profiled on every rank at once (its mixture kernels and
+    4-step graph profiled on every rank at once (its mixture kernels and
     what NCCL launched). Returns (record, final weights on the host)."""
     import torch.distributed as dist
 
@@ -4477,13 +4496,14 @@ def mixed_precision_phase(mx, device="cuda", one_process_backend="nccl",
 # (partial PolyMNIST at its full width, DReG: the mixture's forward and
 # dz-only backward in every rank's step), under cuDNN's deterministic
 # algorithms.
-# (a) (workload, rows, epochs, steps a chunk): 8-step CUDA graphs on 2,048
-# cached rows in a one-process NCCL group, fsdp off and on: epoch 1 runs
+# (a) (workload, rows, epochs, steps a chunk): 4-step CUDA graphs on 1,024
+# cached rows (2,048 and 8 steps until mvtcae_cub below needed the time)
+# in a one-process NCCL group, fsdp off and on: epoch 1 runs
 # the eager chunk, epoch 2 captures, epoch 3 replays. Over a data axis
 # of one the gathers and scatters copy and the optimizer steps the same
 # numbers in flat masters: bit-equal, else within GRAPHED_RTOL (the loss
 # gaps and the weights' moves), the reason printed.
-SS_GRAPHED = ("mmvae_conv", 2048, 3, 8)
+SS_GRAPHED = ("mmvae_conv", 1024, 3, 4)
 # (b) two gloo ranks on the one card, eager, one epoch of SS_ROWS rows at the
 # global batch DP_BATCH, each layout against one process on the global
 # batch within DP_RTOL / DP_MOVE_RTOL (the data_parallel phase's gates):
@@ -4509,8 +4529,21 @@ SS_FOUR = dict(n_devices=2, n_model_devices=2, fsdp=True)
 # (the first save pins its host buffers), each restored in turn.
 SS_CHECKPOINT = dict(checkpoint_backend="orbax", async_checkpointing=True)
 SS_LARGE = ("crmvae_resnet", 256)
+# mvtcae_cub (tools/workloads.cub_workload: the CUB example's widths, its
+# text encoder's attention projections placed by their per-head JAX leaves)
+# on the synthetic CUB files (workloads.CUB_SYNTHETIC), written once into
+# SS_CUB_ROOT: one epoch of the first SS_CUB_ROWS train captions at the
+# global batch workloads.CUB_BATCH (4 steps), SS_CUB_EVAL eval captions.
+# (b)'s ranks train it in each of SS_LAYOUTS against one process on the
+# global batch, within DP_RTOL / DP_MOVE_RTOL, the fsdp ranks saving sharded
+# at their end (restored in this process, bit-equal); (c)'s four ranks over
+# SS_CUB_FOUR, where 2 heads do not divide over data 4, so that the out
+# projections stay whole on every rank, as in JAX.
+SS_CUB_ROOT = os.path.join(ROOT, "build", "chip_smoke", "state_sharding", "cub")
+SS_CUB_ROWS, SS_CUB_EVAL = 256, 64
+SS_CUB_FOUR = dict(n_devices=4, fsdp=True)
 # seconds a spawned rank of this phase may take
-SS_RANK_TIMEOUT = 240
+SS_RANK_TIMEOUT = 480
 SS_PER_STEP, SS_EVAL_FWD = {"fwd": 2, "bwd_dz": 1}, 2
 
 
@@ -4564,7 +4597,7 @@ def _expected_launches(run):
 
 
 def ss_graphed(mx, device="cuda", backend="nccl", fsdps=(False, True)):
-    """(a): ``SS_GRAPHED`` as 8-step graphs in a one-process ``backend``
+    """(a): ``SS_GRAPHED`` as 4-step graphs in a one-process ``backend``
     group, for each of ``fsdps``; returns (record, launches, the run
     without fsdp as (record, start, end)). With fsdp among them the record
     holds it to the run without; else the record is None."""
@@ -4671,14 +4704,55 @@ def _progress(tag):
     return Progress()
 
 
+def _cub_workload(device):
+    """``mvtcae_cub`` on ``SS_CUB_ROOT``'s files: the first ``SS_CUB_ROWS``
+    captions of the train split and the first ``SS_CUB_EVAL`` of the eval
+    split."""
+    import dataclasses
+
+    from multivae_tpu_torch.data import ResampleDataset
+    from multivae_tpu_torch.data.datasets import CUB
+    from multivae_tpu_torch.tools import workloads
+
+    train, eval_set = (CUB(SS_CUB_ROOT, split, output_type="tokens")
+                       for split in ("train", "eval"))
+    w = workloads.cub_workload(train, eval_set, device=device)
+    return dataclasses.replace(w, train=ResampleDataset(train, np.arange(SS_CUB_ROWS)),
+                               eval=ResampleDataset(eval_set, np.arange(SS_CUB_EVAL)))
+
+
+def _save_rank(out, label, rank, record, final):
+    torch.save(final, os.path.join(out, f"{label}_rank{rank}.pt"))
+    with open(os.path.join(out, f"{label}_rank{rank}.json"), "w") as f:
+        json.dump(record, f)
+
+
+def _ss_cub_run(mx, device, layout=None, output_dir=None):
+    """``mvtcae_cub`` one epoch in ``layout`` (None: one process on the
+    global batch), saving sharded at its end under ``output_dir`` where
+    given; ``_dp_run``'s (record, start, final), the record with the
+    seconds of the run, construction included."""
+    from multivae_tpu_torch.tools import workloads
+
+    t0 = time.perf_counter()
+    overrides = dict(layout or {}, **(dict(SS_CHECKPOINT, steps_saving=1) if output_dir else {}))
+    record, start, final = _dp_run(
+        mx, "mvtcae_cub", SS_CUB_ROWS, {}, workloads.CUB_BATCH // overrides.get("n_devices", 1),
+        device, epochs=1, overrides=overrides, output_dir=output_dir,
+        workload=_cub_workload(device))
+    record["run_s"] = time.perf_counter() - t0
+    return record, start, final
+
+
 def ss_rank_main(argv, device="cuda"):
     """A spawned rank: ``--ss-rank R WORLD PORT BACKEND OUT MODE
     [CHECKPOINT]``. Joins the group at ``tcp://127.0.0.1:PORT``; MODE
     ``eager`` trains each layout of ``SS_LAYOUTS`` (b), the first saving its
-    sharded train state under ``OUT``; ``graphed`` first restores
-    CHECKPOINT in ``SS_FOUR``'s layout where it is given, then trains
-    ``SS_FOUR`` as graphs (c); each record and final weights saved under
-    ``OUT``."""
+    sharded train state under ``OUT``, then ``mvtcae_cub`` in each layout,
+    the first saving too; ``graphed`` first restores CHECKPOINT in
+    ``SS_FOUR``'s layout where it is given, then trains ``SS_FOUR``
+    eagerly, ``mvtcae_cub`` over ``SS_CUB_FOUR`` and ``SS_FOUR`` as graphs
+    (c); each record and final weights saved under ``OUT``."""
     import datetime
 
     import torch.distributed as dist
@@ -4709,9 +4783,12 @@ def ss_rank_main(argv, device="cuda"):
                                            epochs=SS_EPOCHS, overrides={**layout, **saving},
                                            output_dir=(os.path.join(out, "checkpoints")
                                                        if saving else None))
-                torch.save(final, os.path.join(out, f"{label}_rank{rank}.pt"))
-                with open(os.path.join(out, f"{label}_rank{rank}.json"), "w") as f:
-                    json.dump(record, f)
+                _save_rank(out, label, rank, record, final)
+            for label, layout in SS_LAYOUTS:
+                record, _, final = _ss_cub_run(mx, device, layout, output_dir=(
+                    os.path.join(out, "cub_checkpoints") if label == "fsdp_data2" else None))
+                _save_rank(out, f"cub_{label}", rank, record, final)
+                print(f"[{time.strftime('%H:%M:%S')}] mvtcae_cub {label} done", flush=True)
         else:
             name, rows, epochs, chunk = SS_GRAPHED
             per = DP_BATCH // SS_FOUR["n_devices"]
@@ -4726,10 +4803,11 @@ def ss_rank_main(argv, device="cuda"):
             # eager first: one epoch of SS_ROWS rows, as (b)
             record, _, final = _dp_run(mx, name, SS_ROWS, SS_PER_STEP, per, device,
                                        epochs=SS_EPOCHS, overrides=SS_FOUR)
-            torch.save(final, os.path.join(out, f"four_eager_rank{rank}.pt"))
-            with open(os.path.join(out, f"four_eager_rank{rank}.json"), "w") as f:
-                json.dump(record, f)
+            _save_rank(out, "four_eager", rank, record, final)
             print(f"[{time.strftime('%H:%M:%S')}] eager done", flush=True)
+            record, _, final = _ss_cub_run(mx, device, SS_CUB_FOUR)
+            _save_rank(out, "cub_four", rank, record, final)
+            print(f"[{time.strftime('%H:%M:%S')}] mvtcae_cub done", flush=True)
             record, end = _ss_four_rank(mx, device, out, per)
             record["rank"] = rank
             torch.save({k: v.cpu() for k, v in end.items()},
@@ -4762,10 +4840,11 @@ def _ss_four_rank(mx, device, out, per):
     return record, end
 
 
-def _ss_ranks(label, world, out, alone, alone_start, alone_final, counts):
+def _ss_ranks(label, world, out, alone, alone_start, alone_final, counts, extra=()):
     """The spawned ranks' results of ``label``: replicas bit-equal, each
     rank's launches added to ``counts``, rank 0 against ``alone`` within
-    DP_RTOL / DP_MOVE_RTOL."""
+    DP_RTOL / DP_MOVE_RTOL. Each rank's entry keeps the ``extra`` keys of
+    its record too."""
     ranks, finals = [], []
     for r in range(world):
         with open(os.path.join(out, f"{label}_rank{r}.json")) as f:
@@ -4780,16 +4859,18 @@ def _ss_ranks(label, world, out, alone, alone_start, alone_final, counts):
                        finals[0], exact=False)
     return {"gaps": gaps, "ranks": [{k: r.get(k) for k in (
         "rank", "mesh", "per_device_batch", "steps_per_s", "state_bytes", "all_reduce",
-        "launches_per_step")} for r in ranks]}
+        "launches_per_step", *extra)} for r in ranks]}
 
 
 def ss_four(mx, device, alone_run, eager_alone, counts, rank_command=None, backend="nccl",
-            checkpoint=None):
+            checkpoint=None, cub_alone=None):
     """(c): four ``backend`` ranks, one card each, as data 2 x model 2 with
     fsdp: ``checkpoint`` (``(folder, the saving ranks' final weights)``)
     restored and held to those weights bit for bit, one eager epoch against
     ``eager_alone`` (``_dp_run``'s (record, start, final) of one process) as
-    (b), then graphs of 8 steps against (a)'s replicated graphed run."""
+    (b), ``mvtcae_cub`` over ``SS_CUB_FOUR`` against ``cub_alone``
+    (``_ss_cub_four``), then graphs of 4 steps against (a)'s replicated
+    graphed run."""
     out = os.path.join(ROOT, "build", "chip_smoke", "state_sharding", "four")
     t0 = time.perf_counter()
     _spawn_ranks(4, backend, out, (rank_command or [
@@ -4809,6 +4890,7 @@ def ss_four(mx, device, alone_run, eager_alone, counts, rank_command=None, backe
         print(f"  checkpoint {SS_GRAPHED[0]} of the gloo ranks into data 2 x model 2: restore "
               f"{max(restore):.4f} s (slowest of 4 ranks), bit-equal | {_card()}", flush=True)
     eager = _ss_ranks("four_eager", 4, out, *eager_alone, counts)
+    cub = _ss_cub_four(out, cub_alone, counts, _card(), backend)
     alone, start, end = alone_run
     ranks, finals = [], []
     for r in range(4):
@@ -4827,7 +4909,8 @@ def ss_four(mx, device, alone_run, eager_alone, counts, rank_command=None, backe
     check(max(gaps[k] for k in LOSS_GAP_KINDS) <= DP_RTOL and gaps["move_rel_gap"] <= DP_MOVE_RTOL,
           f"state_sharding four: beyond {DP_RTOL} / {DP_MOVE_RTOL} of the run alone: {gaps}")
     shutil.rmtree(out, ignore_errors=True)
-    return {"eager": eager, "gaps": gaps, "spawn_and_train_s": time.perf_counter() - t0,
+    return {"eager": eager, "mvtcae_cub": cub, "gaps": gaps,
+            "spawn_and_train_s": time.perf_counter() - t0,
             "restore_s": restore,
             "alone_steps_per_s": alone["steps_per_s"],
             "ranks": [{k: r.get(k) for k in (
@@ -4958,15 +5041,15 @@ def _ss_checkpoints(mx, trainer, saved, end, out, device):
     return record, resumed["launches"]
 
 
-def _restored(name, rows, per_device, device, checkpoint, overrides=None):
-    """A trainer of ``name`` on ``rows`` seeded rows at ``per_device`` rows a
-    device (``overrides``), as this rank of the group that exists, resumed
-    from ``checkpoint``; returns (its whole weights on the host, the
-    restore's seconds)."""
+def _restored(name, rows, per_device, device, checkpoint, overrides=None, workload=None):
+    """A trainer of ``name`` on ``rows`` seeded rows (or the built
+    ``workload``) at ``per_device`` rows a device (``overrides``), as this
+    rank of the group that exists, resumed from ``checkpoint``; returns
+    (its whole weights on the host, the restore's seconds)."""
     from multivae_tpu_torch.tools import workloads
     from multivae_tpu_torch.trainers import BaseTrainer, BaseTrainerConfig
 
-    w = workloads.build(name, n=rows, device=device)
+    w = workload if workload is not None else workloads.build(name, n=rows, device=device)
     kwargs = dict(w.trainer_kwargs, per_device_train_batch_size=per_device,
                   per_device_eval_batch_size=per_device, **(overrides or {}))
     trainer = BaseTrainer(w.model, w.train, w.eval, device=device,
@@ -4984,25 +5067,29 @@ def _restored(name, rows, per_device, device, checkpoint, overrides=None):
     return whole, restore_s
 
 
-def _ss_gloo_checkpoint(out, ranks, card, device, whole_state):
-    """(b)'s checkpoint: the two ranks' ``fsdp_data2`` save, restored whole
-    in this process and held to their final weights bit for bit; each
-    rank's file about its bytes at rest, not the whole state. Returns (the
-    record, the checkpoint's folder, rank 0's final weights)."""
-    final = torch.load(os.path.join(out, "fsdp_data2_rank0.pt"), weights_only=True)
+def _ss_gloo_checkpoint(out, ranks, card, device, whole_state, label="fsdp_data2",
+                        name=SS_GRAPHED[0], rows=SS_ROWS, per_device=DP_BATCH, build=None):
+    """(b)'s checkpoint: the two ranks' ``label`` save of ``name``,
+    restored whole in this process (``rows`` seeded rows at ``per_device``,
+    or the workload ``build(device)`` gives) and held to their final
+    weights bit for bit; each rank's file about its bytes at rest, not the
+    whole state. Returns (the record, the checkpoint's folder, rank 0's
+    final weights)."""
+    final = torch.load(os.path.join(out, f"{label}_rank0.pt"), weights_only=True)
     saves = [r["checkpoint"] for r in ranks]
     path = os.path.join(saves[0]["training_dir"], f"checkpoint_epoch_{SS_EPOCHS}")
-    whole, restore_s = _restored(SS_GRAPHED[0], SS_ROWS, DP_BATCH, device, path)
+    whole, restore_s = _restored(name, rows, per_device, device, path,
+                                 workload=build(device) if build else None)
     check(list(whole) == list(final) and all(torch.equal(whole[k], v) for k, v in final.items()),
-          "state_sharding checkpoints: the two ranks' sharded checkpoint restored in one "
-          "process is not their final weights")
+          f"state_sharding checkpoints: the two ranks' sharded checkpoint of {name} restored in "
+          "one process is not their final weights")
     files = [os.path.getsize(os.path.join(path, "train_state", f"rank_{r}.pt")) for r in (0, 1)]
     at_rest = [r["state_bytes"]["params_and_optimizer"] for r in ranks]
     check(all(f <= 1.05 * b for f, b in zip(files, at_rest)) and max(files) < 0.6 * whole_state,
           f"state_sharding checkpoints: rank files of {files} bytes against {at_rest} at rest "
           f"and {whole_state} in one process")
     for r, times in enumerate(saves):
-        _checkpoint_line(f"{SS_GRAPHED[0]} fsdp over data 2, gloo, rank {r}",
+        _checkpoint_line(f"{name} fsdp over data 2, gloo, rank {r}",
                          dict(times, bytes=files[r]), restore_s, card,
                          f" (into one process), {at_rest[r]} bytes at rest")
     return {"saves": saves, "rank_file_bytes": files, "bytes_at_rest": at_rest,
@@ -5054,14 +5141,94 @@ def _ss_large(device, card):
     return record
 
 
+def _ss_cub_alone(mx, device):
+    """``SS_CUB_ROOT``'s CUB files written, then ``mvtcae_cub`` in one
+    process on the global batch: ``_ss_cub_run``'s (record, start, final)."""
+    from multivae_tpu_torch.tools import dataset_files, workloads
+
+    shutil.rmtree(SS_CUB_ROOT, ignore_errors=True)
+    dataset_files.write_cub(SS_CUB_ROOT, **workloads.CUB_SYNTHETIC)
+    return _ss_cub_run(mx, device)
+
+
+def _text_leaves(names) -> list:
+    return [k for k in names if k.startswith("encoders.text.")]
+
+
+def _ss_cub(out, alone, counts, card, device):
+    """(b)'s ``mvtcae_cub``: the two ranks in each of ``SS_LAYOUTS`` against
+    ``alone`` (``_ss_cub_run``'s one process), and the fsdp ranks' sharded
+    checkpoint restored in this process, bit-equal. Prints a line for each
+    rank: steps/s, bytes at rest and the text encoder's cut leaves, beside
+    the one process's. Returns the record."""
+    from multivae_tpu_torch.tools import workloads
+
+    rec, start, final = alone
+    n_text = len(_text_leaves(final))
+    at_rest = rec["state_bytes"]["params_and_optimizer"]
+    record = {"alone": {k: rec[k] for k in ("steps_per_s", "epoch_losses", "eval_losses",
+                                            "state_bytes", "run_s")},
+              "text_encoder_leaves": n_text}
+    print(f"  mvtcae_cub alone: {rec['steps_per_s']:.3f} steps/s, {at_rest} bytes at rest, "
+          f"run {rec['run_s']:.1f} s | {card}", flush=True)
+    ranks = {}
+    for label, _ in SS_LAYOUTS:
+        res = _ss_ranks(f"cub_{label}", 2, out, rec, start, final, counts,
+                        extra=("placements", "run_s", "checkpoint"))
+        ranks[label] = res["ranks"]
+        for r in res["ranks"]:
+            r["text_encoder_cut_leaves"] = len(_text_leaves(r.pop("placements") or {}))
+            check(r["text_encoder_cut_leaves"] > 0,
+                  f"state_sharding mvtcae_cub {label}: no leaf of the text encoder cut")
+            print(f"  mvtcae_cub {label}, rank {r['rank']} of 2 (gloo, one card): "
+                  f"{r['steps_per_s']:.3f} steps/s, "
+                  f"{r['state_bytes']['params_and_optimizer']} bytes at rest, "
+                  f"{r['text_encoder_cut_leaves']} of {n_text} text encoder leaves cut, "
+                  f"run {r['run_s']:.1f} s, gaps {res['gaps']} | {card}", flush=True)
+        record[label] = res
+    record["checkpoint"], _, _ = _ss_gloo_checkpoint(
+        out, ranks["fsdp_data2"], card, device, at_rest, label="cub_fsdp_data2",
+        name="mvtcae_cub", rows=SS_CUB_ROWS, per_device=workloads.CUB_BATCH,
+        build=_cub_workload)
+    for r in ranks["fsdp_data2"]:
+        r.pop("checkpoint")
+    return record
+
+
+def _ss_cub_four(out, alone, counts, card, backend):
+    """(c)'s ``mvtcae_cub`` over ``SS_CUB_FOUR``: the four ranks against
+    ``alone``; each rank's out projections whole (2 heads over data 4), at
+    4x the bytes at rest of its query projections, which are cut."""
+    res = _ss_ranks("cub_four", 4, out, *alone, counts,
+                    extra=("placements", "leaf_bytes", "run_s"))
+    for r in res["ranks"]:
+        placements, leaf_bytes = r.pop("placements"), r.pop("leaf_bytes")
+        outs = [k for k in _text_leaves(leaf_bytes) if k.endswith(".out.weight")]
+        ratios = [leaf_bytes[k] / leaf_bytes[k.replace(".out.", ".query.")] for k in outs]
+        check(outs and not set(outs) & set(placements) and all(
+            abs(x - 4) < 0.01 for x in ratios),
+              f"state_sharding mvtcae_cub four: rank {r['rank']} cuts an out projection "
+              f"({sorted(set(outs) & set(placements))}) or holds {ratios} of its query's bytes")
+        r["text_encoder_cut_leaves"] = len(_text_leaves(placements))
+        r["out_over_query_bytes"] = ratios
+        print(f"  mvtcae_cub fsdp over data 4, rank {r['rank']} of 4 ({backend}): "
+              f"{r['steps_per_s']:.3f} steps/s, "
+              f"{r['state_bytes']['params_and_optimizer']} bytes at rest, out projections "
+              f"whole ({ratios[0]:.4f}x a query's bytes), {r['text_encoder_cut_leaves']} text "
+              f"encoder leaves cut, run {r['run_s']:.1f} s, gaps {res['gaps']} | {card}",
+              flush=True)
+    return res
+
+
 def state_sharding(mx, device="cuda", one_process_backend="nccl", rank_command=None,
                    four_only=False):
     """The ``state_sharding`` phase: (a) ``ss_graphed``; (b) two gloo ranks
     on the one card, spawned (``--ss-rank``), fsdp over data 2 and data 1 x
     model 2, each against one process on the global batch, with each
     rank's bytes at rest of parameters and optimizer state beside the one
-    process's, and the first's sharded checkpoint restored in this process;
-    (c) where the machine shows four cards, ``ss_four``; (d) ``_ss_large``.
+    process's, and the first's sharded checkpoint restored in this process,
+    then ``mvtcae_cub`` in both layouts (``_ss_cub``); (c) where the
+    machine shows four cards, ``ss_four``; (d) ``_ss_large``.
     ``four_only`` leaves out (a)'s fsdp run and (d): (c) and the runs it is
     held to. Returns (the record, the launches of every run and rank)."""
     t_phase = time.perf_counter()
@@ -5078,6 +5245,9 @@ def state_sharding(mx, device="cuda", one_process_backend="nccl", rank_command=N
             record["graphed"] = graphed
             print(json.dumps({"phase": "state_sharding", "graphed": graphed}), flush=True)
         eager_alone = alone, start, final = _ss_eager_alone(mx, device, counts)
+        t0 = time.perf_counter()
+        cub_alone = _ss_cub_alone(mx, device)
+        cub_alone_s = time.perf_counter() - t0
         # (b) in both modes: (c) restores its checkpoint
         out = os.path.join(ROOT, "build", "chip_smoke", "state_sharding", "gloo2")
         t0 = time.perf_counter()
@@ -5096,6 +5266,17 @@ def state_sharding(mx, device="cuda", one_process_backend="nccl", rank_command=N
                     f"state_sharding {label}: a rank's launches a step "
                     f"{r['launches_per_step']}")
         card = _card()
+        t0 = time.perf_counter()
+        record["mvtcae_cub"] = _ss_cub(out, cub_alone, counts, card, device)
+        ranks_cub_s = sum(max(r["run_s"] for r in record["mvtcae_cub"][label]["ranks"])
+                          for label, _ in SS_LAYOUTS)
+        record["mvtcae_cub"]["seconds"] = {
+            "files_and_alone": cub_alone_s, "ranks_slowest": ranks_cub_s,
+            "checks_and_restore": time.perf_counter() - t0}
+        print(f"  state_sharding mvtcae_cub: {cub_alone_s:.1f} s files and one process, "
+              f"{ranks_cub_s:.1f} s in the slowest rank, "
+              f"{record['mvtcae_cub']['seconds']['checks_and_restore']:.1f} s checks and "
+              "restore", flush=True)
         ranks = []
         for r in range(2):
             with open(os.path.join(out, f"fsdp_data2_rank{r}.json")) as f:
@@ -5110,10 +5291,11 @@ def state_sharding(mx, device="cuda", one_process_backend="nccl", rank_command=N
               f"{record['checkpoints']['seconds']:.1f} s", flush=True)
         if torch.cuda.device_count() >= 4:
             record["four"] = ss_four(mx, device, alone_run, eager_alone, counts, rank_command,
-                                     checkpoint=(saved, saved_final))
+                                     checkpoint=(saved, saved_final), cub_alone=cub_alone)
         shutil.rmtree(out, ignore_errors=True)
     finally:
         torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(SS_CUB_ROOT, ignore_errors=True)
     record["seconds"] = time.perf_counter() - t_phase
     print(f"  state_sharding: {record['seconds']:.1f} s")
     return record, counts

@@ -73,15 +73,26 @@ class TransformerEncoderLayer(nn.Module):
     """Post-norm encoder layer: x + attention, LayerNorm, x + Dense(ff)
     ReLU Dense(E), LayerNorm."""
 
-    # Linear here, (E, heads, head_dim) and (heads, head_dim, E) kernels in
-    # the JAX package: no permutation of each other
-    JAX_RESHAPED = ("query", "key", "value", "out")
+    # The JAX leaves of the attention projections, which are Linears here:
+    # Flax's per-head (E, H, D) query, key and value kernels with (H, D)
+    # biases and its (H, D, E) out kernel (E embed, H heads, D head_dim),
+    # reshapes of these parameters and no permutation of them. For each
+    # parameter: its JAX leaf's axes by size, and for each torch axis the
+    # JAX axes merged into it, in order. ``utils/convert.py`` builds the
+    # parameters from the JAX leaves by it, and ``parallel/mesh.py`` judges
+    # their placements on the JAX leaves by it. The out bias (E,) is a
+    # Linear's own.
+    JAX_LAYOUT = {
+        **{f"{name}.weight": ("EHD", ((1, 2), (0,))) for name in ("query", "key", "value")},
+        **{f"{name}.bias": ("HD", ((0, 1),)) for name in ("query", "key", "value")},
+        "out.weight": ("HDE", ((2,), (0, 1))),
+    }
 
     def __init__(self, embed_size: int, nhead: int, ff_size: int, dropout: float = 0.5):
         super().__init__()
         if embed_size % nhead:
             raise ValueError(f"embed_size {embed_size} is not a multiple of nhead {nhead}")
-        self.nhead = nhead
+        self.nhead, self.embed_size = nhead, embed_size
         self.query = nn.Linear(embed_size, embed_size)
         self.key = nn.Linear(embed_size, embed_size)
         self.value = nn.Linear(embed_size, embed_size)
@@ -90,6 +101,13 @@ class TransformerEncoderLayer(nn.Module):
                                    for _ in range(2)])
         self.dense = nn.ModuleList([nn.Linear(embed_size, ff_size),
                                     nn.Linear(ff_size, embed_size)])
+
+    def jax_leaves(self) -> dict:
+        """``{parameter name: (its JAX leaf's shape, the JAX axes of each
+        torch axis)}`` of ``JAX_LAYOUT`` at this layer's widths."""
+        sizes = {"E": self.embed_size, "H": self.nhead, "D": self.embed_size // self.nhead}
+        return {name: (tuple(sizes[a] for a in axes), groups)
+                for name, (axes, groups) in self.JAX_LAYOUT.items()}
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         reset_lecun_([self.query, self.key, self.value, self.out, *self.dense], generator)

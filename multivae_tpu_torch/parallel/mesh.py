@@ -23,7 +23,8 @@ gradients with one collective a step:
   ``tp_state_sharding``) gives each leaf of a tree the JAX package's spec:
   the same rule on the same shapes. ``param_placements`` judges each
   parameter of a torch model on the leaf as the JAX package shapes it (the
-  axes of ``utils/convert.py``) and gives the spec in the torch axes.
+  axes of ``utils/convert.py``, or the layout a module declares for a leaf
+  that the conversion reshapes) and gives the spec in the torch axes.
   ``parallel/state.py`` keeps the train state by these placements and sums
   the gradients over the group (every leaf whole without ``fsdp`` or a
   model axis: one flat all-reduce a dtype).
@@ -256,29 +257,46 @@ def tp_state_sharding(state, mesh, min_dim: int = 64):
     return combined_state_sharding(state, mesh, fsdp=False, min_dim=min_dim)
 
 
-def jax_axes(module: torch.nn.Module, name: str, param: torch.Tensor) -> tuple:
-    """The torch axis of each axis of the JAX leaf that ``module``'s
-    parameter ``name`` converts from (``utils/convert.py``): a Dense kernel
-    (in, out) is a Linear weight (out, in), a conv kernel HWIO an OIHW
-    weight, a ConvTranspose kernel (kh, kw, in, out) an (in, out, kh, kw)
-    weight; every other leaf (biases, norms, embeddings, a model's own
-    parameters) keeps its axes."""
+def jax_view(module: torch.nn.Module, name: str, param: torch.Tensor,
+             declared: Optional[dict] = None) -> tuple:
+    """``(shape, groups)``: the shape of the JAX leaf that ``module``'s
+    parameter ``name`` converts from (``utils/convert.py``), and for each
+    torch axis the JAX axes merged into it, in order. A leaf a module
+    declares (``declared``, from ``declared_leaves``) is read as declared;
+    else a Dense kernel (in, out) is a Linear weight (out, in), a conv
+    kernel HWIO an OIHW weight, a ConvTranspose kernel (kh, kw, in, out) an
+    (in, out, kh, kw) weight, each torch axis one JAX axis; every other
+    leaf (biases, norms, embeddings, a model's own parameters) keeps its
+    axes."""
+    if declared and (id(module), name) in declared:
+        shape, groups = declared[(id(module), name)]
+        merged = [math.prod(shape[j] for j in group) for group in groups]
+        if merged != list(param.shape):
+            raise ValueError(f"{type(module).__name__}.{name}: the declared JAX leaf {shape} "
+                             f"merges to {merged}, not the parameter's {list(param.shape)}")
+        return shape, groups
+    axes = tuple(range(param.dim()))       # the torch axis of each JAX axis
     if name == "weight" and param.dim() >= 2:
-        for child_of, axes in ((torch.nn.Linear, (1, 0)), (torch.nn.Conv2d, (2, 3, 1, 0)),
+        for child_of, perm in ((torch.nn.Linear, (1, 0)), (torch.nn.Conv2d, (2, 3, 1, 0)),
                                (torch.nn.ConvTranspose2d, (2, 3, 0, 1))):
             if isinstance(module, child_of):
-                return axes
-    return tuple(range(param.dim()))
+                axes = perm
+                break
+    return (tuple(param.shape[a] for a in axes),
+            tuple((axes.index(t),) for t in range(param.dim())))
 
 
-def _reshaped(model: torch.nn.Module) -> dict:
-    """{id: name} of the submodules whose JAX leaves are no permutation of
-    their parameters: those a module lists in ``JAX_RESHAPED`` (the CUB
-    text encoder's attention projections, 3-D kernels in the JAX package)."""
+def declared_leaves(model: torch.nn.Module) -> dict:
+    """``{(id(module), attribute): (shape, groups)}`` of the parameters
+    whose JAX leaves a module of ``model`` declares through its
+    ``jax_leaves()`` (the CUB text encoder's attention projections,
+    reshapes of Flax's per-head leaves: ``nn/cub.py``)."""
     out = {}
-    for path, module in model.named_modules():
-        for child in getattr(module, "JAX_RESHAPED", ()):
-            out[id(getattr(module, child))] = f"{path}.{child}" if path else child
+    for module in model.modules():
+        if hasattr(module, "jax_leaves"):
+            for key, view in module.jax_leaves().items():
+                path, _, attr = key.rpartition(".")
+                out[(id(module.get_submodule(path)), attr)] = view
     return out
 
 
@@ -297,26 +315,31 @@ def param_owners(model: torch.nn.Module):
 def param_placements(model: torch.nn.Module, mesh, fsdp: bool = False,
                      min_size: int = 1024, min_dim: int = 64) -> dict:
     """``{parameter name: spec in the torch axes}``: each parameter judged by
-    ``combined_state_sharding`` on its JAX leaf's shape (``jax_axes``), the
-    spec's entries put back on the torch axes."""
+    ``combined_state_sharding`` on its JAX leaf's shape (``jax_view``), and
+    each JAX axis's name written on the torch axis that holds it. A torch
+    axis holding two cut JAX axes takes both names as a tuple entry, as
+    JAX's ``P(("data", "model"))``. Along such a merged axis the JAX rule
+    gives the axes that are cut and each rank's share; which elements a
+    rank holds is ``parallel/state.py``'s choice (a Linear's contiguous
+    output rows, a flat piece of the data axis)."""
     out = {}
-    reshaped = _reshaped(model)
+    declared = declared_leaves(model)
     for key, p, holders in param_owners(model):
         module, name = holders[0]
         if not fsdp and mesh.n_model == 1:   # nothing to cut: every leaf whole
             out[key] = ()
             continue
-        if id(module) in reshaped:
-            raise NotImplementedError(
-                f"fsdp / n_model_devices: {reshaped[id(module)]} converts from a reshaped JAX "
-                "leaf, on which the port cannot judge the JAX placement of its parameters.")
-        axes = jax_axes(module, name, p)
-        spec = _leaf_spec([p.shape[a] for a in axes], p.is_floating_point(), mesh.n_data,
-                          mesh.n_model, fsdp, min_size, min_dim)
-        torch_spec = [None] * p.dim()
-        for jax_axis, axis_name in enumerate(spec):
-            torch_spec[axes[jax_axis]] = axis_name
-        out[key] = tuple(torch_spec) if spec else ()
+        shape, groups = jax_view(module, name, p, declared)
+        spec = _leaf_spec(shape, p.is_floating_point(), mesh.n_data, mesh.n_model, fsdp,
+                          min_size, min_dim)
+        if not spec:
+            out[key] = ()
+            continue
+        torch_spec = []
+        for group in groups:
+            names = tuple(spec[j] for j in group if spec[j] is not None)
+            torch_spec.append(names[0] if len(names) == 1 else names or None)
+        out[key] = tuple(torch_spec)
     return out
 
 

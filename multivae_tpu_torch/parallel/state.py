@@ -23,6 +23,16 @@ the collectives itself, on flat buffers, one a dtype and an axis:
   kept as this rank's 1/``n_model`` piece and gathered at use.
 - Every other leaf stays whole on every rank (the module's own parameter).
 
+A leaf whose JAX form is a reshape of the torch tensor (the CUB text
+encoder's per-head attention projections) is cut where the JAX rule cuts
+its JAX axes: a spec entry of a torch axis that merges two cut JAX axes
+names both. The bytes a rank holds and the axes that are cut are JAX's;
+which elements along a merged axis is the port's choice, as on the data
+axis. A query projection cut over "model" computes its own contiguous
+output rows (whole heads where the model axis divides the heads), where
+JAX gives each rank a head_dim slice of every head: the gathered
+activations are the same tensor.
+
 The modules hold the masters only inside ``reshard`` ... ``unshard`` (the
 trainer's ``train``): outside, they hold whole weights, plain. A step runs
 inside ``gathered``: the cut leaves' masters are all-gathered
@@ -196,6 +206,13 @@ class _Leaf:
         return self.swapped or self.column_dim is not None
 
 
+def spec_axis(spec: tuple, axis: str) -> Optional[int]:
+    """The torch axis that ``axis`` ("data" or "model") cuts in ``spec``
+    (an entry may name both, as a tuple), or None."""
+    return next((i for i, entry in enumerate(spec)
+                 if entry == axis or (isinstance(entry, tuple) and axis in entry)), None)
+
+
 def state_nbytes(params, optimizer=None) -> int:
     """Bytes of ``params`` and of their optimizer state tensors."""
     params = list(params)
@@ -236,7 +253,8 @@ class ShardedState:
             spec = self.placements[name]
             self.leaves.append(_Leaf(name, owners, p.shape, spec,
                                      self._column_dim(owners, spec),
-                                     MODEL_AXIS in spec, DATA_AXIS in spec))
+                                     spec_axis(spec, MODEL_AXIS) is not None,
+                                     spec_axis(spec, DATA_AXIS) is not None))
         self._columns = self._column_modules()
         self.cuts = any(leaf.cut for leaf in self.leaves)
         whole = {}
@@ -269,7 +287,8 @@ class ShardedState:
     def _column_dim(self, owners, spec) -> Optional[int]:
         """The output axis of a column module's weight or bias cut over
         "model", else None."""
-        if MODEL_AXIS not in spec or len(owners) != 1:
+        cut = spec_axis(spec, MODEL_AXIS)
+        if cut is None or len(owners) != 1:
             return None
         module, attr = owners[0]
         out = _COLUMN_FORWARDS.get(type(module).forward)
@@ -277,7 +296,7 @@ class ShardedState:
                 or getattr(module, "padding_mode", "zeros") != "zeros"):
             return None
         axis = out if attr == "weight" else 0
-        return axis if spec.index(MODEL_AXIS) == axis else None
+        return axis if cut == axis else None
 
     def _column_modules(self):
         """The modules that compute their own columns: every parameter of

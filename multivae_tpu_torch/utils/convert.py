@@ -146,19 +146,32 @@ def _linear(kernel, bias) -> Dict[str, torch.Tensor]:
             "bias": torch.tensor(np.asarray(bias))}
 
 
+def merge_jax_axes(leaf, groups) -> np.ndarray:
+    """A JAX leaf in a torch parameter's layout: ``groups`` holds, for each
+    torch axis, the JAX axes merged into it, in order."""
+    leaf = np.asarray(leaf)
+    order = [j for group in groups for j in group]
+    return np.ascontiguousarray(leaf.transpose(order)).reshape(
+        [math.prod(leaf.shape[j] for j in group) for group in groups])
+
+
 def _transformer_state(prefix: str, layer: dict) -> Dict[str, torch.Tensor]:
-    """One ``TransformerEncoderLayer_i`` of the CUB text encoder."""
-    pairs = {}
+    """One ``TransformerEncoderLayer_i`` of the CUB text encoder: its
+    attention's leaves by the layer's ``JAX_LAYOUT``."""
+    from ..nn.cub import TransformerEncoderLayer
+
     attn = layer["MultiHeadDotProductAttention_0"]
-    for name in ("query", "key", "value"):
-        kernel = np.asarray(attn[name]["kernel"])        # (in, heads, head_dim)
-        pairs[name] = (kernel.reshape(kernel.shape[0], -1), np.asarray(attn[name]["bias"]).ravel())
-    kernel = np.asarray(attn["out"]["kernel"])           # (heads, head_dim, out)
-    pairs["out"] = (kernel.reshape(-1, kernel.shape[-1]), attn["out"]["bias"])
+    state = {}
+    for name in ("query", "key", "value", "out"):
+        for k, jax_name in (("weight", "kernel"), ("bias", "bias")):
+            leaf = np.asarray(attn[name][jax_name])
+            # a leaf the layout leaves out is a Dense one: its axes reversed
+            _, groups = TransformerEncoderLayer.JAX_LAYOUT.get(
+                f"{name}.{k}", (None, tuple((j,) for j in reversed(range(leaf.ndim)))))
+            state[f"{prefix}.{name}.{k}"] = torch.tensor(merge_jax_axes(leaf, groups))
     for j in range(2):
-        pairs[f"dense.{j}"] = (layer[f"Dense_{j}"]["kernel"], layer[f"Dense_{j}"]["bias"])
-    state = {f"{prefix}.{name}.{k}": v for name, (kernel, bias) in pairs.items()
-             for k, v in _linear(kernel, bias).items()}
+        state.update({f"{prefix}.dense.{j}.{k}": v for k, v in _linear(
+            layer[f"Dense_{j}"]["kernel"], layer[f"Dense_{j}"]["bias"]).items()})
     for j in range(2):
         norm = layer[f"LayerNorm_{j}"]
         state[f"{prefix}.norm.{j}.weight"] = torch.tensor(np.asarray(norm["scale"]))

@@ -3,11 +3,14 @@ rule, ``parallel/state.py``) against the JAX package's
 ``combined_state_sharding`` and against one process, on the CPU over gloo.
 
 - The rule: on the JAX tests' leaf dicts, and on every leaf of a converted
-  MVTCAE (MLP nets) and a conv MMVAE (the PolyMNIST nets), the port's
+  MVTCAE (MLP nets), a conv MMVAE (the PolyMNIST nets), a narrow MVTCAE on
+  the CUB nets and the CUB example's full-width text encoder, the port's
   placements equal the JAX specs on meshes of 8 and 4 x 2 (the conftest's
   host devices), mapped to the torch axes through ``params_from_jax``
-  itself (each leaf converted as an array of its own indices). No JAX
-  compile.
+  itself (each leaf converted as an array of its own indices; a torch
+  axis that merges JAX axes, as the CUB attention projections' do, takes
+  the names of each). The JAX leaves are shapes only (``jax.eval_shape``):
+  no JAX compile.
 - Two gloo ranks and four (``torch_dp_worker.py --cases
   torch_state_sharding_cases``), spawned once for the module, the four
   once the two have ended; each test reads its job's result as it
@@ -22,6 +25,7 @@ rule, ``parallel/state.py``) against the JAX package's
 
 import functools
 import json
+import math
 import os
 import socket
 import subprocess
@@ -33,6 +37,7 @@ import pytest
 import torch
 
 import jax
+import jax.numpy as jnp
 
 import torch_dp_cases as cases
 import torch_state_sharding_cases as ss
@@ -41,13 +46,14 @@ from multivae_tpu.models import MMVAEConfig as JMMVAEConfig
 from multivae_tpu.models import MVTCAE as JMVTCAE
 from multivae_tpu.models import MVTCAEConfig as JMVTCAEConfig
 from multivae_tpu.nn import BaseAEConfig as JAEConfig
+from multivae_tpu.nn import cub as jcub
 from multivae_tpu.nn import mmnist as jmmnist
 from multivae_tpu.parallel.mesh import combined_state_sharding as jax_combined
 from multivae_tpu.parallel.mesh import fsdp_state_sharding as jax_fsdp
 from multivae_tpu.parallel.mesh import get_data_mesh as jax_data_mesh
 from multivae_tpu.parallel.mesh import tp_state_sharding as jax_tp
 from multivae_tpu_torch import serving
-from multivae_tpu_torch.nn.cub import TransformerEncoderLayer
+from multivae_tpu_torch.nn.cub import CubTextEncoder, TransformerEncoderLayer
 from multivae_tpu_torch.parallel import get_data_mesh
 from multivae_tpu_torch.parallel.mesh import (
     DataMesh,
@@ -56,9 +62,11 @@ from multivae_tpu_torch.parallel.mesh import (
     param_placements,
     tp_state_sharding,
 )
+from multivae_tpu_torch.parallel.state import ShardedState
 from multivae_tpu_torch.trainers import BaseTrainer
 from multivae_tpu_torch.trainers.base.callbacks import TrainingCallback
 from multivae_tpu_torch.utils.convert import params_from_jax
+from torch_parity import compiled_init
 
 TIMEOUT = 150              # seconds a worker may run
 TESTS = os.path.dirname(os.path.abspath(__file__))
@@ -291,27 +299,34 @@ def test_the_rule_matches_jax_on_the_jax_tests_leaves(mesh, leaves, rule):
 
 
 def _coded(tree):
-    """A copy of a JAX parameter tree whose leaves hold their own flat
-    indices, offset so that every leaf's are distinct (float64)."""
+    """A tree of float64 arrays shaped as ``tree``'s leaves (arrays or
+    shape structs), each holding its own flat indices, offset so that
+    every leaf's are distinct."""
     start = [0]
 
     def code(x):
-        x = np.asarray(x)
-        out = (np.arange(x.size, dtype=np.float64) + start[0]).reshape(x.shape)
-        start[0] += x.size
+        size = math.prod(x.shape)
+        out = (np.arange(size, dtype=np.float64) + start[0]).reshape(x.shape)
+        start[0] += size
         return out
 
     return jax.tree.map(code, tree)
 
 
-def _jax_specs_on_torch_axes(jmodel, jmesh, fsdp) -> dict:
-    """{port state_dict key: the JAX spec of its leaf, on the torch axes}:
-    each leaf converted by ``params_from_jax`` as its own indices, the axis
-    of each torch step read off the JAX multi-index it moves."""
-    params = jax.tree.map(np.asarray, jmodel.params)
+def _entry(names) -> object:
+    """A torch axis's spec entry: None, one axis name, or a tuple of two."""
+    return names[0] if len(names) == 1 else (tuple(names) or None)
+
+
+def _jax_specs_on_torch_axes(params, jmesh, fsdp, strip: str = "") -> dict:
+    """{port state_dict key less ``strip``: the JAX spec of its leaf, on the
+    torch axes}: each leaf of ``params`` (shapes suffice) converted by
+    ``params_from_jax`` as its own indices. A torch axis takes the name of
+    every JAX axis that moves along it, the slowest first (the order in
+    which they are merged)."""
     coded = _coded(params)
     specs = jax_combined(params, jmesh, fsdp=fsdp)
-    leaves = [(np.asarray(c), tuple(s.spec)) for c, s in zip(
+    leaves = [(c, tuple(s.spec)) for c, s in zip(
         jax.tree_util.tree_leaves(coded), jax.tree_util.tree_leaves(
             specs, is_leaf=lambda x: hasattr(x, "spec")))]
     out = {}
@@ -322,39 +337,94 @@ def _jax_specs_on_torch_axes(jmodel, jmesh, fsdp) -> dict:
                            < c.reshape(-1)[0] + c.size)
         c0 = leaf.reshape(-1)[0]
         origin = np.unravel_index(int(t[(0,) * t.ndim] - c0), leaf.shape)
-        axes, free = {}, set(range(leaf.ndim))
+        groups, free = {}, set(range(leaf.ndim))
         for a in range(t.ndim):
-            if t.shape[a] > 1:
-                step = [0] * t.ndim
-                step[a] = 1
-                moved = np.unravel_index(int(t[tuple(step)] - c0), leaf.shape)
-                (j,), = np.nonzero(np.asarray(moved) != np.asarray(origin))
-                axes[a] = int(j)
-                free.discard(j)
+            line = np.moveaxis(t, a, 0)[(slice(None),) + (0,) * (t.ndim - 1)]
+            index = np.unravel_index((line - c0).astype(np.int64), leaf.shape)
+            # JAX axis -> the first step along the torch axis that moves it
+            first_move = {j: int(np.argmax(index[j] != origin[j])) for j in range(leaf.ndim)
+                          if (index[j] != origin[j]).any()}
+            groups[a] = sorted(first_move, key=first_move.get, reverse=True)
+            free -= set(groups[a])
         for a in range(t.ndim):   # size-1 axes: a size-1 JAX axis left
-            if a not in axes:
-                axes[a] = next(j for j in sorted(free) if leaf.shape[j] == 1)
-                free.discard(axes[a])
+            if not groups[a]:
+                groups[a] = [next(j for j in sorted(free) if leaf.shape[j] == 1)]
+                free.discard(groups[a][0])
         jspec = list(jspec) + [None] * (leaf.ndim - len(jspec))
-        out[key] = tuple(jspec[axes[a]] for a in range(t.ndim))
+        out[key[len(strip):]] = tuple(_entry([jspec[j] for j in groups[a] if jspec[j] is not None])
+                                      for a in range(t.ndim))
     return out
 
 
+def _shapes(make, cls):
+    """The leaves' shapes of the JAX model ``make()`` of ``cls``."""
+    with compiled_init(cls, shapes=True):
+        model = make()
+    return model.params
+
+
 def _jax_mvtcae():
-    return JMVTCAE(JMVTCAEConfig(n_modalities=2, latent_dim=8, input_dims=ss.TP_DIMS), seed=0)
+    return _shapes(lambda: JMVTCAE(JMVTCAEConfig(n_modalities=2, latent_dim=8,
+                                                 input_dims=ss.TP_DIMS), seed=0), JMVTCAE)
 
 
 def _jax_conv_mmvae():
     cfg = JAEConfig(latent_dim=ss.CONV_LATENT, input_dim=(3, 28, 28))
-    return JMMVAE(JMMVAEConfig(n_modalities=2, latent_dim=ss.CONV_LATENT,
-                               input_dims=ss.CONV_DIMS, K=2, loss="dreg_looser"),
-                  encoders={m: jmmnist.EncoderConvMMNIST_adapted(cfg) for m in ss.CONV_DIMS},
-                  decoders={m: jmmnist.DecoderConvMMNIST(cfg) for m in ss.CONV_DIMS}, seed=0)
+    return _shapes(lambda: JMMVAE(
+        JMMVAEConfig(n_modalities=2, latent_dim=ss.CONV_LATENT, input_dims=ss.CONV_DIMS, K=2,
+                     loss="dreg_looser"),
+        encoders={m: jmmnist.EncoderConvMMNIST_adapted(cfg) for m in ss.CONV_DIMS},
+        decoders={m: jmmnist.DecoderConvMMNIST(cfg) for m in ss.CONV_DIMS}, seed=0), JMMVAE)
 
 
-# the JAX models, built once (their init is most of the rule tests' time)
-MODELS = {"mvtcae_mlp": (functools.cache(_jax_mvtcae), lambda: ss.tp_model(8, 0)),
-          "conv_mmvae": (functools.cache(_jax_conv_mmvae), ss.conv_mmvae)}
+class _JaxCubMVTCAE(JMVTCAE):
+    """The JAX MVTCAE with a token-dict text modality: its init would feed
+    every encoder a float array of ``input_dims``."""
+
+    def _dummy_input(self, mod):
+        if mod == "text":
+            return {"tokens": jnp.zeros((1, ss.CUB_LEN), jnp.int32),
+                    "padding_mask": jnp.ones((1, ss.CUB_LEN))}
+        return super()._dummy_input(mod)
+
+
+def _jax_cub_mvtcae():
+    """``ss.cub_mvtcae``'s JAX leaves."""
+    text = (ss.CUB_LEN, ss.CUB_VOCAB)
+    return _shapes(lambda: _JaxCubMVTCAE(JMVTCAEConfig(
+        n_modalities=2, latent_dim=ss.CUB_LATENT, input_dims={"image": (3, 64, 64), "text": text},
+        decoders_dist={"image": "laplace", "text": "categorical"}, beta=5.0, alpha=0.9), seed=0,
+        encoders={"image": jcub.CUB_Resnet_Encoder(latent_dim=ss.CUB_LATENT, **ss.CUB_NF),
+                  "text": jcub.CubTextEncoder(latent_dim=ss.CUB_LATENT,
+                                              max_sentence_length=ss.CUB_LEN,
+                                              ntokens=ss.CUB_VOCAB, **ss.CUB_TEXT)},
+        decoders={"image": jcub.CUB_Resnet_Decoder(latent_dim=ss.CUB_LATENT, **ss.CUB_NF),
+                  "text": jcub.CubTextDecoderMLP(JAEConfig(latent_dim=ss.CUB_LATENT,
+                                                           input_dim=text))}), JMVTCAE)
+
+
+# the CUB example's text encoder (examples/mvtcae_cub.py): embed 512, 2 heads
+# (head_dim 256), feed-forward 128, 2 layers; captions of 32 tokens, latent 64
+CUB_FULL = dict(embed_size=512, nhead=2, ff_size=128, n_layers=2)
+CUB_FULL_LEN, CUB_FULL_VOCAB, CUB_FULL_LATENT = 32, 64, 64
+
+
+def _jax_cub_text_full():
+    enc = jcub.CubTextEncoder(latent_dim=CUB_FULL_LATENT, max_sentence_length=CUB_FULL_LEN,
+                              ntokens=CUB_FULL_VOCAB, **CUB_FULL)
+    inputs = {"tokens": jnp.zeros((1, CUB_FULL_LEN), jnp.int32),
+              "padding_mask": jnp.ones((1, CUB_FULL_LEN))}
+    return {"encoders": {"x": jax.eval_shape(enc.init, jax.random.key(0), inputs)["params"]}}
+
+
+# name -> (the JAX leaves' shapes, the port's model, the prefix of the
+# converted keys that the port's model has not)
+MODELS = {"mvtcae_mlp": (functools.cache(_jax_mvtcae), lambda: ss.tp_model(8, 0), ""),
+          "conv_mmvae": (functools.cache(_jax_conv_mmvae), ss.conv_mmvae, ""),
+          "cub_mvtcae": (functools.cache(_jax_cub_mvtcae), ss.cub_mvtcae, ""),
+          "cub_text_full": (_jax_cub_text_full, lambda: CubTextEncoder(
+              CUB_FULL_LATENT, CUB_FULL_LEN, CUB_FULL_VOCAB, **CUB_FULL), "encoders.x.")}
+LAYER = "encoders.text.layers.0."
 
 
 @pytest.mark.parametrize("fsdp", [True, False])
@@ -363,10 +433,14 @@ MODELS = {"mvtcae_mlp": (functools.cache(_jax_mvtcae), lambda: ss.tp_model(8, 0)
 def test_the_rule_matches_jax_on_every_leaf_of_a_converted_model(model, mesh, fsdp):
     """Every parameter of the port's model: its placement is the JAX spec of
     the leaf it converts from, on the torch axes; the conv model's conv,
-    transposed-conv and dense kernels and their biases among the cut ones."""
-    make_jax, make_port = MODELS[model]
-    jmodel, tmodel = make_jax(), make_port()
-    want = _jax_specs_on_torch_axes(jmodel, _jax_mesh(mesh), fsdp)
+    transposed-conv and dense kernels and their biases among the cut ones.
+    The CUB text encoder's attention projections are judged on their
+    per-head JAX leaves, where a Dense reading would cut otherwise: at
+    head_dim 16 the query stays whole on the model axis, and at 2 heads the
+    (heads, head_dim, out) kernel stays whole over data 4 and 8."""
+    make_jax, make_port, strip = MODELS[model]
+    tmodel = make_port()
+    want = _jax_specs_on_torch_axes(make_jax(), _jax_mesh(mesh), fsdp, strip)
     got = param_placements(tmodel, _port_mesh(mesh), fsdp=fsdp)
     assert set(got) == set(want) == set(dict(tmodel.named_parameters()))
     for k, spec in want.items():
@@ -375,17 +449,49 @@ def test_the_rule_matches_jax_on_every_leaf_of_a_converted_model(model, mesh, fs
     if model == "conv_mmvae" and MESHES[mesh][1] > 1:
         assert got["encoders.m0.conv.1.weight"] == ("model", None, None, None)
         assert got["decoders.m0.deconv.0.weight"][1] == "model"
+    if model == "cub_mvtcae" and MESHES[mesh][1] > 1:
+        # a Dense reading of the (64, 4, 16) kernel would cut its 64 columns
+        assert "model" not in got[LAYER + "query.weight"]
+        assert got[LAYER + "out.weight"][0] == "model"
+    if model == "cub_text_full" and fsdp:
+        # (2, 256, 512): 2 heads do not divide over data 4 or 8; a Dense
+        # reading (512 rows) would cut it
+        assert "data" not in got["layers.0.out.weight"]
+        assert got["layers.0.query.weight"][1] == "data"
 
 
-def test_a_leaf_the_port_cannot_judge_raises():
-    """The CUB text encoder's attention kernels are 3-D leaves in the JAX
-    package, no permutation of the port's Linear weights: sharding a model
-    that holds them raises, naming them, and never trains replicated."""
-    layer = TransformerEncoderLayer(64, 4, 128)
-    with pytest.raises(NotImplementedError, match="query.*reshaped"):
+def test_a_merged_axis_takes_both_names():
+    """A (heads, head_dim) bias of 1024 entries on data 4 x model 2 with
+    ``fsdp``: JAX cuts heads over "data" and head_dim over "model", so the
+    port's one torch axis takes both names; its state keeps a column block
+    of the query Linear (output rows) cut in flat pieces over "data", an
+    eighth of the leaf a rank, as JAX's ``P(("data", "model"))``."""
+    jlayer = jcub.TransformerEncoderLayer(1024, 4, 64)
+    x, mask = jnp.zeros((1, 2, 1024)), jnp.ones((1, 2))
+    params = {"encoders": {"x": {"TransformerEncoderLayer_0": jax.eval_shape(
+        jlayer.init, jax.random.key(0), x, mask)["params"]}}}
+    want = _jax_specs_on_torch_axes(params, _jax_mesh("4x2"), True, "encoders.x.layers.0.")
+    layer = TransformerEncoderLayer(1024, 4, 64)
+    got = param_placements(layer, _port_mesh("4x2"), fsdp=True)
+    for k, spec in want.items():
+        assert _strip(got[k]) == _strip(spec), (k, got[k], spec)
+    assert got["query.bias"] == (("data", "model"),)
+    assert got["query.weight"] == ("model", "data")
+    leaves = {leaf.name: leaf for leaf in ShardedState(layer, _port_mesh("4x2"), True).leaves}
+    for name in ("query.weight", "query.bias"):
+        leaf = leaves[name]
+        assert (leaf.column_dim, leaf.data_cut, leaf.model_cut) == (0, True, False), name
+        assert leaf.master.numel() * 8 == math.prod(leaf.shape), name
+
+
+def test_a_declared_leaf_that_does_not_merge_to_its_parameter_raises():
+    """A module's declared JAX leaf must merge to its parameter's shape:
+    a layout whose sizes do not (here the heads and head_dim of another
+    width) raises, naming the parameter, instead of a wrong placement."""
+    layer = TransformerEncoderLayer(64, 4, 64)
+    layer.jax_leaves = lambda: {"query.weight": ((64, 2, 16), ((1, 2), (0,)))}
+    with pytest.raises(ValueError, match=r"Linear.weight.*\(64, 2, 16\).*\[32, 64\]"):
         param_placements(layer, _port_mesh("4x2"), fsdp=True)
-    # with nothing to cut (plain data parallelism) every leaf stays whole
-    assert set(param_placements(layer, _port_mesh("8"), fsdp=False).values()) == {()}
 
 
 def test_the_mesh_counts_the_data_axis(monkeypatch):
@@ -696,6 +802,41 @@ def test_an_endpoint_exported_after_fsdp_training_holds_no_topology(workers, tmp
                                    atol=1e-6, err_msg=m)
 
 
+@pytest.mark.parametrize("job", ["cub_fsdp", "cub_tp"])
+def test_the_cub_mvtcae_over_two_ranks(workers, tmp_path, job):
+    """MVTCAE on the CUB nets, whose text encoder's attention projections
+    are judged on their per-head JAX leaves: with ``fsdp`` over data 2
+    bit-equal to the replicated two ranks (history, whole weights, whole
+    optimizer state); over model 2 within float32 noise of one process,
+    the query Linears whole (head_dim 16) and the out Linears computing
+    their own columns."""
+    ranks = workers.ranks(job)
+    if job == "cub_fsdp":
+        _ranks_agree([r[True] for r in ranks])
+        ours, replicated = ranks[0][True], ranks[0][False]
+        _same_run(ours, replicated, exact=True)
+        _same_optimizer_state(ours["optimizer"], replicated["optimizer"])
+        assert ours["n_data"] == 2
+        assert ours["placements"][LAYER + "query.weight"] == (None, "data")
+        assert ours["placements"][LAYER + "out.weight"] == (None, "data")
+        return
+    _ranks_agree(ranks)
+    ours = ranks[0]
+    assert (ours["n_data"], ours["n_model"]) == (1, 2)
+    # one thread, as each rank: the Laplace image loss's gradient flips a
+    # pixel's sign where float32 rounding crosses its target, and the
+    # thread count alone moves one process's second epoch loss by 1e-5
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        alone = ss.train(ss.cub_trainer(str(tmp_path), "alone"))
+    finally:
+        torch.set_num_threads(threads)
+    _same_run(ours, alone, exact=False)
+    assert ours["placements"][LAYER + "query.weight"] == ()
+    assert ours["placements"][LAYER + "out.weight"] == ("model", None)
+
+
 # ------------------------------------------------------------ four ranks
 def test_fsdp_and_the_model_axis_together(workers, tmp_path):
     """The JAX ``test_tp_composes_with_fsdp`` layout: data 2 x model 2 with
@@ -714,6 +855,20 @@ def test_fsdp_and_the_model_axis_together(workers, tmp_path):
     assert both
     for k in both:
         assert np.prod(ours["cut"][k][0]) * 4 == alone["live"][k].numel()
+
+
+def test_the_cub_mvtcae_sharded_checkpoint_restores_whole(workers, tmp_path):
+    """``cub_fsdp``'s ``"orbax"`` checkpoint (two ``fsdp`` ranks) restores
+    bit-equal, whole weights and optimizer state, into one process and into
+    data 2 x model 2 with ``fsdp``, where the out Linears are cut on both
+    axes."""
+    ours = workers.load("cub_fsdp")[True]
+    trainer = ss.cub_trainer(str(tmp_path), "restored", checkpoint=os.path.join(
+        ours["training_dir"], "checkpoint_epoch_2"))
+    _same_restore(ss.restored(trainer), ours)
+    for four in workers.ranks("cub_2x2", world=4):
+        _same_restore(four, ours)
+        assert four["placements"][LAYER + "out.weight"] == ("model", "data")
 
 
 def test_the_sharded_cache_on_a_2x2_mesh_shards_rows_over_data_only(workers):

@@ -58,13 +58,14 @@ def chain(key, n):
 
 
 @contextlib.contextmanager
-def compiled_init(cls):
+def compiled_init(cls, shapes: bool = False):
     """Inside the block, a JAX model of ``cls`` built by its constructor
     defers its parameter init; on exit each such model gets its params from
     the same init on the same key, compiled once by ``jax.jit`` instead of
     run op by op (the same values: the JAX package's host init would
     otherwise compile each op of a model's first build, 20 s for the CUB
-    nets)."""
+    nets). With ``shapes`` each gets only its leaves' shapes and dtypes
+    (``jax.eval_shape``): nothing is compiled or run."""
     own = "init_params" in cls.__dict__
     plain = cls.init_params
     deferred = []
@@ -77,7 +78,8 @@ def compiled_init(cls):
         else:
             del cls.init_params
     for model in dict.fromkeys(deferred):
-        model.params = jax.jit(lambda rng, model=model: plain(model, rng))(model.next_rng())
+        init, rng = (lambda rng, model=model: plain(model, rng)), model.next_rng()
+        model.params = jax.eval_shape(init, rng) if shapes else jax.jit(init)(rng)
 
 
 def state_of(params):

@@ -35,6 +35,11 @@ Two ranks (data 2, or data 1 x model 2):
 - ``fsdp_export``: MVTCAE with ``fsdp``; an endpoint's export at the end of
   epoch 1 (the modules hold the masters) must raise, and after ``train()``
   rank 0 exports a deterministic ``Predictor``.
+- ``cub_fsdp``: ``cub_mvtcae`` (MVTCAE on narrow CUB nets: the text
+  encoder's per-head attention projections, reshaped JAX leaves) replicated
+  and with ``fsdp`` over data 2, the latter saving its train state sharded
+  (``"orbax"``) at its end.
+- ``cub_tp``: ``cub_mvtcae`` over data 1 x model 2.
 
 Four ranks (data 2 x model 2):
 
@@ -45,6 +50,8 @@ Four ranks (data 2 x model 2):
 - ``orbax_2x2``: ``fsdp_orbax``'s epoch 3 restored with ``fsdp``: the whole
   weights and optimizer state right after the restore, then one epoch,
   saved sharded in this layout (the test restores it in one process).
+- ``cub_2x2``: ``cub_fsdp``'s checkpoint restored with ``fsdp`` on data 2 x
+  model 2: the whole weights and optimizer state right after the restore.
 """
 
 import copy
@@ -58,6 +65,12 @@ import torch_dp_cases as cases
 from multivae_tpu_torch.data import MultimodalBaseDataset
 from multivae_tpu_torch.models import MMVAE, MVTCAE, MMVAEConfig, MVTCAEConfig
 from multivae_tpu_torch.nn import BaseAEConfig
+from multivae_tpu_torch.nn.cub import (
+    CUB_Resnet_Decoder,
+    CUB_Resnet_Encoder,
+    CubTextDecoderMLP,
+    CubTextEncoder,
+)
 from multivae_tpu_torch.nn.mmnist import DecoderConvMMNIST, EncoderConvMMNIST_adapted
 from multivae_tpu_torch.parallel.state import state_nbytes
 from multivae_tpu_torch.serving import Predictor
@@ -107,6 +120,47 @@ def conv_mmvae():
                              K=2, loss="dreg_looser"),
                  encoders={m: EncoderConvMMNIST_adapted(cfg) for m in CONV_DIMS},
                  decoders={m: DecoderConvMMNIST(cfg) for m in CONV_DIMS}, device="cpu")
+
+
+# cub_mvtcae: the CUB example's two modalities on narrow nets: 3x64x64
+# images through the resnets at nfilter 8 (at most 16), captions of CUB_LEN
+# tokens through a text encoder of embed 64 and 4 heads (head_dim 16: JAX
+# leaves its query, key and value whole on a model axis), CUB_ROWS random
+# rows, CUB_BATCH a step over all ranks; SGD at CONV_LR, as its loss of
+# ~8e3 sums over 3 x 64 x 64 pixels
+CUB_LEN, CUB_VOCAB, CUB_LATENT, CUB_ROWS, CUB_EVAL, CUB_BATCH = 8, 32, 4, 16, 8, 8
+CUB_TEXT = dict(embed_size=64, nhead=4, ff_size=64, n_layers=2)
+CUB_NF = dict(nfilter=8, nfilter_max=16)
+
+
+def cub_data():
+    rng = np.random.default_rng(6)
+    out = []
+    for n in (CUB_ROWS, CUB_EVAL):
+        lengths = rng.integers(1, CUB_LEN + 1, n)
+        out.append(MultimodalBaseDataset({
+            "image": rng.uniform(size=(n, 3, 64, 64)).astype(np.float32),
+            "text": {"tokens": rng.integers(0, CUB_VOCAB, (n, CUB_LEN)),
+                     "padding_mask": (np.arange(CUB_LEN)[None] < lengths[:, None]).astype(
+                         np.float32)}}))
+    return out
+
+
+def cub_mvtcae():
+    text = (CUB_LEN, CUB_VOCAB)
+    encoders = {"image": CUB_Resnet_Encoder(CUB_LATENT, **CUB_NF),
+                "text": CubTextEncoder(CUB_LATENT, CUB_LEN, CUB_VOCAB, **CUB_TEXT)}
+    decoders = {"image": CUB_Resnet_Decoder(CUB_LATENT, **CUB_NF),
+                "text": CubTextDecoderMLP(BaseAEConfig(latent_dim=CUB_LATENT, input_dim=text))}
+    generator = torch.Generator().manual_seed(8)
+    for m in encoders:
+        encoders[m].reset_parameters(generator)
+        decoders[m].reset_parameters(generator)
+    return MVTCAE(MVTCAEConfig(n_modalities=2, latent_dim=CUB_LATENT,
+                               input_dims={"image": (3, 64, 64), "text": text},
+                               decoders_dist={"image": "laplace", "text": "categorical"},
+                               beta=5.0, alpha=0.9),
+                  encoders=encoders, decoders=decoders, device="cpu")
 
 
 def config(outdir, name, **kw):
@@ -190,6 +244,28 @@ def conv_case(outdir, name, **kw):
     return train(conv_trainer(outdir, name, **kw))
 
 
+def cub_trainer(outdir, name, checkpoint=None, **kw):
+    train_set, eval_set = cub_data()
+    per_device = CUB_BATCH // kw.get("n_devices", 1)
+    return BaseTrainer(cub_mvtcae(), train_set, eval_set, device="cpu", checkpoint=checkpoint,
+                       training_config=config(outdir, name, learning_rate=CONV_LR,
+                                              per_device_train_batch_size=per_device,
+                                              per_device_eval_batch_size=per_device, **kw))
+
+
+def cub_fsdp_case(outdir):
+    """Replicated and ``fsdp`` over data 2, the latter saving sharded at its
+    end."""
+    out = {}
+    for fsdp in (False, True):
+        trainer = cub_trainer(outdir, f"cub_{fsdp}", n_devices=2, fsdp=fsdp,
+                              **(dict(checkpoint_backend="orbax", steps_saving=2)
+                                 if fsdp else {}))
+        out[fsdp] = train(trainer)
+    out[True]["training_dir"] = trainer.training_dir
+    return out
+
+
 def tp_mvtcae_case(outdir, **kw):
     return train(BaseTrainer(tp_model(4, 5), tp_data(), device="cpu",
                              training_config=config(outdir, "tp_mvtcae", num_epochs=1,
@@ -240,10 +316,10 @@ def restored(trainer) -> dict:
                 optimizer=copy.deepcopy(state.optimizer_state_whole(trainer.optimizer)))
 
 
-def orbax_checkpoint(outdir: str, epoch: int) -> str:
-    """``fsdp_orbax``'s checkpoint of ``epoch`` in the two ranks' result
-    folder ``outdir``."""
-    parent = os.path.join(outdir, "orbax")
+def orbax_checkpoint(outdir: str, epoch: int, run: str = "orbax") -> str:
+    """``fsdp_orbax``'s checkpoint of ``epoch`` (or that of the two ranks'
+    ``run``) in the two ranks' result folder ``outdir``."""
+    parent = os.path.join(outdir, run)
     (training_dir,) = os.listdir(parent)
     return os.path.join(parent, training_dir, f"checkpoint_epoch_{epoch}")
 
@@ -315,6 +391,15 @@ def orbax_2x2_case(outdir):
     return out
 
 
+def cub_2x2_case(outdir):
+    """``cub_fsdp``'s sharded checkpoint restored into data 2 x model 2 with
+    ``fsdp``."""
+    trainer = cub_trainer(outdir, "cub_2x2", n_devices=2, n_model_devices=2, fsdp=True,
+                          checkpoint=orbax_checkpoint(os.path.join(os.path.dirname(outdir),
+                                                                   "world2"), 2, "cub_True"))
+    return dict(restored(trainer), placements=trainer._state.placements)
+
+
 def both_case(outdir):
     return train(BaseTrainer(tp_model(8, 7), tp_data(), device="cpu",
                              training_config=config(outdir, "both", n_devices=2,
@@ -357,7 +442,8 @@ def jobs(outdir: str, port: str, world: int, rank: int, spec):
     if world == 4:
         return [job("both", lambda: both_case(outdir)),
                 job("cache_2x2", lambda: cache_2x2_case(outdir)),
-                job("orbax_2x2", lambda: orbax_2x2_case(outdir))]
+                job("orbax_2x2", lambda: orbax_2x2_case(outdir)),
+                job("cub_2x2", lambda: cub_2x2_case(outdir))]
     return [job("tp_conv", lambda: conv_case(outdir, "tp_conv", n_model_devices=2)),
             job("fsdp_conv", lambda: conv_case(outdir, "fsdp_conv", n_devices=2, fsdp=True)),
             job("tp_mvtcae", lambda: tp_mvtcae_case(outdir, n_model_devices=2)),
@@ -368,4 +454,6 @@ def jobs(outdir: str, port: str, world: int, rank: int, spec):
             job("fsdp_chunked", lambda: chunked_case(outdir)),
             job("fsdp_telbo", lambda: telbo_case(outdir)),
             job("fsdp_microbatch", lambda: microbatch_case(outdir)),
-            job("fsdp_export", lambda: export_case(outdir))]
+            job("fsdp_export", lambda: export_case(outdir)),
+            job("cub_fsdp", lambda: cub_fsdp_case(outdir)),
+            job("cub_tp", lambda: train(cub_trainer(outdir, "cub_tp", n_model_devices=2)))]
